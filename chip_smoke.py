@@ -8,10 +8,14 @@ Phases (each prints its lines; any failure exits non-zero):
 1. build    nvcc compiles the port's CUDA sources (savsr_tpu_torch/csrc/*.cu,
             one process per source, all at once) for sm_90a.
 2. kernels  each kernel wrapper against its plain PyTorch version on the
-            card, at the serving path's shapes (8 windows of 180x320 per
-            launch, x4, flagship widths), f32 and bf16: max abs error, median time, the plain
+            card, f32 and bf16: max abs error, median time, the plain
             version's time, the time of one library call computing the same
             function (where there is one) and the card's bound for the work.
+            The serving kernels at the serving path's shapes (8 windows of
+            180x320 per launch, x4, flagship widths); the two OSConv kernels
+            at the training path's (8 samples of 60x60, Cin 192/320/64 ->
+            64, forward, dx and weight gradient), and the autograd Function's
+            dx/dagg against autograd through the plain version.
 3. parity   flagship weights (tests/goldens/savsr_state_dict.npz, loaded
             with load_state_dict(strict=True)) on the strict tier against the
             reference torch outputs (tests/goldens/savsr_realsize_forward.npz)
@@ -24,6 +28,21 @@ Phases (each prints its lines; any failure exits non-zero):
             window is held against the strict tier (deviation PSNR >= 50 dB).
 5. profile  device time by kernel over one bf16 serving forward of 8
             windows (torch.profiler), against its unprofiled time.
+6. train-parity  the small config in strict f32 on the card: one loss +
+            backward on the golden batch against the torch oracle's
+            gradients (tests/goldens/savsr_small_grads.npz: loss within
+            1e-5, every gradient within 2e-3 of its own max), through the
+            OSConv kernels, no plain version on the card.
+7. training savsr_tpu_torch.train.train_pipeline on 32 seeded 256x448
+            septuplets with the flagship recipe (num_feat 64, B=16 = 2x8
+            micro-batches of 60x60 LR crops, bf16, Charbonnier, Adam +
+            CosineAnnealingRestartLR, EMA 0.999), 6 iterations: losses
+            finite, checkpoint written and reloaded, the OSConv kernels'
+            launches per step as the architecture gives them, ms/step and
+            samples/s over the steps after the first two, peak memory. This
+            is the training main-path run for the two OSConv kernels.
+8. train-profile  device time by kernel over one more training step of that
+            model, against its unprofiled time.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}};
@@ -52,6 +71,8 @@ from savsr_tpu_torch.data.data_util import generate_frame_indices
 from savsr_tpu_torch.inference import (build_serving_model, flagship_net_kwargs,
                                        load_params, main as serve_main)
 from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
+from savsr_tpu_torch.ops.osconv import (osconv_agg, osconv_agg_plain, osconv_agg_train,
+                                        osconv_dagg, osconv_dagg_plain)
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
 from savsr_tpu_torch.ops.stau import stau_upsample_fused, stau_upsample_fused_plain
 from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
@@ -81,7 +102,15 @@ SOURCES = {
     "sta": ("savsr_tpu_torch/csrc/sta.cu", "savsr_tpu/ops/pallas/sta_kernel.py:84"),
     "stau": ("savsr_tpu_torch/csrc/stau.cu", "savsr_tpu/ops/pallas/stau_kernel.py:183"),
     "tail": ("savsr_tpu_torch/csrc/tail.cu", "savsr_tpu/ops/pallas/tail_kernel.py:89"),
+    "osconv_agg": ("savsr_tpu_torch/csrc/osconv.cu",
+                   "savsr_tpu/ops/pallas/osconv_kernel.py:139"),
+    "osconv_dagg": ("savsr_tpu_torch/csrc/osconv.cu",
+                    "savsr_tpu/ops/pallas/osconv_kernel.py:303"),
 }
+SERVING_KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail")
+TRAINING_KERNELS = ("osconv_agg", "osconv_dagg")
+# the training path's shapes: a micro-batch of 8 samples of 60x60 LR crops
+TRAIN_B, TRAIN_HW = 8, (60, 60)
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -123,9 +152,11 @@ def nbytes(*ts) -> int:
 
 
 def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
-          io_bytes: int, dtype, device) -> dict:
+          io_bytes: int, dtype, device, tol=None) -> dict:
     """Run the kernel and its plain version on the same inputs, compare in
-    f32, time both (and the library call), and return the result row."""
+    f32, time both (and the library call), and return the result row.
+    ``tol`` (relative to max|plain|) overrides TOL[dtype]."""
+    tol = TOL[dtype] if tol is None else tol
     with torch.no_grad():
         want = plain_fn().float()
         got = kernel_fn().float()
@@ -133,7 +164,7 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
             torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= TOL[dtype] * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol * scale
         ms = timed_ms(kernel_fn, device)
         plain_ms = timed_ms(plain_fn, device, reps=3, iters=3)
         lib_ms = None if library_fn is None else timed_ms(library_fn, device)
@@ -142,8 +173,8 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
            "max_abs_plain": scale, "ok": ok, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-    log(f"[kernels] {name:8s} {label:44s} {DT_NAME[dtype]:4s} err {err:.3e} "
-        f"(tol {TOL[dtype] * scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} lib {lib} "
+    log(f"[kernels] {name:11s} {label:44s} {DT_NAME[dtype]:4s} err {err:.3e} "
+        f"(tol {tol * scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} lib {lib} "
         f"bound {b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
     return row
 
@@ -170,7 +201,22 @@ CONV_CASES = [
     ("conv1 3x64->64 lrelu", 1, [64] * 3, 64, False, (False, False, True, False)),
     ("all-epilogue 1x1 64+64->64 per-sample", 1, [64, 64], 64, True, (True, True, True, True)),
 ]
-HEADLINE = {"conv3x3": "conv0 64->64 lrelu", "conv1x1": "conv1 3x64->64 lrelu"}
+HEADLINE = {"conv3x3": "conv0 64->64 lrelu", "conv1x1": "conv1 3x64->64 lrelu",
+            "osconv_agg": "fwd 192->64 (WindowUnit_l1)", "osconv_dagg": "192->64 (WindowUnit_l1)"}
+# (label, Cin, Cout, as dx): the OSConvs of the training forward (3x64 -> 64
+# in WindowUnit_l1, 5x64 -> 64 in WindowUnit_l2, 64 -> 64 in OSAdapt), k = 3,
+# padding 1, and their dx calls: the same kernel on the cotangent with
+# flipped taps and swapped channel axes at padding 3-1-1 = 1
+OSCONV_CASES = [
+    ("fwd 192->64 (WindowUnit_l1)", 192, 64, False),
+    ("fwd 320->64 (WindowUnit_l2)", 320, 64, False),
+    ("fwd 64->64 (OSAdapt)", 64, 64, False),
+    ("dx 64->192 (WindowUnit_l1)", 192, 64, True),
+    ("dx 64->320 (WindowUnit_l2)", 320, 64, True),
+    ("dx 64->64 (OSAdapt)", 64, 64, True),
+]
+DAGG_CASES = [("192->64 (WindowUnit_l1)", 192, 64), ("320->64 (WindowUnit_l2)", 320, 64),
+              ("64->64 (OSAdapt)", 64, 64)]
 
 
 def conv_case(rng, label, k, chans, cout, per_sample, epi, dtype, device, b=WINDOWS):
@@ -206,6 +252,72 @@ def conv_case(rng, label, k, chans, cout, per_sample, epi, dtype, device, b=WIND
     flops = 2.0 * k * k * cin * cout * h * w * b
     io = nbytes(*parts, weight, bias, pre, out_scale, res) + b * cout * h * w * x_cat.element_size()
     return check(name, label, kernel, plain, library, flops, io, dtype, device)
+
+
+def osconv_agg_case(rng, label, cin, cout, as_dx, dtype, device, b=TRAIN_B):
+    """Kernel 6 at a training shape: forward, or the backward's dx call."""
+    h, w = TRAIN_HW
+    agg = _rand(rng, (b, 3, 3, cin, cout), dtype, device, std=(cin * 9) ** -0.5)
+    if as_dx:  # the cotangent through the flipped, channel-swapped weight
+        x = _rand(rng, (b, cout, h, w), dtype, device)
+        agg = agg.flip(1, 2).transpose(3, 4).contiguous()
+    else:
+        x = _rand(rng, (b, cin, h, w), dtype, device)
+    ci, co = agg.shape[3], agg.shape[4]
+    w_oihw = agg.permute(0, 4, 3, 1, 2).reshape(b * co, ci, 3, 3).contiguous()
+
+    def library():
+        return F.conv2d(x.reshape(1, b * ci, h, w), w_oihw, padding=1, groups=b)
+
+    flops = 2.0 * 9 * ci * co * h * w * b
+    io = nbytes(x, agg) + b * co * h * w * x.element_size()
+    return check("osconv_agg", label, lambda: osconv_agg(x, agg, 1),
+                 lambda: osconv_agg_plain(x, agg, 1), library, flops, io, dtype, device)
+
+
+def osconv_dagg_case(rng, label, cin, cout, dtype, device, b=TRAIN_B):
+    """Kernel 7 at a training shape. Its output is f32 for both input types
+    and both it and the plain version widen the inputs to f32 before they
+    multiply, so they differ only in the order of the f32 sum over the 3600
+    pixels: 1e-4 of max|plain| for f32 and bf16 inputs alike. The kernel's
+    sum order is fixed (chunk partials added in chunk order), so a second
+    launch must give the same bits."""
+    h, w = TRAIN_HW
+    x = _rand(rng, (b, cin, h, w), dtype, device)
+    g = _rand(rng, (b, cout, h, w), dtype, device)
+
+    def library():
+        return torch.nn.grad.conv2d_weight(x.reshape(1, b * cin, h, w), (b * cout, cin, 3, 3),
+                                           g.reshape(1, b * cout, h, w), padding=1, groups=b)
+
+    if not torch.equal(osconv_dagg(x, g, 3, 3, 1), osconv_dagg(x, g, 3, 3, 1)):
+        raise AssertionError(f"osconv_dagg {label}: two launches disagree")
+    flops = 2.0 * 9 * cin * cout * h * w * b
+    io = nbytes(x, g) + b * 9 * cin * cout * 4
+    return check("osconv_dagg", label, lambda: osconv_dagg(x, g, 3, 3, 1),
+                 lambda: osconv_dagg_plain(x, g, 3, 3, 1), library, flops, io, dtype, device,
+                 tol=1e-4)
+
+
+def osconv_function_check(rng, device, b=TRAIN_B) -> None:
+    """The autograd Function's dx and dagg (kernels) against autograd through
+    the plain version, f32, 192 -> 64: 1e-4 of each gradient's max (f32 sums
+    in another order)."""
+    h, w = TRAIN_HW
+    x = _rand(rng, (b, 192, h, w), torch.float32, device)
+    agg = _rand(rng, (b, 3, 3, 192, 64), torch.float32, device, std=(192 * 9) ** -0.5)
+    cot = _rand(rng, (b, 64, h, w), torch.float32, device)
+    grads = []
+    for fn in (osconv_agg_train, osconv_agg_plain):
+        xr, ar = x.clone().requires_grad_(), agg.clone().requires_grad_()
+        (fn(xr, ar, 1) * cot).sum().backward()
+        grads.append((xr.grad, ar.grad))
+    for name, got, want in zip(("dx", "dagg"), *grads):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        log(f"[kernels] osconv_agg_train {name} vs autograd of the plain version: err {err:.3e} "
+            f"(tol {1e-4 * scale:.3e}) {'ok' if err <= 1e-4 * scale else 'FAIL'}")
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"osconv_agg_train {name} disagrees with autograd: {err}")
 
 
 def sta_case(rng, model, dtype, device, b=WINDOWS):
@@ -263,7 +375,7 @@ def tail_case(rng, model, dtype, device, b=WINDOWS):
 
 
 def phase_kernels(model, device) -> list:
-    """Every kernel against its plain version at the serving shapes."""
+    """Every kernel against its plain version at its path's shapes."""
     rng = np.random.default_rng(0)
     rows = []
     with float32_precision(True):
@@ -274,6 +386,11 @@ def phase_kernels(model, device) -> list:
             rows.append(sta_case(rng, model, dtype, device))
             rows.append(stau_case(rng, model, statics, dtype, device))
             rows.append(tail_case(rng, model, dtype, device))
+            for case in OSCONV_CASES:
+                rows.append(osconv_agg_case(rng, *case, dtype, device))
+            for case in DAGG_CASES:
+                rows.append(osconv_dagg_case(rng, *case, dtype, device))
+        osconv_function_check(rng, device)
     failed = [f"{r['name']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
@@ -285,9 +402,12 @@ def deviation_psnr(y: np.ndarray, ref: np.ndarray) -> float:
     return float("inf") if mse == 0 else float(10 * np.log10(1.0 / mse))
 
 
-def require_kernels_ran(phase: str) -> dict:
+def require_kernels_ran(phase: str, kernels=SERVING_KERNELS) -> dict:
+    """The launch counts since the last reset: every kernel of ``kernels``
+    (the path's own) must have launched and no plain version may have run on
+    the card."""
     launches, plain = dict(ops.launches), dict(ops.plain_cuda_calls)
-    if any(v == 0 for v in launches.values()) or any(plain.values()):
+    if any(launches[k] == 0 for k in kernels) or any(plain.values()):
         raise AssertionError(f"{phase}: kernel launches {launches}, plain versions on the "
                              f"card {plain}")
     return launches
@@ -430,6 +550,272 @@ def phase_profile(sd, device, windows: int = WINDOWS) -> None:
         f"device events")
 
 
+SMALL_CFG = dict(num_in_ch=3, num_feat=16, num_frame=7, slid_win=3, fusion_win=5, interval=0,
+                 w1_num_block=2, w2_num_block=1, n_resgroups=1, n_resblocks=2)
+
+
+def phase_train_parity(device) -> None:
+    """Small config, strict f32 (TF32 off) on the card: one Charbonnier loss
+    + backward on the golden batch against the torch oracle's gradients, at
+    the bounds tests/test_grad_parity.py holds the JAX package to (loss 1e-5;
+    every gradient within 2e-3 of its own max)."""
+    golden = np.load(os.path.join(GOLDENS, "savsr_small_grads.npz"))
+    model = SAVSR(**SMALL_CFG, remat_train=False)
+    load_into(model, {k: torch.from_numpy(v)
+                      for k, v in np.load(os.path.join(GOLDENS, "savsr_small_state.npz")).items()})
+    model.to(device).train()
+    lq, gt = torch.from_numpy(golden["lq"]).to(device), torch.from_numpy(golden["gt"]).to(device)
+    ops.reset_counts()
+    sr, _ = model(lq, (2.0, 2.0), train=True)
+    loss = torch.sqrt((sr - gt) ** 2 + 1e-12).mean()
+    loss.backward()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = require_kernels_ran("train-parity", TRAINING_KERNELS)
+    # per gradient: |d| <= 2e-3 * max|ref| + 1e-7. The absolute term is for
+    # the near-dead gradients (the routing biases in front of a
+    # batch-statistics BatchNorm, max|ref| < 1e-6, where the golden itself is
+    # f32 cancellation noise of sums of O(1e-2) terms); it is 1e-4 of the
+    # smallest live gradient's 2e-3 band and changes nothing for the rest.
+    worst_rel, worst_abs, failed = (0.0, None), (0.0, None), []
+    for k, p in model.named_parameters():
+        ref = golden["g/" + k]
+        err, ref_max = float(np.abs(p.grad.cpu().numpy() - ref).max()), float(np.abs(ref).max())
+        if ref_max >= 1e-5:
+            worst_rel = max(worst_rel, (err / ref_max, k))
+        else:
+            worst_abs = max(worst_abs, (err, k))
+        if not err <= 2e-3 * ref_max + 1e-7:
+            failed.append((k, err, ref_max))
+    d_loss = abs(float(loss.detach()) - float(golden["loss"]))
+    log(f"[train-parity] small config f32: loss {float(loss.detach()):.8f} vs golden "
+        f"{float(golden['loss']):.8f} (|d| {d_loss:.2e}, bound 1e-5); worst gradient "
+        f"{worst_rel[0]:.3e} of its max at {worst_rel[1]} (bound 2e-3); near-dead gradients "
+        f"(max < 1e-5): worst |d| {worst_abs[0]:.2e} at {worst_abs[1]} (bound 1e-7); launches "
+        f"osconv_agg {launches['osconv_agg']}, osconv_dagg {launches['osconv_dagg']}")
+    if not d_loss < 1e-5 or failed:
+        raise AssertionError(f"train-parity: loss off by {d_loss}, gradients off: {failed[:5]}")
+
+
+TRAIN_ITERS = 6
+TRAIN_YML = """
+name: smoke_SAVSR_Vimeo90K_asBI
+model_type: ASVSRModel
+num_gpu: 1
+manual_seed: 114514
+datasets:
+  train:
+    name: Vimeo90K
+    type: ASVimeo90KDataset
+    dataroot_gt: {root}/sequences
+    dataroot_lq: {root}/sequences
+    meta_info_file: {root}/meta.txt
+    io_backend:
+      type: disk
+    num_frame: 7
+    lq_size: 60
+    downsample_mode: torch
+    init_int_scale: true
+    single_scale_ft: false
+    CL_train_set: [240, 3, 5]
+    gt_size: 256
+    interval_list: [1]
+    random_reverse: true
+    use_hflip: true
+    use_rot: true
+    flip_sequence: false
+    num_worker_per_gpu: 4
+    batch_size_per_gpu: 16
+    # 32 septuplets stand in for the 64,612 of Vimeo90K: enlarged so that the
+    # 6 iterations stay inside one epoch, as they do on the real set (the
+    # loader restarts its workers at every epoch boundary)
+    dataset_enlarge_ratio: 4
+    prefetch_mode: device
+network_g:
+  type: SAVSR
+  num_in_ch: 3
+  num_feat: 64
+  num_frame: 7
+  slid_win: 3
+  fusion_win: 5
+  interval: 0
+  w1_num_block: 4
+  w2_num_block: 2
+  n_resgroups: 4
+  n_resblocks: 8
+  center_frame_idx: ~
+  osconv_impl: pallas_train
+  remat_train: false
+path:
+  pretrain_network_g: ~
+  strict_load_g: true
+  resume_state: ~
+train:
+  ema_decay: 0.999
+  bf16: true
+  accum_steps: 2
+  aot_cache: true
+  optim_g:
+    type: Adam
+    lr: !!float 2e-4
+    weight_decay: 0
+    betas: [0.9, 0.999]
+  scheduler:
+    type: CosineAnnealingRestartLR
+    periods: [300000, 300000, 300000, 300000]
+    restart_weights: [1, 0.5, 0.5, 0.5]
+    eta_min: !!float 1e-7
+  total_iter: {iters}
+  warmup_iter: -1
+  pixel_opt:
+    type: CharbonnierLoss
+    loss_weight: 1.0
+    reduction: mean
+logger:
+  print_freq: 1
+  save_checkpoint_freq: {iters}
+  use_tb_logger: false
+  wandb:
+    project: ~
+    resume_id: ~
+"""
+
+
+def write_septuplets(root: str, n: int, hw=(256, 448)) -> None:
+    """``n`` seeded Vimeo-style septuplets (smooth texture + noise, shifted
+    from frame to frame) and their meta file."""
+    import cv2
+
+    rng = np.random.default_rng(3)
+    lines = []
+    for i in range(n):
+        key = f"{1 + i // 1000:05d}/{1 + i % 1000:04d}"
+        d = os.path.join(root, "sequences", key)
+        os.makedirs(d)
+        base = (rng.random((hw[0] // 8, hw[1] // 8, 3)) * 255).astype(np.float32)
+        base = cv2.resize(base, (hw[1], hw[0]), interpolation=cv2.INTER_CUBIC)
+        for t in range(1, 8):
+            img = np.roll(base, 2 * t, axis=1) + rng.normal(0, 3, base.shape)
+            cv2.imwrite(os.path.join(d, f"im{t}.png"), np.clip(img, 0, 255).astype(np.uint8))
+        lines.append(f"{key} 7 ({hw[0]},{hw[1]},3)\n")
+    with open(os.path.join(root, "meta.txt"), "w") as f:
+        f.writelines(lines)
+
+
+def expected_osconv_launches(cfg, accum: int) -> dict:
+    """OSConv kernel launches of one optimizer step, from the architecture:
+    per micro-batch forward, every WindowUnit_l1 block but the first has one
+    OSConv (two chains x n_iter windows), every WindowUnit_l2 block has one
+    per sliding window, every residual group one OSAdapt; the backward
+    launches kernel 6 once more (dx) and kernel 7 once for each."""
+    n_iter = cfg.iter_win - cfg.slid_win + 1
+    fwd = 2 * n_iter * (cfg.w1_num_block - 1)
+    for i in range((cfg.iter_win - cfg.fusion_win + 1) // 2):
+        win_size = n_iter - 2 * i
+        fwd += (win_size - cfg.fusion_win + 1) * cfg.w2_num_block
+    fwd += cfg.n_resgroups
+    return {"osconv_agg": 2 * fwd * accum, "osconv_dagg": fwd * accum}
+
+
+def phase_training(device, n_seq: int = 32, iters: int = TRAIN_ITERS, yml: str = TRAIN_YML) -> dict:
+    """The port's trainer through its entry point on seeded septuplets: the
+    training main-path run (kernel counts zeroed just before, read just
+    after), then a profile of one more step of the trained model."""
+    from savsr_tpu_torch.train import train_pipeline
+    from savsr_tpu_torch.utils.convert import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_septuplets(tmp, n_seq)
+        cfg_path = os.path.join(tmp, "train_smoke.yml")
+        with open(cfg_path, "w") as f:
+            f.write(yml.format(root=tmp, iters=iters))
+        data_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        stats = []
+        ops.reset_counts()
+        model = train_pipeline(tmp, ["-opt", cfg_path, "--device", str(device)], stats=stats)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            launches = require_kernels_ran("training", TRAINING_KERNELS)
+        else:
+            launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+
+        accum = int(model.opt["train"].get("accum_steps", 1))
+        expect = {k: v * iters for k, v in expected_osconv_launches(model.net_g.cfg, accum).items()}
+        if device.type == "cuda" and any(launches[k] != v for k, v in expect.items()):
+            raise AssertionError(f"training: OSConv launches {launches}, expected {expect}")
+        losses = [log_vars["l_pix"] for _, _, log_vars in stats]
+        if len(stats) != iters or not all(np.isfinite(losses)):
+            raise AssertionError(f"training: {len(stats)} steps, losses {losses}")
+        exp = os.path.join(tmp, "experiments", "smoke_SAVSR_Vimeo90K_asBI")
+        ckpt = os.path.join(exp, "models", f"net_g_{iters}.npz")
+        state_path = os.path.join(exp, "training_states", f"{iters}.state")
+        fresh = SAVSR(**{k: v for k, v in model.opt["network_g"].items() if k != "type"})
+        for key in ("params", "params_ema"):
+            load_into(fresh, load_checkpoint(ckpt, key))
+        state = torch.load(state_path, map_location="cpu", weights_only=True)
+        if state["iter"] != iters:
+            raise AssertionError(f"training: {state_path} holds iter {state['iter']}")
+        live = model.net_g.state_dict()
+        if not all(torch.equal(v, live[k].cpu()) for k, v in load_checkpoint(ckpt).items()):
+            raise AssertionError("training: the reloaded checkpoint differs from the live network")
+
+    batch = model.lq.shape[0]
+    steady = [s for i, s, _ in stats if i > 2]
+    ms_step = 1e3 * float(np.mean(steady))
+    log(f"[training] wrote {n_seq} septuplets in {data_s:.1f} s; {iters} steps of B={batch} "
+        f"(= {accum} x {batch // accum}) {tuple(model.lq.shape[-2:])} LR crops at x{model.scale}, "
+        f"bf16 {model.opt['train'].get('bf16')}: losses {[round(v, 5) for v in losses]}")
+    log(f"[training] step seconds (host clock, each step ends in the loss fetch): "
+        f"{[round(s, 4) for _, s, _ in stats]}")
+    log(f"[training] steady (steps 3-{iters}): {ms_step:.2f} ms/step, "
+        f"{batch / (ms_step / 1e3):.3f} samples/s; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; checkpoint net_g_{iters}.npz + {iters}.state reloaded")
+    log(f"[training] OSConv kernel launches over the {iters} steps: {launches} "
+        f"(per step: {({k: launches[k] // iters for k in TRAINING_KERNELS})}, as the "
+        f"architecture gives them)")
+    phase_train_profile(model, device)
+    return {"launches": launches, "ms_per_step": ms_step, "samples_per_s": batch / (ms_step / 1e3),
+            "peak_bytes": peak, "losses": losses}
+
+
+def phase_train_profile(model, device) -> None:
+    """Device time by kernel over one more training step on the last batch
+    (torch.profiler), against the step's unprofiled time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        model.optimize_parameters(0)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    step()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    log(f"[train-profile] one step of B={model.lq.shape[0]} at x{model.scale}: {step_ms:.2f} ms "
+        f"unprofiled; device busy {total:.2f} ms ({100 * total / step_ms:.1f}% of the step) in "
+        f"{sum(r[2] for r in rows)} device events")
+    for name, ms, count in rows[:14]:
+        log(f"[train-profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} "
+            f"{name[:90]}")
+    port = [r for r in rows if "osconv_" in r[0] or "dagg_reduce" in r[0]]
+    port_ms = sum(r[1] for r in port)
+    log(f"[train-profile] the OSConv kernels {port_ms:.2f} ms "
+        f"({100 * port_ms / max(total, 1e-9):.1f}% of device time) in "
+        f"{sum(r[2] for r in port)} launches")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.build_all()
@@ -472,20 +858,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serving = phase_serving(sd, device)
     phase_profile(sd, device)
+    torch.cuda.empty_cache()
+    phase_train_parity(device)
+    training = phase_training(device)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         head = next(r for r in rows if r["name"] == name and r["dtype"] == "bf16"
                     and r["case"] == HEADLINE.get(name, r["case"]))
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": serving["launches"][name],
+                        "launches": (training if name in TRAINING_KERNELS
+                                     else serving)["launches"][name],
                         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
                         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                         "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "cases": rows, "serving": serving, "kernels": kernels},
+            json.dump({"card": smi, "cases": rows, "serving": serving, "training": training,
+                       "kernels": kernels},
                       f, indent=1)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))

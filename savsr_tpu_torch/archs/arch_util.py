@@ -1,10 +1,11 @@
-"""Eval-mode building blocks on NCHW tensors.
+"""Building blocks on NCHW tensors.
 
-The port's counterpart of the eval subset of ``savsr_tpu/archs/arch_util.py``
-(conv2d, batch_norm with running statistics, leaky_relu, sigmoid, pools,
-replicate padding and the dense-matrix bilinear resize). Parameters live in
-``nn.Module``s whose names mirror the reference state_dict; these functions
-take the tensors.
+The port's counterpart of ``savsr_tpu/archs/arch_util.py`` for SAVSR: conv2d,
+batch_norm (running statistics in eval; batch statistics and chained
+running-stat updates in training, through ``TrainCtx``), leaky_relu, sigmoid,
+pools, replicate padding, the dense-matrix bilinear resize, grid sampling and
+the unfused spatio-temporal filter. Parameters live in ``nn.Module``s whose
+names mirror the reference state_dict; these functions take the tensors.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,13 +40,47 @@ def fc1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return y
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, eps: float = 1e-5) -> torch.Tensor:
-    """Eval BatchNorm over dim 1 with the running statistics, in the JAX
-    package's form: (x - mean) * rsqrt(var + eps) * gamma + beta."""
+@dataclass
+class TrainCtx:
+    """Forward-pass context of the training engine: the train flag and the
+    BatchNorm running-stat updates of this forward, keyed by module. A BN
+    applied more than once per step (the alignment loop) chains: it reads
+    the previous update of this forward before it writes its own."""
+
+    train: bool = False
+    stats: Dict[nn.Module, Dict[str, torch.Tensor]] = field(default_factory=dict)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, ctx: Optional[TrainCtx] = None,
+               eps: float = 1e-5, momentum: float = 0.1) -> torch.Tensor:
+    """BatchNorm over every dim but 1, in the JAX package's form
+    (x - mean) * rsqrt(var + eps) * gamma + beta, all in x's dtype.
+
+    Eval (no ctx, or ctx.train False): the running statistics. Training:
+    the batch statistics normalise (biased variance); the running-stat
+    update (unbiased variance, momentum 0.1, num_batches_tracked + 1) is
+    recorded in ``ctx.stats`` and never written into the module here."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
     dt = x.dtype
-    inv = torch.rsqrt(bn.running_var.to(dt) + eps)
-    return ((x - bn.running_mean.to(dt).view(shape)) * inv.view(shape)
+    if ctx is not None and ctx.train:
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = x.mean(dim=dims)
+        var = ((x - mean.view(shape)) ** 2).mean(dim=dims)
+        n = x.numel() // x.shape[1]
+        prev = ctx.stats.get(bn, {})
+        rm = prev.get("running_mean", bn.running_mean)
+        rv = prev.get("running_var", bn.running_var)
+        nbt = prev.get("num_batches_tracked", bn.num_batches_tracked)
+        with torch.no_grad():
+            ctx.stats[bn] = {
+                "running_mean": (1 - momentum) * rm + momentum * mean,
+                "running_var": (1 - momentum) * rv + momentum * (var * (n / max(n - 1, 1))),
+                "num_batches_tracked": nbt + 1,
+            }
+    else:
+        mean, var = bn.running_mean.to(dt), bn.running_var
+    inv = torch.rsqrt(var.to(dt) + eps)
+    return ((x - mean.view(shape)) * inv.view(shape)
             * bn.weight.to(dt).view(shape) + bn.bias.to(dt).view(shape))
 
 
@@ -110,6 +146,29 @@ def interpolate_bilinear(x: torch.Tensor, size: Tuple[int, int],
     mw = _resize_matrix(w, size[1], align_corners, x.dtype, x.device)
     y = torch.einsum("Hh,bchw->bcHw", mh, x)
     return torch.einsum("Ww,bchw->bchW", mw, y)
+
+
+def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``F.grid_sample(mode='bilinear', padding_mode='zeros',
+    align_corners=True)`` on NCHW ``x`` with ``grid`` [B, H, W, 2] (gx, gy)
+    in [-1, 1]: the function of the JAX package's four-gather
+    ``grid_sample_bilinear``, differentiable in both arguments."""
+    return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def sta_conv(feat: torch.Tensor, kernel: torch.Tensor, st_ksize: int = 5) -> torch.Tensor:
+    """Per-pixel spatio-temporal filtering, unfused (the training engine's
+    form): ``feat`` [B, C, h, w] filtered by the per-pixel k*k kernels packed
+    channel-major (c*k*k + dy*k + dx) in ``kernel`` [B, C*k*k, h, w], over
+    the replicate-padded feature, as k*k shifted multiply-accumulates."""
+    b, c, h, w = feat.shape
+    fp = replicate_pad_hw(feat, (st_ksize - 1) // 2)
+    k5 = kernel.reshape(b, c, st_ksize * st_ksize, h, w)
+    out = torch.zeros_like(feat)
+    for dy in range(st_ksize):
+        for dx in range(st_ksize):
+            out = out + fp[:, :, dy:dy + h, dx:dx + w] * k5[:, :, dy * st_ksize + dx]
+    return out
 
 
 def upsample_bilinear_2x(x: torch.Tensor) -> torch.Tensor:

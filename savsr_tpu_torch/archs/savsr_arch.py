@@ -1,12 +1,17 @@
-"""SAVSR: arbitrary-scale video super-resolution network, eval mode, NCHW.
+"""SAVSR: arbitrary-scale video super-resolution network, NCHW.
 
-The port's counterpart of ``savsr_tpu/archs/savsr_arch.py`` for serving:
-``nn.Module``s whose ``state_dict`` keys and shapes equal the reference's
+The port's counterpart of ``savsr_tpu/archs/savsr_arch.py``: ``nn.Module``s
+whose ``state_dict`` keys and shapes equal the reference's
 (lbasicsr/archs/savsr_arch.py), so reference checkpoints load with
-``load_state_dict(strict=True)``, plus the eval forward of the CHW serving
-engine (``_savsr_apply_inner`` with ``conv_engine="chw"``): the alignment
-scan, WindowUnit_l2 and the trunk (archs/chw_engine.py) on the fused conv
-kernel, then the STA, STAU and tail kernels.
+``load_state_dict(strict=True)``, plus two forwards on that one module tree:
+
+- serving (``forward(x, scale)``): the eval forward of the CHW serving
+  engine (``_savsr_apply_inner`` with ``conv_engine="chw"``): the alignment
+  scan, WindowUnit_l2 and the trunk (archs/chw_engine.py) on the fused conv
+  kernel, then the STA, STAU and tail kernels;
+- training (``forward(x, scale, train=True)``): the differentiable forward
+  of archs/train_engine.py, whose OSConv engine is the pair of kernels of
+  ops/osconv.py; it returns ``(sr, stats_updates)``.
 
 The small heads that the JAX package leaves to XLA (ScaleAttention MLPs,
 the OSAdapt mask head, the STAU coordinate head) run as plain PyTorch ops.
@@ -176,10 +181,12 @@ class ResidualGroup(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def scale_attention_apply(att: ScaleAttention, v: torch.Tensor, temperature: float = 1.0):
+def scale_attention_apply(att: ScaleAttention, v: torch.Tensor, temperature: float = 1.0,
+                          ctx=None):
     """[B, in_planes] -> (ca [B,Cin], fa [B,Cout] | None, sa [B,k,k] | None,
-    ka [B,K] | None)."""
-    v = torch.relu(batch_norm(fc1x1(v, att.fc), att.bn))
+    ka [B,K] | None). ``ctx`` (arch_util.TrainCtx) switches the BatchNorm to
+    batch statistics in training."""
+    v = torch.relu(batch_norm(fc1x1(v, att.fc), att.bn, ctx))
     ca = sigmoid(fc1x1(v, att.channel_fc) / temperature)
     fa = None if att.filter_fc is None else sigmoid(fc1x1(v, att.filter_fc) / temperature)
     sa = None
@@ -191,7 +198,7 @@ def scale_attention_apply(att: ScaleAttention, v: torch.Tensor, temperature: flo
     return ca, fa, sa, ka
 
 
-def osconv_attention(m: OSConv2d, gap: torch.Tensor, scale: Scale):
+def osconv_attention(m: OSConv2d, gap: torch.Tensor, scale: Scale, ctx=None):
     """Scale-routed attention heads from a [B, Cin] GAP vector (reference
     savsr_arch.py:139-150)."""
     b, dtype = gap.shape[0], gap.dtype
@@ -202,19 +209,19 @@ def osconv_attention(m: OSConv2d, gap: torch.Tensor, scale: Scale):
     r = torch.cat([scale_info, gap], dim=1)
     r = torch.relu(linear(r, m.scale_routing[0]))
     r = torch.relu(linear(r, m.scale_routing[2]))
-    return scale_attention_apply(m.attention, r)
+    return scale_attention_apply(m.attention, r, ctx=ctx)
 
 
-def osadapt_mask(m: OSAdapt, x: torch.Tensor) -> torch.Tensor:
+def osadapt_mask(m: OSAdapt, x: torch.Tensor, ctx=None) -> torch.Tensor:
     """The downsample/upsample mask head of OSAdapt (reference
     savsr_arch.py:190-205) -> [B, 1, H, W]."""
     s = m.mask
-    y = torch.relu(batch_norm(conv2d(x, s[0], padding=1), s[1]))
+    y = torch.relu(batch_norm(conv2d(x, s[0], padding=1), s[1], ctx))
     y = avg_pool2(y)
-    y = torch.relu(batch_norm(conv2d(y, s[4], padding=1), s[5]))
-    y = torch.relu(batch_norm(conv2d(y, s[7], padding=1), s[8]))
+    y = torch.relu(batch_norm(conv2d(y, s[4], padding=1), s[5], ctx))
+    y = torch.relu(batch_norm(conv2d(y, s[7], padding=1), s[8], ctx))
     y = upsample_bilinear_2x(y)
-    return sigmoid(batch_norm(conv2d(y, s[11], padding=1), s[12]))
+    return sigmoid(batch_norm(conv2d(y, s[11], padding=1), s[12], ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -274,11 +281,13 @@ def stau_sampler_planes(head: Dict[str, torch.Tensor], scale: Scale, h: int,
     return torch.cat([torch.stack([fy_f, fx_f, fy_s, fx_s]), rt], dim=0).contiguous()
 
 
-def _stau_head(m: STAUpsample, h: int, w: int, scale: Scale, dtype, device):
+def _stau_head(m: STAUpsample, h: int, w: int, scale: Scale, dtype, device, inp=None):
     """STAU coordinate head: static HR coordinate embedding -> offsets and
     expert routing (reference savsr_arch.py:326-364). Depends only on
-    (params, h, w, scale), never on video content."""
-    inp = torch.as_tensor(_stau_coordinate_input(h, w, scale), dtype=dtype, device=device)
+    (params, h, w, scale), never on video content. ``inp``: the coordinate
+    input already on the device (the training engine caches it)."""
+    if inp is None:
+        inp = torch.as_tensor(_stau_coordinate_input(h, w, scale), dtype=dtype, device=device)
     emb = torch.relu(conv2d(inp, m.body[0]))
     emb = torch.relu(conv2d(emb, m.body[2]))
     return {
@@ -372,6 +381,21 @@ class SAVSRConfig:
     # "float32": matmuls and cuDNN convs in true f32 (TF32 off) — the strict
     # tier; "default" leaves PyTorch's defaults (the bf16 tier)
     matmul_precision: str = "float32"
+    # training-forward options (archs/train_engine.py). The port has one
+    # OSConv training engine, the kernels of ops/osconv.py, so every value
+    # of osconv_impl the JAX package accepts selects it (they are one math).
+    osconv_impl: str = "einsum"
+    # "auto": the training engine iff train=True; "train"/"eval" force one
+    engines: str = "auto"
+    # torch.utils.checkpoint around each alignment window, each trunk group
+    # and the upsampler (remat_train), or around the upsampler only
+    # (remat_stau); remat_policy is accepted ("full" | "dots") and both
+    # recompute the whole segment
+    remat_train: bool = True
+    remat_policy: str = "full"
+    remat_stau: bool = False
+    # "unroll" | "scan": accepted; eager PyTorch runs the same Python loop
+    train_loop: str = "unroll"
 
     @property
     def center(self) -> int:
@@ -419,15 +443,61 @@ def pad_spatial(x: torch.Tensor, multiple: int = 2) -> torch.Tensor:
     return y.reshape(b, t, c, h + pad_h, w + pad_w)
 
 
+def init_weights(model: nn.Module, seed: int = 0) -> None:
+    """Seeded initialisation with the reference's distributions (the JAX
+    package's ``savsr_init``; the two frameworks draw different numbers from
+    one seed): convs and linears kaiming-uniform(a=sqrt 5) with uniform
+    biases, the ScaleAttention convs kaiming-normal(fan_out) with zero
+    biases, each OSConv bank kernel kaiming-normal(fan_out), the STAU experts
+    kaiming-uniform(a=sqrt 5), BatchNorm and gamma at their defaults."""
+    import math
+
+    gen = torch.Generator().manual_seed(int(seed))
+    init = nn.init
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=gen)
+                if m.bias is not None:
+                    bound = 1.0 / math.sqrt(m.weight[0].numel())
+                    init.uniform_(m.bias, -bound, bound, generator=gen)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+        for m in model.modules():
+            if isinstance(m, ScaleAttention):
+                for conv in (m.fc, m.channel_fc, m.filter_fc, m.spatial_fc, m.kernel_fc):
+                    if conv is not None:
+                        init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu",
+                                             generator=gen)
+                        if conv.bias is not None:
+                            conv.bias.zero_()
+            elif isinstance(m, OSConv2d):
+                for i in range(m.weight.shape[0]):
+                    init.kaiming_normal_(m.weight[i], mode="fan_out", nonlinearity="relu",
+                                         generator=gen)
+            elif isinstance(m, STAUpsample):
+                for bank in (m.weight_compress, m.weight_expand):
+                    for i in range(bank.shape[0]):
+                        init.kaiming_uniform_(bank[i], a=math.sqrt(5), generator=gen)
+        if hasattr(model, "gamma"):
+            model.gamma.fill_(1.0)
+
+
+OSCONV_IMPLS = ("einsum", "grouped", "batchgroup", "taps", "kpatch3", "pallas", "pallas_train")
+
+
 class SAVSR(nn.Module):
-    """SAVSR eval network. ``forward(x [B, T, C, h, w], scale)`` returns
-    [B, C, round(h*sh), round(w*sw)]."""
+    """SAVSR network. ``forward(x [B, T, C, h, w], scale)`` returns
+    [B, C, round(h*sh), round(w*sw)]; with ``train=True`` it returns that
+    and the BatchNorm running-stat updates of the step."""
 
     def __init__(self, **kwargs):
         super().__init__()
         kwargs.pop("downsample_scale", None)
         cfg = self.cfg = SAVSRConfig(**{k: v for k, v in kwargs.items()
                                         if v is not None or k == "center_frame_idx"})
+        if cfg.osconv_impl not in OSCONV_IMPLS:
+            raise ValueError(f"unknown osconv impl {cfg.osconv_impl}")
         nf = cfg.num_feat
         self.f2p_win = WindowUnitL1(cfg.num_in_ch, nf, cfg.slid_win, cfg.w1_num_block)
         self.p2f_win = WindowUnitL1(cfg.num_in_ch, nf, cfg.slid_win, cfg.w1_num_block)
@@ -461,10 +531,24 @@ class SAVSR(nn.Module):
         st.update(tail_operands(h, w, H, W, device))
         return st
 
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor, scale, stau_statics=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale, stau_statics=None, train: bool = False):
+        """Serving forward (no gradients, the kernels of the serving path),
+        or with ``train=True`` (or ``cfg.engines == "train"``) the training
+        engine: differentiable, BatchNorm on batch statistics when ``train``.
+        Training returns ``(sr, stats_updates)``, the updates keyed like the
+        state_dict ("adapt.0.mask.1.running_mean", ...)."""
+        scale = normalize_scale(scale)
+        train_engines = train if self.cfg.engines == "auto" else self.cfg.engines == "train"
+        if train and not train_engines:
+            raise ValueError("train=True needs the training engine (engines: auto | train)")
         with float32_precision(self.cfg.matmul_precision == "float32"):
-            return self._forward(x, normalize_scale(scale), stau_statics)
+            if train_engines:
+                from .train_engine import savsr_train_forward
+
+                sr, updates = savsr_train_forward(self, x, scale, train)
+                return (sr, updates) if train else sr
+            with torch.no_grad():
+                return self._forward(x, scale, stau_statics)
 
     def _forward(self, x, scale: Scale, statics) -> torch.Tensor:
         from .chw_engine import trunk_apply_chw, window_l1_apply_chw, window_l2_apply_chw

@@ -23,7 +23,7 @@ from typing import Iterable, Tuple
 CSRC_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC_DIR))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "savsr_tpu_torch")
-SOURCES = ("conv", "sta", "stau", "tail")
+SOURCES = ("conv", "sta", "stau", "tail", "osconv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,4 +1,5 @@
-"""Frame-window indexing and image-sequence reading for serving."""
+"""Frame-window indexing and image-sequence reading for serving, and the
+arbitrary-scale bicubic degradation of the training loader."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import List
 import numpy as np
 
 from ..utils.img_util import imread
+from .resize import resize_np
 
 
 def generate_frame_indices(crt_idx: int, max_frame_num: int, num_frames: int,
@@ -57,3 +59,13 @@ def paths_from_folder(folder: str, suffix=(".png", ".jpg", ".jpeg", ".bmp")) -> 
     return sorted(os.path.join(folder, p) for p in os.listdir(folder)
                   if p.lower().endswith(suffix)
                   and os.path.isfile(os.path.join(folder, p)))
+
+
+def arbitrary_scale_downsample(x: np.ndarray, scale, mode: str = "torch") -> np.ndarray:
+    """asBI degradation (reference data_util.py:371-420): bicubic downsample
+    of [T, H, W, C] or [B, T, H, W, C] by an arbitrary, possibly asymmetric
+    scale; output size (round(h/sh), round(w/sw)), Python rounding.
+    ``mode``: 'torch' (antialiased, the shipped default) or 'core' (MATLAB)."""
+    scale_h, scale_w = scale if isinstance(scale, tuple) else (scale, scale)
+    h, w = x.shape[-3], x.shape[-2]
+    return resize_np(x, (round(h / scale_h), round(w / scale_w)), mode=mode, antialias=True)

@@ -1,9 +1,10 @@
-"""Kernel wrappers of the serving path, and their launch counts.
+"""Kernel wrappers of the serving path (conv3x3, conv1x1, sta, stau, tail)
+and of the training path (osconv_agg, osconv_dagg), and their launch counts.
 
 ``launches[k]`` counts launches of kernel ``k`` on CUDA tensors (one per
 call, added where the wrapper launches it); ``plain_cuda_calls[k]`` counts
-calls of its plain PyTorch version with CUDA tensors, which the serving
-path never makes. Counts are process-wide; ``reset_counts`` zeroes them.
+calls of its plain PyTorch version with CUDA tensors, which neither path
+makes. Counts are process-wide; ``reset_counts`` zeroes them.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import ctypes
 
 import torch
 
-KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail")
+KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail", "osconv_agg", "osconv_dagg")
 
 launches = dict.fromkeys(KERNELS, 0)
 plain_cuda_calls = dict.fromkeys(KERNELS, 0)

@@ -1,8 +1,11 @@
-"""Checkpoint loading for the port: JAX parameter dicts and torch ``.pth``
-files -> a torch-layout ``state_dict``, with strict key accounting.
+"""Checkpoint conversion for the port: JAX parameter dicts and torch ``.pth``
+files -> a torch-layout ``state_dict``, with strict key accounting, and back
+(``params_to_jax``), so ``net_g_<iter>.npz`` files written by either package
+load in the other.
 
 ``params_from_jax`` is the port's copy of the inverse layout transpose of
-``savsr_tpu/utils/convert.py::invert_state_dict``:
+``savsr_tpu/utils/convert.py::invert_state_dict``, ``params_to_jax`` of
+``::convert_state_dict``:
 
   HWIO conv weight   [kh, kw, I, O]      -> [O, I, kh, kw]
   [in, out] linear                        -> [out, in]
@@ -36,6 +39,28 @@ def params_from_jax(np_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
         if key.endswith("num_batches_tracked"):
             v = v.astype(np.int64)
         out[key] = torch.from_numpy(np.array(v, order="C"))
+    return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Torch-layout state_dict -> JAX param dict (numpy values): the inverse
+    of ``params_from_jax`` (OIHW -> HWIO, [out, in] -> [in, out], the OSConv
+    bank [K, O, I, k, k] -> [K, k, k, I, O], the STAU experts back to
+    [n, o, i], num_batches_tracked as int32)."""
+    out: Dict[str, np.ndarray] = {}
+    for key, t in state.items():
+        v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        if key.endswith("weight_compress") or key.endswith("weight_expand"):
+            v = v[..., 0, 0]
+        elif v.ndim == 5:
+            v = v.transpose(0, 3, 4, 2, 1)
+        elif v.ndim == 4:
+            v = v.transpose(2, 3, 1, 0)
+        elif v.ndim == 2:
+            v = v.transpose(1, 0)
+        if key.endswith("num_batches_tracked"):
+            v = v.astype(np.int32)
+        out[key] = np.array(v, order="C")  # keeps 0-d entries 0-d
     return out
 
 

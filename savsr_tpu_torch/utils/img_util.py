@@ -8,13 +8,23 @@ import cv2
 import numpy as np
 
 
+def imfrombytes(content: bytes, float32: bool = False) -> np.ndarray:
+    """Decode a colour image from bytes as HWC BGR (uint8, or float32 in
+    [0, 1])."""
+    img = cv2.imdecode(np.frombuffer(content, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        raise IOError("cannot decode image bytes")
+    return img.astype(np.float32) / 255.0 if float32 else img
+
+
 def imread(path: str, float32: bool = False) -> np.ndarray:
     """Read a colour image as HWC BGR (uint8, or float32 in [0, 1])."""
     with open(path, "rb") as f:
-        img = cv2.imdecode(np.frombuffer(f.read(), np.uint8), cv2.IMREAD_COLOR)
-    if img is None:
-        raise IOError(f"cannot decode image {path}")
-    return img.astype(np.float32) / 255.0 if float32 else img
+        content = f.read()
+    try:
+        return imfrombytes(content, float32)
+    except IOError:
+        raise IOError(f"cannot decode image {path}") from None
 
 
 def imwrite(img: np.ndarray, file_path: str, params=None, auto_mkdir: bool = True) -> None:

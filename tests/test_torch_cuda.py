@@ -151,3 +151,63 @@ def test_small_forward_on_the_card_matches_torch_golden(dev, scale):
     assert all(v > 0 for v in ops.launches.values()), ops.launches
     assert not any(ops.plain_cuda_calls.values()), ops.plain_cuda_calls
     assert np.abs(y - io[f"y_{scale[0]}_{scale[1]}"]).max() <= 1e-5
+
+
+# (B, Cin, H, W, Cout, k, padding): partial tiles in every direction, Cin and
+# Cout off the 32/64 tiles, every padding of k = 3, and k = 1
+OSCONV_SHAPES = [(2, 48, 13, 10, 32, 3, 1), (1, 16, 10, 12, 8, 3, 0), (3, 40, 9, 37, 72, 3, 2),
+                 (2, 24, 7, 33, 16, 1, 0), (8, 192, 60, 60, 64, 3, 1)]
+
+
+def _osconv_inputs(shape, dtype, dev):
+    b, cin, h, w, cout, k, pad = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _rand(rng, (b, cin, h, w), dtype, dev)
+    agg = _rand(rng, (b, k, k, cin, cout), dtype, dev, std=(cin * k * k) ** -0.5)
+    g = _rand(rng, (b, cout, h + 2 * pad - k + 1, w + 2 * pad - k + 1), dtype, dev)
+    return x, agg, g, k, pad
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", OSCONV_SHAPES, ids=str)
+def test_osconv_agg_kernel_ragged(dev, shape, dtype):
+    from savsr_tpu_torch.ops.osconv import osconv_agg, osconv_agg_plain
+
+    x, agg, _, _, pad = _osconv_inputs(shape, dtype, dev)
+    _agree(lambda: osconv_agg(x, agg, pad), lambda: osconv_agg_plain(x, agg, pad), dtype,
+           "osconv_agg")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", OSCONV_SHAPES, ids=str)
+def test_osconv_dagg_kernel_ragged(dev, shape, dtype):
+    """The weight gradient is f32 for both input types, so one tolerance:
+    1e-4 x max|plain| (the kernel sums the pixels chunk by chunk, the plain
+    version in einsum's order); it is the same from run to run."""
+    from savsr_tpu_torch.ops.osconv import osconv_dagg, osconv_dagg_plain
+
+    x, _, g, k, pad = _osconv_inputs(shape, dtype, dev)
+    got = osconv_dagg(x, g, k, k, pad)
+    again = osconv_dagg(x, g, k, k, pad)
+    torch.cuda.synchronize()
+    want = osconv_dagg_plain(x, g, k, k, pad)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, again)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("shape", OSCONV_SHAPES[:3], ids=str)
+def test_osconv_agg_train_gradients_on_card(dev, shape):
+    """The Function's dx and dagg (kernels) against autograd through the
+    plain version, f32: 1e-4 x the gradient's max (summation order)."""
+    from savsr_tpu_torch.ops.osconv import osconv_agg_plain, osconv_agg_train
+
+    x, agg, g, _, pad = _osconv_inputs(shape, torch.float32, dev)
+    grads = []
+    for fn in (osconv_agg_train, osconv_agg_plain):
+        xr, ar = x.clone().requires_grad_(), agg.clone().requires_grad_()
+        (fn(xr, ar, pad) * g).sum().backward()
+        grads.append((xr.grad, ar.grad))
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -135,3 +135,36 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             if top in ("jax", "jaxlib", "savsr_tpu"):
                 bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert bad == []
+
+
+# the modules of the training path: each must be among the files the check
+# above walks, and importing all of them must not pull JAX in
+TRAINING_MODULES = [
+    "ops.osconv", "archs.train_engine", "archs", "losses", "losses.basic_loss",
+    "losses.loss_util", "models", "models.base_model", "models.sr_model",
+    "models.video_base_model", "models.asvsr_model", "models.lr_scheduler", "data",
+    "data.loader", "data.transforms", "data.resize", "data.vimeo90k_dataset",
+    "utils.registry", "utils.misc", "utils.file_client", "utils.options", "utils.logger",
+    "train",
+]
+
+
+def test_training_modules_are_covered_and_import_without_jax():
+    import subprocess
+    import sys
+
+    walked = {os.path.relpath(p, os.path.join(REPO, "savsr_tpu_torch")) for p in _port_sources()}
+    for mod in TRAINING_MODULES:
+        rel = mod.replace(".", os.sep)
+        assert rel + ".py" in walked or os.path.join(rel, "__init__.py") in walked, mod
+    code = ("import importlib, sys\n"
+            f"mods = {TRAINING_MODULES!r}\n"
+            "for m in mods: importlib.import_module('savsr_tpu_torch.' + m)\n"
+            "import savsr_tpu_torch.inference\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'savsr_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
