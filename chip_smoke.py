@@ -6,11 +6,14 @@
 Phases (each prints its lines; any failure exits non-zero):
 
 1. build    nvcc compiles the port's CUDA sources (savsr_tpu_torch/csrc/*.cu,
-            one process per source, all at once) for sm_90a.
+            one process per source, all at once) for sm_90a; prints ptxas's
+            registers and spills and the HGMMA (wgmma) instructions in the
+            conv library's SASS, which must not be 0.
 2. kernels  each kernel wrapper against its plain PyTorch version on the
             card, f32 and bf16: max abs error, median time, the plain
             version's time, the time of one library call computing the same
-            function (where there is one) and the card's bound for the work.
+            function (where there is one), the card's bound for the work,
+            and the achieved TFLOP/s and share of the bound.
             The serving kernels at the serving path's shapes (8 windows of
             180x320 per launch, x4, flagship widths); the two OSConv kernels
             at the training path's (8 samples of 60x60, Cin 192/320/64 ->
@@ -27,7 +30,8 @@ Phases (each prints its lines; any failure exits non-zero):
             whose chunk gives the steady rate. The bf16 output of the first
             window is held against the strict tier (deviation PSNR >= 50 dB).
 5. profile  device time by kernel over one bf16 serving forward of 8
-            windows (torch.profiler), against its unprofiled time.
+            windows (torch.profiler), against its unprofiled time, and the
+            bf16 conv's weight repack (the gather kernels).
 6. train-parity  the small config in strict f32 on the card: one loss +
             backward on the golden batch against the torch oracle's
             gradients (tests/goldens/savsr_small_grads.npz: loss within
@@ -54,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -169,13 +174,16 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
         plain_ms = timed_ms(plain_fn, device, reps=3, iters=3)
         lib_ms = None if library_fn is None else timed_ms(library_fn, device)
     b_ms, b_by = bound_ms(flops, io_bytes, dtype)
+    tflops = flops / ms * 1e-9
     row = {"name": name, "case": label, "dtype": DT_NAME[dtype], "max_abs_err": err,
            "max_abs_plain": scale, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "tflops": tflops, "bound_share": b_ms / ms}
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
     log(f"[kernels] {name:11s} {label:44s} {DT_NAME[dtype]:4s} err {err:.3e} "
         f"(tol {tol * scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} lib {lib} "
-        f"bound {b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+        f"bound {b_ms:.4f} ({b_by}) {tflops:.1f} TFLOP/s = {100 * b_ms / ms:.1f}% of bound "
+        f"{'ok' if ok else 'FAIL'}")
     return row
 
 
@@ -542,12 +550,18 @@ def phase_profile(sd, device, windows: int = WINDOWS) -> None:
         f"({100 * total / fwd_ms:.1f}% of the forward)")
     for name, ms, count in rows[:12]:
         log(f"[profile] {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {name[:90]}")
-    port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in ("conv_fused", "sta", "stau",
-                                                                      "tail"))]
+    port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in ("conv_fused", "conv_wgmma",
+                                                                      "sta", "stau", "tail"))]
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
         f"everything else {total - port_ms:.2f} ms in {sum(r[2] for r in rows) - sum(r[2] for r in port)} "
         f"device events")
+    # the bf16 conv's weight repack (ops/conv.py pack_weight: a zero pad and
+    # an index_select, whose CUDA kernel is PyTorch's gather, for each
+    # per-sample OSConv weight; shared weights keep their packed copy)
+    repack = [r for r in rows if "scatter_gather" in r[0]]
+    log(f"[profile] gather kernels (the bf16 conv weight repack): "
+        f"{sum(r[1] for r in repack):.2f} ms in {sum(r[2] for r in repack)} launches")
 
 
 SMALL_CFG = dict(num_in_ch=3, num_feat=16, num_frame=7, slid_win=3, fusion_win=5, interval=0,
@@ -816,6 +830,17 @@ def phase_train_profile(model, device) -> None:
         f"{sum(r[2] for r in port)} launches")
 
 
+def hgmma_count(lib_path: str):
+    """HGMMA (wgmma) instructions in a library's SASS, or None without
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(1 for line in sass.splitlines() if "HGMMA" in line)
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.build_all()
@@ -826,8 +851,13 @@ def phase_build() -> None:
         if os.path.isfile(log_path):
             with open(log_path) as f:
                 for line in f:
-                    if "registers" in line or "spill" in line:
+                    if "registers" in line or "spill" in line or "Compiling entry" in line:
                         log(f"[build] {name}: {line.strip()}")
+    n = hgmma_count(build.library_path("conv"))
+    log(f"[build] HGMMA instructions in conv's SASS: "
+        f"{'not counted (no cuobjdump)' if n is None else n}")
+    if n == 0:
+        raise AssertionError("the bf16 conv kernel has no wgmma (HGMMA) instruction")
 
 
 def main(argv=None) -> int:

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/savsr_tpu_torch/lib<name>-<digest>.so``; the digest covers the
-source text and the flags, so an edited source rebuilds and a stale library
-is never loaded. ``build_all`` starts one nvcc per source at once (the
-chip smoke run's build phase); ``load`` builds one library on first use.
+source text, every header it includes from ``csrc/`` (``#include "..."``,
+followed through headers that include others) and the flags, so an edited
+source or shared header rebuilds and a stale library is never loaded.
+``build_all`` starts one nvcc per source at once (the chip smoke run's
+build phase); ``load`` builds one library on first use.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o lib<name>.so <name>.cu
@@ -16,9 +18,10 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Iterable, Tuple
+from typing import Iterable, List, Tuple
 
 CSRC_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC_DIR))
@@ -37,10 +40,30 @@ def nvcc_path() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly or
+    through other headers, in the order first met."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        path = os.path.join(CSRC_DIR, rel)
+        if path in files or not os.path.isfile(path):
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            todo += [m.decode() for m in _LOCAL_INCLUDE.findall(f.read())]
+    return files
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str) -> Tuple[str, subprocess.Popen, str]:

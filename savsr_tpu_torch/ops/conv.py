@@ -11,10 +11,16 @@ zero-padded KxK convolution (K in {1, 3}) over the channel concatenation of
 
 Layout is NCHW. The TPU kernel's flat-padded CHW layout, pad-ring mask and
 Cin chunking (forced by 16 MB of VMEM) have no counterpart here: the CUDA
-kernel (csrc/conv.cu) bounds-checks its halo and runs the whole Cin in one
-launch, reading the channel parts through separate pointers so no concat is
-ever copied. ``weight`` is [Cout, Cin, K, K] (shared) or [B, Cout, Cin, K, K]
-(per sample: the attention-folded OSConv weight).
+kernels (csrc/conv.cu) run the whole Cin in one launch, reading the channel
+parts through separate pointers (f32) or TMA tensor maps (bf16), so no
+concat is ever copied. ``weight`` is [Cout, Cin, K, K] (shared) or [B, Cout,
+Cin, K, K] (per sample: the attention-folded OSConv weight).
+
+The bf16 kernel is a tensor-core implicit GEMM. Its wrapper owns two layout
+steps: ``pack_weight`` reorders the weight into the kernel's A-operand
+stages (``pack_index``), and ``tma_part`` gives each part a row pitch that
+TMA can address (a multiple of 8 elements, 16-byte aligned base and batch
+stride), copying the part into a pitch-padded buffer where it has none.
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ import torch.nn.functional as F
 from . import check_rc, count_plain, dtype_code, launches, ptr, require, stream_ptr
 
 MAX_PARTS = 8
+# the bf16 kernel's tiles: output channels per tile (wgmma M) and input
+# channels per pipeline stage (wgmma K); a stage's weights are one
+# [64 co][16 ci] block per tap
+CO_TILE, CI_STEP = 64, 16
 
 
 def _kernel_name(weight: torch.Tensor) -> str:
@@ -68,6 +78,76 @@ def conv_fused_plain(parts: Sequence[torch.Tensor], weight: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+def pack_index(cout: int, chans: Tuple[int, ...], k: int) -> torch.Tensor:
+    """Where each element of the packed bf16 weight comes from: an int64
+    index into the flat [Cout * Cin * k * k] weight, with one more slot
+    (``cout * cin * k * k``, a zero) for the padding.
+
+    Packed order: [co tile][chunk][tap][co // 8 % 8][ci // 8 % 2][co % 8][ci % 8]
+    with co = 64 * tile + ..., ci = 16 channels of one part from ``c0`` (a
+    chunk; each part starts a new one), tap = dy * k + dx. Each (tile,
+    chunk, tap) is the 2 KB K-major core-matrix block of the wgmma A
+    operand; channels past a part's end and outputs past Cout are zero."""
+    cin, kk = sum(chans), k * k
+    nct = -(-cout // CO_TILE)
+    ci_of_chunk, off = [], 0
+    for c in chans:
+        for c0 in range(0, c, CI_STEP):
+            ci_of_chunk.append([off + c0 + j if c0 + j < c else -1 for j in range(CI_STEP)])
+        off += c
+    ci = torch.tensor(ci_of_chunk, dtype=torch.int64).view(1, -1, 1, 1, 2, 1, 8)
+    co = torch.arange(nct * CO_TILE, dtype=torch.int64).view(nct, 1, 1, 8, 1, 8, 1)
+    tap = torch.arange(kk, dtype=torch.int64).view(1, 1, kk, 1, 1, 1, 1)
+    src = (co * cin + ci) * kk + tap
+    valid = (co < cout) & (ci >= 0)
+    return torch.where(valid, src, torch.full_like(src, cout * cin * kk)).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index_on(cout: int, chans: Tuple[int, ...], k: int, device: str) -> torch.Tensor:
+    return pack_index(cout, chans, k).to(device)
+
+
+def pack_weight(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
+    """The bf16 kernel's weight layout (``pack_index``): [L] for a shared
+    [Cout, Cin, k, k] weight, [B, L] for per-sample [B, Cout, Cin, k, k].
+
+    A shared weight (a parameter) keeps its packed copy as an attribute,
+    ``_savsr_packed``, reused while its storage, version counter (an
+    in-place write moves it) and parts stay the same; per-sample weights
+    are built anew every forward and are packed at every call."""
+    shared = weight.dim() == 4
+    key = (weight.data_ptr(), weight._version, tuple(chans))
+    if shared:
+        hit = getattr(weight, "_savsr_packed", None)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+    cout, k = weight.shape[-4], weight.shape[-1]
+    flat = weight.detach().reshape(-1, weight.numel() if shared else weight[0].numel())
+    idx = _pack_index_on(cout, tuple(chans), k, str(weight.device))
+    packed = F.pad(flat, (0, 1)).index_select(1, idx)
+    if shared:
+        packed = packed[0]
+        weight._savsr_packed = (key, packed)
+    return packed
+
+
+def tma_part(p: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A part TMA can read, and its row pitch in elements. TMA needs 16-byte
+    aligned rows, channel planes and samples: a part whose width is not a
+    multiple of 8, or whose base or batch stride is off, is copied into a
+    buffer with the pitch rounded up to 8 (the kernel still reads only the
+    true width: the map's extent is W)."""
+    w = p.shape[-1]
+    if w % 8 == 0 and p.stride(0) % 8 == 0 and p.data_ptr() % 16 == 0:
+        return p, w
+    pitch = w + (-w % 8)
+    buf = p.new_zeros(p.shape[:-1] + (pitch,))
+    buf[..., :w] = p
+    return buf, pitch
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from ..csrc.build import load
 
@@ -76,7 +156,8 @@ def _lib():
     lib.savsr_conv_fused.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                # K, dtype, nparts
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_longlong),                       # parts, ch, bstride
+        ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_longlong),                       # parts, ch, bstride, pitch
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, Cout
         ctypes.c_void_p, ctypes.c_longlong,                      # weight, w_bstride
         ctypes.c_void_p, ctypes.c_void_p,                        # bias, pre_add
@@ -122,14 +203,23 @@ def _launch(parts: List[torch.Tensor], weight, bias, pre_add, out_scale,
 
     out = torch.empty((b, cout, h, w), dtype=dt, device=x0.device)
     n = len(parts)
+    chans = [p.shape[1] for p in parts]
+    if dt == torch.bfloat16:
+        parts, pitch = zip(*(tma_part(p) for p in parts))
+        wt = pack_weight(weight, chans)
+        w_bstride = wt.shape[1] if per_sample else 0
+    else:
+        pitch = [w] * n
+        wt, w_bstride = weight, cout * cin * k * k if per_sample else 0
     part_ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in parts])
-    part_ch = (ctypes.c_int * n)(*[p.shape[1] for p in parts])
+    part_ch = (ctypes.c_int * n)(*chans)
     part_bs = (ctypes.c_longlong * n)(*[p.stride(0) for p in parts])
+    part_pitch = (ctypes.c_longlong * n)(*pitch)
     la, lb = lrelu if lrelu is not None else (1.0, 0.0)
     lib = _lib()
     fn = lib.savsr_conv_fused
-    rc = fn(k, dtype_code(x0), n, part_ptrs, part_ch, part_bs, b, h, w, cout,
-            ptr(weight), cout * cin * k * k if per_sample else 0, ptr(bias),
+    rc = fn(k, dtype_code(x0), n, part_ptrs, part_ch, part_bs, part_pitch, b, h, w, cout,
+            ptr(wt), w_bstride, ptr(bias),
             ptr(pre_add), ptr(out_scale), s_bstride, int(lrelu is not None),
             la, lb, ptr(residual), ptr(out), stream_ptr(x0))
     check_rc(lib, rc, "conv_fused")

@@ -31,6 +31,7 @@ pytestmark = pytest.mark.cuda
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
+SERVING_KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail")
 SMALL_CFG = dict(num_in_ch=3, num_feat=16, num_frame=7, slid_win=3, fusion_win=5,
                  interval=0, w1_num_block=2, w2_num_block=1, n_resgroups=1, n_resblocks=2)
 
@@ -58,26 +59,44 @@ def _agree(kernel_fn, plain_fn, dtype, name):
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     assert err <= TOL[dtype] * float(want.abs().max()), err
+    return got
 
 
-# (kernel size, input parts' channels, Cout, per-sample weights, full epilogue, h, w)
+# (kernel size, input parts' channels, Cout, per-sample weights, full epilogue,
+#  h, w, parts as frame views of one [B, T, C, h, w] tensor). The bf16 kernel
+# works in 64-channel x 4-row x 64-column tiles and 16-channel steps, each
+# part from its own TMA map: Cin off the 16-channel step across parts (3;
+# 5+11; 3+3; 24+40), W below, at and above 64 and off a multiple of 8 (the
+# pitch-padded copy: 37, 65, 33, 5, 130, 45), H off the 4-row tile, Cout 16,
+# 24, 64 and 128, and parts whose batch stride is not C*h*w.
 CONV = [
-    (3, [5, 11], 16, False, True, 13, 37),
-    (3, [3], 64, True, False, 8, 32),
-    (3, [64, 64], 128, False, True, 17, 65),
-    (1, [16], 24, True, True, 9, 33),
-    (1, [16, 16, 16], 16, False, False, 3, 5),
+    (3, [5, 11], 16, False, True, 13, 37, False),
+    (3, [3], 64, True, False, 8, 32, False),
+    (3, [64, 64], 128, False, True, 17, 65, False),
+    (1, [16], 24, True, True, 9, 33, False),
+    (1, [16, 16, 16], 16, False, False, 3, 5, False),
+    (3, [3, 3], 64, False, True, 6, 64, True),
+    (3, [3, 3, 3], 64, True, True, 9, 45, True),
+    (3, [64], 64, False, False, 7, 200, False),
+    (3, [24, 40], 24, True, True, 5, 130, False),
+    (1, [3, 64], 128, False, True, 11, 72, False),
 ]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", CONV, ids=[f"k{c[0]}-{sum(c[1])}to{c[2]}" for c in CONV])
 def test_conv_kernel_matches_plain(dev, case, dtype):
-    k, chans, cout, per_sample, full, h, w = case
+    """Kernel against plain version, and a second launch on the same inputs
+    bit for bit (no atomics, a fixed summation order)."""
+    k, chans, cout, per_sample, full, h, w, frames = case
     rng = np.random.default_rng(sum(chans) + cout)
     b = 2
     cin = sum(chans)
-    parts = [_rand(rng, (b, c, h, w), dtype, dev) for c in chans]
+    if frames:
+        clip = _rand(rng, (b, len(chans), chans[0], h, w), dtype, dev)
+        parts = [clip[:, i] for i in range(len(chans))]
+    else:
+        parts = [_rand(rng, (b, c, h, w), dtype, dev) for c in chans]
     weight = _rand(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), dtype, dev,
                    (cin * k * k) ** -0.5)
     bias = _rand(rng, (cout,), dtype, dev, 0.1)
@@ -88,10 +107,13 @@ def test_conv_kernel_matches_plain(dev, case, dtype):
                                                 .astype(np.float32)).to(dev),
                      lrelu=(0.6, 0.4), residual=_rand(rng, (b, cout, h, w), dtype, dev))
     name = "conv3x3" if k == 3 else "conv1x1"
-    _agree(lambda: conv_fused(parts, weight, bias, **extra),
-           lambda: conv_fused_plain(parts, weight, bias, extra.get("pre_add"),
-                                    extra.get("out_scale"), extra.get("lrelu"),
-                                    extra.get("residual")), dtype, name)
+    got = _agree(lambda: conv_fused(parts, weight, bias, **extra),
+                 lambda: conv_fused_plain(parts, weight, bias, extra.get("pre_add"),
+                                          extra.get("out_scale"), extra.get("lrelu"),
+                                          extra.get("residual")), dtype, name)
+    with torch.no_grad():
+        again = conv_fused(parts, weight, bias, **extra).float()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -148,7 +170,8 @@ def test_small_forward_on_the_card_matches_torch_golden(dev, scale):
     model.to(dev)
     ops.reset_counts()
     y = model(torch.from_numpy(io["x"]).to(dev), scale).cpu().numpy()
-    assert all(v > 0 for v in ops.launches.values()), ops.launches
+    # every serving kernel ran (the OSConv kernels are the training path's)
+    assert all(ops.launches[k] > 0 for k in SERVING_KERNELS), ops.launches
     assert not any(ops.plain_cuda_calls.values()), ops.plain_cuda_calls
     assert np.abs(y - io[f"y_{scale[0]}_{scale[1]}"]).max() <= 1e-5
 
