@@ -8,17 +8,23 @@ Phases (each prints its lines; any failure exits non-zero):
 1. build    nvcc compiles the port's CUDA sources (savsr_tpu_torch/csrc/*.cu,
             one process per source, all at once) for sm_90a; prints ptxas's
             registers and spills and the HGMMA (wgmma) instructions in the
-            conv library's SASS, which must not be 0.
+            SASS of the conv and osconv libraries (the tensor-core kernels:
+            the bf16 conv, which also runs the bf16 OSConv forward and dx,
+            and the bf16 OSConv weight gradient), which must not be 0.
 2. kernels  each kernel wrapper against its plain PyTorch version on the
             card, f32 and bf16: max abs error, median time, the plain
             version's time, the time of one library call computing the same
             function (where there is one), the card's bound for the work,
-            and the achieved TFLOP/s and share of the bound.
-            The serving kernels at the serving path's shapes (8 windows of
-            180x320 per launch, x4, flagship widths); the two OSConv kernels
-            at the training path's (8 samples of 60x60, Cin 192/320/64 ->
-            64, forward, dx and weight gradient), and the autograd Function's
-            dx/dagg against autograd through the plain version.
+            and the achieved TFLOP/s and share of the bound, all from
+            back-to-back calls. The serving kernels at the serving path's
+            shapes (8 windows of 180x320 per launch, x4, flagship widths); the
+            two OSConv kernels at the training path's (8 samples of 60x60, Cin
+            192/320/64 -> 64, forward, dx and weight gradient), whose host
+            launch cost exceeds their device time, so they (and their library
+            calls) are also timed as replays of a CUDA graph of the calls,
+            with each call's device time by kernel; and the autograd Function's
+            dx/dagg against autograd through the plain version (f32 at
+            192 -> 64; bf16 at 192, 320 and 64 -> 64).
 3. parity   flagship weights (tests/goldens/savsr_state_dict.npz, loaded
             with load_state_dict(strict=True)) on the strict tier against the
             reference torch outputs (tests/goldens/savsr_realsize_forward.npz)
@@ -46,7 +52,8 @@ Phases (each prints its lines; any failure exits non-zero):
             samples/s over the steps after the first two, peak memory. This
             is the training main-path run for the two OSConv kernels.
 8. train-profile  device time by kernel over one more training step of that
-            model, against its unprofiled time.
+            model, against its unprofiled time, and the OSConv wrappers'
+            share (their record_function ranges).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}};
@@ -76,8 +83,8 @@ from savsr_tpu_torch.data.data_util import generate_frame_indices
 from savsr_tpu_torch.inference import (build_serving_model, flagship_net_kwargs,
                                        load_params, main as serve_main)
 from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
-from savsr_tpu_torch.ops.osconv import (osconv_agg, osconv_agg_plain, osconv_agg_train,
-                                        osconv_dagg, osconv_dagg_plain)
+from savsr_tpu_torch.ops.osconv import (osconv_agg, osconv_agg_dx, osconv_agg_plain,
+                                        osconv_agg_train, osconv_dagg, osconv_dagg_plain)
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
 from savsr_tpu_torch.ops.stau import stau_upsample_fused, stau_upsample_fused_plain
 from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
@@ -107,7 +114,9 @@ SOURCES = {
     "sta": ("savsr_tpu_torch/csrc/sta.cu", "savsr_tpu/ops/pallas/sta_kernel.py:84"),
     "stau": ("savsr_tpu_torch/csrc/stau.cu", "savsr_tpu/ops/pallas/stau_kernel.py:183"),
     "tail": ("savsr_tpu_torch/csrc/tail.cu", "savsr_tpu/ops/pallas/tail_kernel.py:89"),
-    "osconv_agg": ("savsr_tpu_torch/csrc/osconv.cu",
+    # bf16 (the training path, the timed headline) runs the bf16 conv's
+    # kernel; f32 runs osconv.cu's CUDA-core kernel
+    "osconv_agg": ("savsr_tpu_torch/csrc/conv.cu",
                    "savsr_tpu/ops/pallas/osconv_kernel.py:139"),
     "osconv_dagg": ("savsr_tpu_torch/csrc/osconv.cu",
                     "savsr_tpu/ops/pallas/osconv_kernel.py:303"),
@@ -146,6 +155,55 @@ def timed_ms(fn, device, reps: int = 5, iters: int = 10) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
+    """Device time per call of ``fn``: median over ``reps`` replays of one
+    CUDA graph of ``iters`` back-to-back calls, so every kernel and copy the
+    call makes is timed without the host's launch overhead (which, at the
+    training path's 60x60 shapes, is longer than the work it launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return float(np.median(times))
+
+
+def per_call_breakdown(fn, calls: int = 5) -> list:
+    """(kernel, device ms per call) of the kernels and copies one call of
+    ``fn`` runs, from torch.profiler over ``calls`` calls, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(name, ms / calls) for name, ms, _ in device_rows(prof)]
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's name without its namespace, return type and arguments."""
+    name = kernel
+    for prefix in ("void ", "(anonymous namespace)::", "at::native::"):
+        name = name.replace(prefix, "")
+    return name.split("(")[0].strip()[:48]
+
+
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -157,10 +215,14 @@ def nbytes(*ts) -> int:
 
 
 def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
-          io_bytes: int, dtype, device, tol=None) -> dict:
+          io_bytes: int, dtype, device, tol=None, graph: bool = False) -> dict:
     """Run the kernel and its plain version on the same inputs, compare in
     f32, time both (and the library call), and return the result row.
-    ``tol`` (relative to max|plain|) overrides TOL[dtype]."""
+    ``tol`` (relative to max|plain|) overrides TOL[dtype]. ``ms`` and
+    ``library_ms`` are back-to-back calls between CUDA events; ``graph``
+    adds ``graph_ms`` and ``library_graph_ms``, replays of a CUDA graph of
+    the calls (device time, repack and copies included, no host launch
+    cost), and ``breakdown``, the device time of each kernel of a call."""
     tol = TOL[dtype] if tol is None else tol
     with torch.no_grad():
         want = plain_fn().float()
@@ -173,17 +235,28 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
         ms = timed_ms(kernel_fn, device)
         plain_ms = timed_ms(plain_fn, device, reps=3, iters=3)
         lib_ms = None if library_fn is None else timed_ms(library_fn, device)
+        graphed = {}
+        if graph and device.type == "cuda":
+            graphed = {"graph_ms": graph_ms(kernel_fn),
+                       "library_graph_ms": None if library_fn is None else graph_ms(library_fn),
+                       "breakdown": per_call_breakdown(kernel_fn)}
     b_ms, b_by = bound_ms(flops, io_bytes, dtype)
     tflops = flops / ms * 1e-9
     row = {"name": name, "case": label, "dtype": DT_NAME[dtype], "max_abs_err": err,
            "max_abs_plain": scale, "ok": ok, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-           "tflops": tflops, "bound_share": b_ms / ms}
+           "tflops": tflops, "bound_share": b_ms / ms, **graphed}
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
     log(f"[kernels] {name:11s} {label:44s} {DT_NAME[dtype]:4s} err {err:.3e} "
         f"(tol {tol * scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} lib {lib} "
         f"bound {b_ms:.4f} ({b_by}) {tflops:.1f} TFLOP/s = {100 * b_ms / ms:.1f}% of bound "
         f"{'ok' if ok else 'FAIL'}")
+    if graphed:
+        g_ms, g_lib = graphed["graph_ms"], graphed["library_graph_ms"]
+        log(f"[kernels]     graph replay: ms {g_ms:.4f} "
+            f"({100 * b_ms / g_ms:.1f}% of bound) lib "
+            f"{'null' if g_lib is None else format(g_lib, '.4f')}; device ms per call: "
+            + "; ".join(f"{short_name(k)} {t:.4f}" for k, t in graphed["breakdown"]))
     return row
 
 
@@ -213,8 +286,8 @@ HEADLINE = {"conv3x3": "conv0 64->64 lrelu", "conv1x1": "conv1 3x64->64 lrelu",
             "osconv_agg": "fwd 192->64 (WindowUnit_l1)", "osconv_dagg": "192->64 (WindowUnit_l1)"}
 # (label, Cin, Cout, as dx): the OSConvs of the training forward (3x64 -> 64
 # in WindowUnit_l1, 5x64 -> 64 in WindowUnit_l2, 64 -> 64 in OSAdapt), k = 3,
-# padding 1, and their dx calls: the same kernel on the cotangent with
-# flipped taps and swapped channel axes at padding 3-1-1 = 1
+# padding 1, and their dx calls (osconv_agg_dx): the same kernel on the
+# cotangent with flipped taps and swapped channel axes at padding 3-1-1 = 1
 OSCONV_CASES = [
     ("fwd 192->64 (WindowUnit_l1)", 192, 64, False),
     ("fwd 320->64 (WindowUnit_l2)", 320, 64, False),
@@ -263,24 +336,30 @@ def conv_case(rng, label, k, chans, cout, per_sample, epi, dtype, device, b=WIND
 
 
 def osconv_agg_case(rng, label, cin, cout, as_dx, dtype, device, b=TRAIN_B):
-    """Kernel 6 at a training shape: forward, or the backward's dx call."""
+    """Kernel 6 at a training shape, per call of the wrapper (weight repack
+    and pitch copies included): forward, or the backward's dx call
+    (osconv_agg_dx on agg as it lies; the plain version and the library
+    call take the flipped, channel-swapped copy)."""
     h, w = TRAIN_HW
     agg = _rand(rng, (b, 3, 3, cin, cout), dtype, device, std=(cin * 9) ** -0.5)
     if as_dx:  # the cotangent through the flipped, channel-swapped weight
         x = _rand(rng, (b, cout, h, w), dtype, device)
-        agg = agg.flip(1, 2).transpose(3, 4).contiguous()
+        w_conv = agg.flip(1, 2).transpose(3, 4).contiguous()
+        kernel = lambda: osconv_agg_dx(x, agg, 1)  # noqa: E731
     else:
         x = _rand(rng, (b, cin, h, w), dtype, device)
-    ci, co = agg.shape[3], agg.shape[4]
-    w_oihw = agg.permute(0, 4, 3, 1, 2).reshape(b * co, ci, 3, 3).contiguous()
+        w_conv = agg
+        kernel = lambda: osconv_agg(x, agg, 1)  # noqa: E731
+    ci, co = w_conv.shape[3], w_conv.shape[4]
+    w_oihw = w_conv.permute(0, 4, 3, 1, 2).reshape(b * co, ci, 3, 3).contiguous()
 
     def library():
         return F.conv2d(x.reshape(1, b * ci, h, w), w_oihw, padding=1, groups=b)
 
     flops = 2.0 * 9 * ci * co * h * w * b
     io = nbytes(x, agg) + b * co * h * w * x.element_size()
-    return check("osconv_agg", label, lambda: osconv_agg(x, agg, 1),
-                 lambda: osconv_agg_plain(x, agg, 1), library, flops, io, dtype, device)
+    return check("osconv_agg", label, kernel, lambda: osconv_agg_plain(x, w_conv, 1), library,
+                 flops, io, dtype, device, graph=True)
 
 
 def osconv_dagg_case(rng, label, cin, cout, dtype, device, b=TRAIN_B):
@@ -304,28 +383,34 @@ def osconv_dagg_case(rng, label, cin, cout, dtype, device, b=TRAIN_B):
     io = nbytes(x, g) + b * 9 * cin * cout * 4
     return check("osconv_dagg", label, lambda: osconv_dagg(x, g, 3, 3, 1),
                  lambda: osconv_dagg_plain(x, g, 3, 3, 1), library, flops, io, dtype, device,
-                 tol=1e-4)
+                 tol=1e-4, graph=True)
 
 
-def osconv_function_check(rng, device, b=TRAIN_B) -> None:
+def osconv_function_check(rng, device, dtype=torch.float32, cin=192, b=TRAIN_B) -> None:
     """The autograd Function's dx and dagg (kernels) against autograd through
-    the plain version, f32, 192 -> 64: 1e-4 of each gradient's max (f32 sums
-    in another order)."""
+    the plain version at cin -> 64: f32 within 1e-4 of each gradient's max
+    (f32 sums in another order); bf16 (the tensor-core path: the dx call's
+    folded flip-and-swap repack, the weight gradient cast to bf16) within
+    TOL[bf16] of it (each side rounds once to bf16)."""
     h, w = TRAIN_HW
-    x = _rand(rng, (b, 192, h, w), torch.float32, device)
-    agg = _rand(rng, (b, 3, 3, 192, 64), torch.float32, device, std=(192 * 9) ** -0.5)
-    cot = _rand(rng, (b, 64, h, w), torch.float32, device)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    x = _rand(rng, (b, cin, h, w), dtype, device)
+    agg = _rand(rng, (b, 3, 3, cin, 64), dtype, device, std=(cin * 9) ** -0.5)
+    cot = _rand(rng, (b, 64, h, w), dtype, device)
     grads = []
     for fn in (osconv_agg_train, osconv_agg_plain):
         xr, ar = x.clone().requires_grad_(), agg.clone().requires_grad_()
-        (fn(xr, ar, 1) * cot).sum().backward()
+        (fn(xr, ar, 1).float() * cot.float()).sum().backward()
         grads.append((xr.grad, ar.grad))
     for name, got, want in zip(("dx", "dagg"), *grads):
-        err, scale = float((got - want).abs().max()), float(want.abs().max())
-        log(f"[kernels] osconv_agg_train {name} vs autograd of the plain version: err {err:.3e} "
-            f"(tol {1e-4 * scale:.3e}) {'ok' if err <= 1e-4 * scale else 'FAIL'}")
-        if not err <= 1e-4 * scale:
-            raise AssertionError(f"osconv_agg_train {name} disagrees with autograd: {err}")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        ok = got.dtype == dtype and err <= tol * scale
+        log(f"[kernels] osconv_agg_train {DT_NAME[dtype]} {cin}->64 {name} vs autograd of the "
+            f"plain version: err {err:.3e} (tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"osconv_agg_train {DT_NAME[dtype]} {cin}->64 {name} disagrees "
+                                 f"with autograd: {err} ({got.dtype})")
 
 
 def sta_case(rng, model, dtype, device, b=WINDOWS):
@@ -399,6 +484,8 @@ def phase_kernels(model, device) -> list:
             for case in DAGG_CASES:
                 rows.append(osconv_dagg_case(rng, *case, dtype, device))
         osconv_function_check(rng, device)
+        for _, cin, _ in DAGG_CASES:
+            osconv_function_check(rng, device, torch.bfloat16, cin)
     failed = [f"{r['name']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
@@ -520,6 +607,18 @@ def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOW
             "fps": n_chunk / chunk_s, "bf16_vs_strict_db": psnr}
 
 
+def device_rows(prof) -> list:
+    """(kernel, device ms, count) of a profile's device-side events, largest
+    first: kernels and copies only (the host ops that launched them carry the
+    same device time, and a record_function range's device-side span covers
+    its kernels, so either would count it twice)."""
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+
+
 def phase_profile(sd, device, windows: int = WINDOWS) -> None:
     """Device time by kernel over one bf16 serving forward of ``windows``
     windows (torch.profiler), against the forward's unprofiled time."""
@@ -537,13 +636,7 @@ def phase_profile(sd, device, windows: int = WINDOWS) -> None:
         model(x, SCALE, stau_statics=statics)
         if device.type == "cuda":
             torch.cuda.synchronize()
-    # device-side events only (the host ops that launched them carry the
-    # same device time and would count it twice)
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
+    rows = device_rows(prof)
     total = sum(r[1] for r in rows)
     log(f"[profile] bf16 forward of {windows} windows {LR_HW[0]}x{LR_HW[1]} x{SCALE[0]}: "
         f"{fwd_ms:.2f} ms unprofiled; device busy {total:.2f} ms "
@@ -811,11 +904,7 @@ def phase_train_profile(model, device) -> None:
     step_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
+    rows = device_rows(prof)
     total = sum(r[1] for r in rows)
     log(f"[train-profile] one step of B={model.lq.shape[0]} at x{model.scale}: {step_ms:.2f} ms "
         f"unprofiled; device busy {total:.2f} ms ({100 * total / step_ms:.1f}% of the step) in "
@@ -823,11 +912,40 @@ def phase_train_profile(model, device) -> None:
     for name, ms, count in rows[:14]:
         log(f"[train-profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} "
             f"{name[:90]}")
-    port = [r for r in rows if "osconv_" in r[0] or "dagg_reduce" in r[0]]
+    osconv_share(prof, rows, total)
+
+
+def osconv_share(prof, rows, total: float) -> None:
+    """The OSConv wrappers' device time in a training-step profile. The
+    kernels of csrc/ (launched through ctypes) are found by name — the
+    training step runs no other bf16 conv, its plain convs go to cuDNN — and
+    the PyTorch kernels each wrapper adds (the weight repack, the pitch
+    copies) by the wrapper's record_function range; a kernel the profiler
+    links to a range is not counted twice."""
+    def is_port(name):
+        return any(n in name for n in ("osconv_", "dagg_reduce", "conv_wgmma_kernel"))
+
+    def kernels(ev):
+        yield from ((k.name, k.duration) for k in ev.kernels)
+        for child in ev.cpu_children:
+            yield from kernels(child)
+
+    calls = {k: 0 for k in TRAINING_KERNELS}
+    in_ranges = []
+    for ev in prof.events():
+        if ev.name in calls and ev.device_type == torch.autograd.DeviceType.CPU:
+            calls[ev.name] += 1
+            in_ranges += list(kernels(ev))
+    added_ms = sum(us for name, us in in_ranges if not is_port(name)) / 1e3
+    port = [r for r in rows if is_port(r[0])]
     port_ms = sum(r[1] for r in port)
-    log(f"[train-profile] the OSConv kernels {port_ms:.2f} ms "
-        f"({100 * port_ms / max(total, 1e-9):.1f}% of device time) in "
-        f"{sum(r[2] for r in port)} launches")
+    share = port_ms + added_ms
+    log(f"[train-profile] the OSConv wrappers {share:.2f} ms ({100 * share / max(total, 1e-9):.1f}% "
+        f"of device time) in {calls} calls: their kernels {port_ms:.2f} ms in "
+        f"{sum(r[2] for r in port)} launches ("
+        + "; ".join(f"{name[:48]} {ms:.2f} ms x{count}" for name, ms, count in port)
+        + f"), the repack and pitch copies inside their ranges {added_ms:.2f} ms in "
+        f"{sum(1 for name, _ in in_ranges if not is_port(name))} launches")
 
 
 def hgmma_count(lib_path: str):
@@ -853,11 +971,13 @@ def phase_build() -> None:
                 for line in f:
                     if "registers" in line or "spill" in line or "Compiling entry" in line:
                         log(f"[build] {name}: {line.strip()}")
-    n = hgmma_count(build.library_path("conv"))
-    log(f"[build] HGMMA instructions in conv's SASS: "
-        f"{'not counted (no cuobjdump)' if n is None else n}")
-    if n == 0:
-        raise AssertionError("the bf16 conv kernel has no wgmma (HGMMA) instruction")
+    for name in ("conv", "osconv"):
+        n = hgmma_count(build.library_path(name))
+        log(f"[build] HGMMA instructions in {name}'s SASS: "
+            f"{'not counted (no cuobjdump)' if n is None else n}")
+        if n == 0:
+            raise AssertionError(f"the tensor-core kernels of {name}.cu have no wgmma (HGMMA) "
+                                 f"instruction")
 
 
 def main(argv=None) -> int:
@@ -901,7 +1021,8 @@ def main(argv=None) -> int:
                                      else serving)["launches"][name],
                         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
                         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                        "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+                        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                        **{k: head[k] for k in ("graph_ms", "library_graph_ms") if k in head}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

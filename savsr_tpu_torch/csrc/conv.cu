@@ -495,29 +495,6 @@ conv_wgmma_kernel(const __grid_constant__ TmaParts parts, int nchunk, int ntiles
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 constexpr int ERR_NO_ENCODER = -1;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = -2;      // a part's tensor map was refused
 
@@ -594,7 +571,7 @@ extern "C" int savsr_conv_fused(int ksize, int dtype, int nparts,
     return static_cast<int>(e);
   }
 
-  EncodeTiledFn encode = encode_tiled();
+  hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (!encode) return ERR_NO_ENCODER;
   TmaParts parts{};
   int nchunk = 0;

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels: shared
 // memory addresses, mbarriers, TMA tensor and bulk copies, wgmma descriptors
-// and the m64n128k16 bf16 wgmma, each one PTX instruction (or a short loop of
-// one). Only device code; the host side of TMA (tensor-map encoding) lives
-// with the kernel that needs it.
+// and the bf16 wgmmas (m64n128k16 with B MN-major; m64n64k16 and m64n192k16
+// with both operands K-major), each one PTX instruction (or a short loop of
+// one); and, on the host, cuTensorMapEncodeTiled through the runtime's
+// driver entry point, so a library needs no -lcuda.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -91,7 +93,10 @@ enum Layout : uint32_t { kInterleave = 0, kSwizzle128 = 1 };
 // K-major interleave: 8-row core matrices of 16 B rows, LBO = next core
 // matrix along K, SBO = next 8 rows; MN-major 128-byte swizzle: 64-element
 // rows along MN, one per K index, LBO = next 64 elements along MN, SBO =
-// next 8 K indices)
+// next 8 K indices; K-major 128-byte swizzle: one 128-byte row of 64 K
+// elements per M/N index, as a TMA box with the 128-byte swizzle lands, SBO =
+// next 8 rows (1024 B), LBO unused, and the k-th 16-element step starts 32*k
+// bytes on)
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo,
                                               Layout layout) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
@@ -150,6 +155,97 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], both operands K-major in shared
+// memory (tnspA = tnspB = 0: A as [64 rows][16 K], B as [64 rows][16 K]),
+// bf16, f32 accumulators in the fragment layout above (columns up to 64)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_kk(float (&d)[32], uint64_t desc_a,
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 192] += A[64 x 16] * B[16 x 192], both operands K-major in shared
+// memory (tnspA = tnspB = 0: A as [64 rows][16 K], B as [192 rows][16 K]),
+// bf16, f32 accumulators in the fragment layout above (columns up to 192)
+__device__ __forceinline__ void wgmma_m64n192k16_bf16_kk(float (&d)[96], uint64_t desc_a,
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95},"
+      " %96, %97, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+// ---- host: TMA tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, or null
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
 }
 
 }  // namespace hopper

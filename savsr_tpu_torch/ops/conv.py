@@ -78,17 +78,24 @@ def conv_fused_plain(parts: Sequence[torch.Tensor], weight: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def pack_index(cout: int, chans: Tuple[int, ...], k: int) -> torch.Tensor:
+def pack_index(cout: int, chans: Tuple[int, ...], k: int,
+               strides: Optional[Tuple[int, int, int]] = None,
+               flip: bool = False) -> torch.Tensor:
     """Where each element of the packed bf16 weight comes from: an int64
-    index into the flat [Cout * Cin * k * k] weight, with one more slot
-    (``cout * cin * k * k``, a zero) for the padding.
+    index into the flat weight of ``cout * cin * k * k`` elements, with one
+    more slot (that count, a zero) for the padding.
 
     Packed order: [co tile][chunk][tap][co // 8 % 8][ci // 8 % 2][co % 8][ci % 8]
     with co = 64 * tile + ..., ci = 16 channels of one part from ``c0`` (a
     chunk; each part starts a new one), tap = dy * k + dx. Each (tile,
     chunk, tap) is the 2 KB K-major core-matrix block of the wgmma A
-    operand; channels past a part's end and outputs past Cout are zero."""
+    operand; channels past a part's end and outputs past Cout are zero.
+
+    ``strides`` (co, ci, tap) are the source weight's element strides, by
+    default those of [Cout, Cin, k, k]; ``flip`` reads tap k*k-1-tap (the
+    kernel turned by 180 degrees)."""
     cin, kk = sum(chans), k * k
+    s_co, s_ci, s_tap = strides or (cin * kk, kk, 1)
     nct = -(-cout // CO_TILE)
     ci_of_chunk, off = [], 0
     for c in chans:
@@ -98,7 +105,7 @@ def pack_index(cout: int, chans: Tuple[int, ...], k: int) -> torch.Tensor:
     ci = torch.tensor(ci_of_chunk, dtype=torch.int64).view(1, -1, 1, 1, 2, 1, 8)
     co = torch.arange(nct * CO_TILE, dtype=torch.int64).view(nct, 1, 1, 8, 1, 8, 1)
     tap = torch.arange(kk, dtype=torch.int64).view(1, 1, kk, 1, 1, 1, 1)
-    src = (co * cin + ci) * kk + tap
+    src = co * s_co + ci * s_ci + (kk - 1 - tap if flip else tap) * s_tap
     valid = (co < cout) & (ci >= 0)
     return torch.where(valid, src, torch.full_like(src, cout * cin * kk)).reshape(-1)
 
@@ -202,29 +209,41 @@ def _launch(parts: List[torch.Tensor], weight, bias, pre_add, out_scale,
         s_bstride = cout if out_scale.numel() == b * cout else 0
 
     out = torch.empty((b, cout, h, w), dtype=dt, device=x0.device)
-    n = len(parts)
     chans = [p.shape[1] for p in parts]
     if dt == torch.bfloat16:
         parts, pitch = zip(*(tma_part(p) for p in parts))
         wt = pack_weight(weight, chans)
         w_bstride = wt.shape[1] if per_sample else 0
     else:
-        pitch = [w] * n
+        pitch = [w] * len(parts)
         wt, w_bstride = weight, cout * cin * k * k if per_sample else 0
+    run_conv(k, parts, pitch, wt, w_bstride, out, _kernel_name(weight), bias, pre_add,
+             out_scale, s_bstride, lrelu, residual)
+    return out
+
+
+def run_conv(k: int, parts, pitch, wt: torch.Tensor, w_bstride: int, out: torch.Tensor,
+             counter: str, bias=None, pre_add=None, out_scale=None, s_bstride: int = 0,
+             lrelu=None, residual=None) -> None:
+    """One launch of ``savsr_conv_fused`` (checked by the caller): conv_k of
+    the channel parts, each read at its row pitch (``tma_part`` for bf16),
+    with the weight as the kernel takes it (``pack_weight`` for bf16;
+    ``w_bstride`` elements per sample, 0 for a shared weight) into ``out``
+    [B, Cout, H, W]; counted once as ``counter``."""
+    b, cout, h, w = out.shape
+    n = len(parts)
     part_ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in parts])
-    part_ch = (ctypes.c_int * n)(*chans)
+    part_ch = (ctypes.c_int * n)(*[p.shape[1] for p in parts])
     part_bs = (ctypes.c_longlong * n)(*[p.stride(0) for p in parts])
     part_pitch = (ctypes.c_longlong * n)(*pitch)
     la, lb = lrelu if lrelu is not None else (1.0, 0.0)
     lib = _lib()
-    fn = lib.savsr_conv_fused
-    rc = fn(k, dtype_code(x0), n, part_ptrs, part_ch, part_bs, part_pitch, b, h, w, cout,
-            ptr(wt), w_bstride, ptr(bias),
-            ptr(pre_add), ptr(out_scale), s_bstride, int(lrelu is not None),
-            la, lb, ptr(residual), ptr(out), stream_ptr(x0))
-    check_rc(lib, rc, "conv_fused")
-    launches[_kernel_name(weight)] += 1
-    return out
+    rc = lib.savsr_conv_fused(k, dtype_code(out), n, part_ptrs, part_ch, part_bs, part_pitch,
+                              b, h, w, cout, ptr(wt), w_bstride, ptr(bias), ptr(pre_add),
+                              ptr(out_scale), s_bstride, int(lrelu is not None), la, lb,
+                              ptr(residual), ptr(out), stream_ptr(out))
+    check_rc(lib, rc, counter)
+    launches[counter] += 1
 
 
 def conv_fused(parts, weight: torch.Tensor,

@@ -177,9 +177,18 @@ def test_small_forward_on_the_card_matches_torch_golden(dev, scale):
 
 
 # (B, Cin, H, W, Cout, k, padding): partial tiles in every direction, Cin and
-# Cout off the 32/64 tiles, every padding of k = 3, and k = 1
+# Cout off the 32/64 tiles, every padding of k = 3, and k = 1. In bf16 the
+# cases at padding k//2 run the tensor-core kernels (the bf16 conv's 64-Cout
+# x 4-row x 64-px tiles for agg; 64-Cin x 64-Cout blocks walking 64-px row
+# boxes for dagg); the last five aim at their ragged edges: Cin off 64 (100,
+# 40, 72), W 60 and 130 (pitch-padded copies; 130 also crosses column tiles,
+# so the halo boxes are used), W 24 (a multiple of 8, read in place), H 13,
+# 6 and 37 (off the 4-row tile; 37 cuts into row chunks of 10, 10, 10 and
+# 7), Cout 64 and 72, and the training shape 320 -> 64
 OSCONV_SHAPES = [(2, 48, 13, 10, 32, 3, 1), (1, 16, 10, 12, 8, 3, 0), (3, 40, 9, 37, 72, 3, 2),
-                 (2, 24, 7, 33, 16, 1, 0), (8, 192, 60, 60, 64, 3, 1)]
+                 (2, 24, 7, 33, 16, 1, 0), (8, 192, 60, 60, 64, 3, 1),
+                 (2, 100, 13, 60, 64, 3, 1), (2, 72, 9, 24, 72, 3, 1), (1, 40, 6, 130, 64, 3, 1),
+                 (3, 40, 5, 130, 72, 1, 0), (8, 320, 60, 60, 64, 3, 1), (8, 64, 37, 24, 64, 3, 1)]
 
 
 def _osconv_inputs(shape, dtype, dev):
@@ -199,6 +208,20 @@ def test_osconv_agg_kernel_ragged(dev, shape, dtype):
     x, agg, _, _, pad = _osconv_inputs(shape, dtype, dev)
     _agree(lambda: osconv_agg(x, agg, pad), lambda: osconv_agg_plain(x, agg, pad), dtype,
            "osconv_agg")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", OSCONV_SHAPES, ids=str)
+def test_osconv_agg_dx_kernel_ragged(dev, shape, dtype):
+    """The backward's dx call on agg as it lies (bf16 at padding k//2: the
+    flip and channel swap folded into the tensor-core repack) against the
+    plain version on the flipped, swapped weight."""
+    from savsr_tpu_torch.ops.osconv import osconv_agg_dx, osconv_agg_plain
+
+    _, agg, g, k, pad = _osconv_inputs(shape, dtype, dev)
+    flipped = agg.flip(1, 2).transpose(3, 4)
+    _agree(lambda: osconv_agg_dx(g, agg, pad), lambda: osconv_agg_plain(g, flipped, k - 1 - pad),
+           dtype, "osconv_agg")
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -234,3 +257,23 @@ def test_osconv_agg_train_gradients_on_card(dev, shape):
         grads.append((xr.grad, ar.grad))
     for got, want in zip(*grads):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", [OSCONV_SHAPES[i] for i in (0, 4, 5, 7, 9)], ids=str)
+def test_osconv_agg_train_gradients_on_card_bf16(dev, shape):
+    """bf16 at padding 1, the training path: the Function's dx (the folded
+    flip-and-swap repack on the tensor cores) and dagg (the tensor-core
+    weight gradient, cast to bf16) against autograd through the plain
+    version: 2e-2 x the gradient's max (each side rounds once to bf16)."""
+    from savsr_tpu_torch.ops.osconv import osconv_agg_plain, osconv_agg_train
+
+    x, agg, g, _, pad = _osconv_inputs(shape, torch.bfloat16, dev)
+    grads = []
+    for fn in (osconv_agg_train, osconv_agg_plain):
+        xr, ar = x.clone().requires_grad_(), agg.clone().requires_grad_()
+        (fn(xr, ar, pad).float() * g.float()).sum().backward()
+        grads.append((xr.grad, ar.grad))
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= TOL[torch.bfloat16] * float(want.float().abs().max()), err
