@@ -7,10 +7,12 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. build    nvcc compiles the port's CUDA sources (savsr_tpu_torch/csrc/*.cu,
             one process per source, all at once) for sm_90a; prints ptxas's
-            registers and spills and the HGMMA (wgmma) instructions in the
-            SASS of the conv and osconv libraries (the tensor-core kernels:
-            the bf16 conv, which also runs the bf16 OSConv forward and dx,
-            and the bf16 OSConv weight gradient), which must not be 0.
+            registers and spills and the tensor-core instructions in the
+            SASS of the libraries with bf16 tensor-core kernels: HGMMA
+            (wgmma) in conv and osconv (the bf16 conv, which also runs the
+            bf16 OSConv forward and dx, and the bf16 OSConv weight
+            gradient), HMMA (mma.sync) in stau and tail; neither count may
+            be 0 where the kernels use it.
 2. kernels  each kernel wrapper against its plain PyTorch version on the
             card, f32 and bf16: max abs error, median time, the plain
             version's time, the time of one library call computing the same
@@ -18,7 +20,10 @@ Phases (each prints its lines; any failure exits non-zero):
             and the achieved TFLOP/s and share of the bound, all from
             back-to-back calls. The serving kernels at the serving path's
             shapes (8 windows of 180x320 per launch, x4, flagship widths); the
-            two OSConv kernels at the training path's (8 samples of 60x60, Cin
+            bf16 STAU kernel on the window plan of the serving statics (the
+            plan's count of tiles gathered from device memory is printed for
+            each serving scale); the two OSConv kernels at the training
+            path's (8 samples of 60x60, Cin
             192/320/64 -> 64, forward, dx and weight gradient), whose host
             launch cost exceeds their device time, so they (and their library
             calls) are also timed as replays of a CUDA graph of the calls,
@@ -86,7 +91,8 @@ from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
 from savsr_tpu_torch.ops.osconv import (osconv_agg, osconv_agg_dx, osconv_agg_plain,
                                         osconv_agg_train, osconv_dagg, osconv_dagg_plain)
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
-from savsr_tpu_torch.ops.stau import stau_upsample_fused, stau_upsample_fused_plain
+from savsr_tpu_torch.ops.stau import (STAGE_CAP, stau_upsample_fused,
+                                      stau_upsample_fused_plain)
 from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
 from savsr_tpu_torch.utils.convert import load_into
 
@@ -112,6 +118,8 @@ SOURCES = {
     "conv3x3": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:386"),
     "conv1x1": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:531"),
     "sta": ("savsr_tpu_torch/csrc/sta.cu", "savsr_tpu/ops/pallas/sta_kernel.py:84"),
+    # bf16 (the timed headline) runs the tensor-core kernels stau_mma_kernel
+    # and tail_mma_kernel; f32 the CUDA-core stau_kernel and tail_kernel
     "stau": ("savsr_tpu_torch/csrc/stau.cu", "savsr_tpu/ops/pallas/stau_kernel.py:183"),
     "tail": ("savsr_tpu_torch/csrc/tail.cu", "savsr_tpu/ops/pallas/tail_kernel.py:89"),
     # bf16 (the training path, the timed headline) runs the bf16 conv's
@@ -438,12 +446,13 @@ def stau_case(rng, model, statics, dtype, device, b=WINDOWS):
     wts = [t.to(dtype) for t in (up.weight_compress, up.weight_expand, up.fusion.weight)]
     bias = up.fusion.bias
     args = (x, sta, pix, *wts, bias)
+    plan = statics["stau_plan"]  # the serving path's: planned once per shape and scale
     cout = wts[2].shape[0]
     # 2 bilinear gathers (4 taps, C channels), compress + expand (n*C/8 x C
     # each), routing mixes, and the 2C -> Cout fusion, per HR pixel
     flops = (16.0 * c + 4.0 * n * (c // 8) * c + 4.0 * n * (c // 8) + 4.0 * c * cout) * H * W * b
     io = nbytes(x, sta, pix, *wts, bias) + b * cout * H * W * x.element_size()
-    return check("stau", f"C={c} {h}x{w} -> {H}x{W}", lambda: stau_upsample_fused(*args),
+    return check("stau", f"C={c} {h}x{w} -> {H}x{W}", lambda: stau_upsample_fused(*args, plan=plan),
                  lambda: stau_upsample_fused_plain(*args), None, flops, io, dtype, device)
 
 
@@ -472,6 +481,13 @@ def phase_kernels(model, device) -> list:
     rng = np.random.default_rng(0)
     rows = []
     with float32_precision(True):
+        for scale in ((4.0, 4.0), (1.5, 3.5), (3.05, 3.05)):
+            plan = model.stau_statics(LR_HW, scale, device=device)["stau_plan"]
+            sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
+            log(f"[kernels] stau window plan x{scale[0]}x{scale[1]} {LR_HW[0]}x{LR_HW[1]}: "
+                f"{plan.shape[0]} tiles, {int((plan[:, 4] == 0).sum())} gathered from device "
+                f"memory, staged box slots max {int(sizes.max())} mean "
+                f"{float(sizes.float().mean()):.1f} of {STAGE_CAP}")
         statics = model.stau_statics(LR_HW, SCALE, dtype=torch.float32, device=device)
         for dtype in (torch.float32, torch.bfloat16):
             for case in CONV_CASES:
@@ -643,8 +659,8 @@ def phase_profile(sd, device, windows: int = WINDOWS) -> None:
         f"({100 * total / fwd_ms:.1f}% of the forward)")
     for name, ms, count in rows[:12]:
         log(f"[profile] {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {name[:90]}")
-    port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in ("conv_fused", "conv_wgmma",
-                                                                      "sta", "stau", "tail"))]
+    port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
+        "conv_fused", "conv_wgmma", "sta", "stau", "stau_mma", "tail", "tail_mma"))]
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
         f"everything else {total - port_ms:.2f} ms in {sum(r[2] for r in rows) - sum(r[2] for r in port)} "
@@ -948,15 +964,19 @@ def osconv_share(prof, rows, total: float) -> None:
         f"{sum(1 for name, _ in in_ranges if not is_port(name))} launches")
 
 
-def hgmma_count(lib_path: str):
-    """HGMMA (wgmma) instructions in a library's SASS, or None without
-    cuobjdump."""
+def tensor_core_count(lib_path: str):
+    """(HMMA, HGMMA) instructions in a library's SASS — mma.sync and wgmma
+    — or None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
-                          check=True).stdout
-    return sum(1 for line in sass.splitlines() if "HGMMA" in line)
+                          check=True).stdout.splitlines()
+    return (sum(1 for line in sass if "HMMA" in line), sum(1 for line in sass if "HGMMA" in line))
+
+
+# the tensor-core instruction each library's bf16 kernels must contain
+TENSOR_CORE_OPS = {"conv": "HGMMA", "osconv": "HGMMA", "stau": "HMMA", "tail": "HMMA"}
 
 
 def phase_build() -> None:
@@ -971,13 +991,14 @@ def phase_build() -> None:
                 for line in f:
                     if "registers" in line or "spill" in line or "Compiling entry" in line:
                         log(f"[build] {name}: {line.strip()}")
-    for name in ("conv", "osconv"):
-        n = hgmma_count(build.library_path(name))
-        log(f"[build] HGMMA instructions in {name}'s SASS: "
-            f"{'not counted (no cuobjdump)' if n is None else n}")
-        if n == 0:
-            raise AssertionError(f"the tensor-core kernels of {name}.cu have no wgmma (HGMMA) "
-                                 f"instruction")
+    for name, op in TENSOR_CORE_OPS.items():
+        n = tensor_core_count(build.library_path(name))
+        if n is None:
+            log(f"[build] tensor-core instructions in {name}'s SASS: not counted (no cuobjdump)")
+            continue
+        log(f"[build] tensor-core instructions in {name}'s SASS: HMMA {n[0]}, HGMMA {n[1]}")
+        if n[op == "HGMMA"] == 0:
+            raise AssertionError(f"the tensor-core kernels of {name}.cu have no {op} instruction")
 
 
 def main(argv=None) -> int:

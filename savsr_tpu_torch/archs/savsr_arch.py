@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.sta import sta_conv_fused
-from ..ops.stau import stau_upsample_fused
+from ..ops.stau import stau_upsample_fused, stau_window_plan
 from ..ops.tail import tail_fused
 from .arch_util import (
     _bilinear_matrix,
@@ -347,7 +347,8 @@ def stau_apply(m: STAUpsample, x: torch.Tensor, scale: Scale, st_feat: torch.Ten
     kc = m.kernel_conv[0]
     sta = sta_conv_fused(x, st_feat, kc.weight, kc.bias)
     return stau_upsample_fused(x, sta, pix, m.weight_compress, m.weight_expand,
-                               m.fusion.weight, m.fusion.bias)
+                               m.fusion.weight, m.fusion.bias,
+                               plan=None if statics is None else statics["stau_plan"])
 
 
 def tail_fused_apply(tail: nn.Conv2d, sr: torch.Tensor, x_center: torch.Tensor,
@@ -518,9 +519,10 @@ class SAVSR(nn.Module):
     @torch.no_grad()
     def stau_statics(self, lq_hw, scale, dtype=torch.float32, device=None):
         """Frame-invariant operands for (LR shape, scale): the STAU
-        coordinate-head outputs, the sampler planes and the tail's resize
-        rows/columns. ``dtype`` must be the forward's feature dtype for the
-        result to equal the inline path exactly."""
+        coordinate-head outputs, the sampler planes, the bf16 STAU kernel's
+        window plan and the tail's resize rows/columns. ``dtype`` must be the
+        forward's feature dtype for the result to equal the inline path
+        exactly."""
         h, w = int(lq_hw[0]), int(lq_hw[1])
         scale = normalize_scale(scale)
         device = self.gamma.device if device is None else device
@@ -528,6 +530,7 @@ class SAVSR(nn.Module):
         with float32_precision(self.cfg.matmul_precision == "float32"):
             st = _stau_head(self.upsample, h, w, scale, dtype, device)
             st["pix"] = stau_sampler_planes(st, scale, h, w)
+            st["stau_plan"] = stau_window_plan(st["pix"], h, w)
         st.update(tail_operands(h, w, H, W, device))
         return st
 

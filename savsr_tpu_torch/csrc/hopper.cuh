@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels: shared
 // memory addresses, mbarriers, TMA tensor and bulk copies, wgmma descriptors
 // and the bf16 wgmmas (m64n128k16 with B MN-major; m64n64k16 and m64n192k16
-// with both operands K-major), each one PTX instruction (or a short loop of
-// one); and, on the host, cuTensorMapEncodeTiled through the runtime's
-// driver entry point, so a library needs no -lcuda.
+// with both operands K-major; m64nNk16 with A from registers), each one PTX
+// instruction (or a short loop of one); the warp-level mma.sync m16n8k16,
+// ldmatrix.trans and cp.async; and, on the host, cuTensorMapEncodeTiled
+// through the runtime's driver entry point, so a library needs no -lcuda.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -223,6 +225,108 @@ __device__ __forceinline__ void wgmma_m64n192k16_bf16_kk(float (&d)[96], uint64_
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+
+// D[64 x N] += A[64 x 16] * B[16 x N], A from registers (each warp of the
+// warpgroup its 16 rows, in the mma.sync m16n8k16 A fragment layout), B
+// K-major in shared memory, bf16, f32 accumulators in the fragment layout
+// above (d[4i + 2j + c]: row g + 8j of the warp's 16, column 8i + 2q + c).
+// The A registers are read asynchronously: keep them until wgmma_wait.
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                       uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- mma.sync, ldmatrix, cp.async (the warp-level tensor-core path) -------------
+
+// D[16 x 8] += A[16 x 16] * B[16 x 8], bf16 operands in registers, f32
+// accumulators. Lane l (g = l / 4, q = l % 4) holds a = {A[g][2q..2q+1],
+// A[g+8][2q..2q+1], A[g][2q+8..2q+9], A[g+8][2q+8..2q+9]}, b = {B[2q..2q+1][g],
+// B[2q+8..2q+9][g]} and d = {D[g][2q], D[g][2q+1], D[g+8][2q], D[g+8][2q+1]}
+// (two bf16 in a register: the lower index in the low half)
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
+      " {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices stored transposed (stored row i is column i of the
+// matrix); lanes 8i..8i+7 give the 16-byte stored-row addresses of matrix i,
+// and register i of every lane receives its part of matrix i. With 8
+// channels as the stored rows, each holding 8 pixels, lane t receives
+// channels 2(t % 4), +1 of pixel t / 4: the mma.sync A fragment with pixels
+// as rows when the matrices are pixels 0-7 / 8-15 x channels 0-7, then
+// pixels 0-7 / 8-15 x channels 8-15.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// 16 bytes from global to shared memory without registers (both ends 16-byte
+// aligned); complete after cp_async_wait_all in the issuing thread
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// two floats as one register of two bf16 (round to nearest even), and back
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
 
 // ---- host: TMA tensor maps -----------------------------------------------------
 

@@ -6,8 +6,10 @@ through ``conv_tail`` (zero padding) and the bilinearly upsampled
 (align_corners=False) centre frame is added. The resize is separable with
 <=2 nonzeros per row and per column: rows mix ``wy*xc[j0] + (1-wy)*xc[j0+1]``
 (j0 clipped to h0-2, as ``_tail_row_mix``), columns ``cw[0]*lr[c0] +
-cw[1]*lr[c0+1]`` (c0 clipped to w0-2). The CUDA kernel (csrc/tail.cu) does
-both in one pass over the HR image.
+cw[1]*lr[c0+1]`` (c0 clipped to w0-2). The CUDA kernels (csrc/tail.cu) do
+both in one pass over the HR image: f32 on the CUDA cores, bf16 on the
+tensor cores with the weight packed as mma B fragments
+(``pack_tail_weights``, cached on the weight).
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import check_rc, count_plain, dtype_code, launches, ptr, require, stream_ptr
+from .conv import tma_part
 
 
 def tail_fused_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias):
@@ -38,25 +42,66 @@ def tail_fused_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias):
 
 
 @functools.lru_cache(maxsize=None)
+def tail_pack_index(c: int) -> torch.Tensor:
+    """Where each element of the packed bf16 tail weight comes from: an
+    int64 index into ``cat(weight.flatten(), [0])`` (weight [3, C, 3, 3];
+    the last slot, a zero, pads). The kernel multiplies each row of sr by
+    B_dy[C, 16], column n = 3 dx + k (k < 3 an output; n >= 9 zero), and
+    shifts the products by dx afterwards. Packed order: [dy][C/16][2 n-tiles]
+    [lane][4], lane l = 4g + q holding B_dy[c][8 nt + g] for c = 16 kb + 2q,
+    +1, +8, +9 (the mma.sync m16n8k16 B fragment)."""
+    lane = np.arange(32)
+    g, q = lane[:, None] // 4, lane[:, None] % 4
+    j = np.arange(4)[None, :]
+    kk = 2 * q + j % 2 + 8 * (j // 2)
+    n = np.broadcast_to(g, kk.shape)
+    blocks = []
+    for dy in range(3):
+        for kb in range(c // 16):
+            for nt in range(2):
+                dx, k = (8 * nt + n) // 3, (8 * nt + n) % 3
+                blocks.append(np.where(8 * nt + n < 9,
+                                       ((k * c + 16 * kb + kk) * 3 + dy) * 3 + dx, 27 * c))
+    return torch.from_numpy(np.stack(blocks).reshape(-1).astype(np.int64))
+
+
+def pack_tail_weights(weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's B fragments (``tail_pack_index``), kept on the
+    weight as ``_savsr_tail_packed`` while its storage and version counter
+    stay the same."""
+    key = (weight.data_ptr(), weight._version)
+    hit = getattr(weight, "_savsr_tail_packed", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    flat = torch.cat([weight.detach().reshape(-1), weight.new_zeros(1)])
+    packed = flat[tail_pack_index(weight.shape[1]).to(flat.device)]
+    weight._savsr_tail_packed = (key, packed)
+    return packed
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from ..csrc.build import load
 
     lib = load("tail")
-    lib.savsr_tail_fused.restype = ctypes.c_int
-    lib.savsr_tail_fused.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
+    for fn in (lib.savsr_tail_fused, lib.savsr_tail_mma):
+        fn.restype = ctypes.c_int
+    lib.savsr_tail_fused.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.savsr_tail_mma.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 8
+                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return lib
 
 
 def tail_fused(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch.Tensor:
     """Tail conv + bilinear skip -> [B, 3, H, W]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch a kernel: f32 the CUDA-core kernel, bf16
+    the tensor-core kernel (C a multiple of 16 up to 64)."""
     if not sr.is_cuda:
         return tail_fused_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias)
     b, c, H, W = sr.shape
     h0, w0 = xc.shape[2:]
     dt = sr.dtype
+    dtype_code(sr)
     for name, t, shape, tdt in (
         ("sr", sr, (b, c, H, W), dt), ("xc", xc, (b, 3, h0, w0), dt),
         ("weight", weight, (3, c, 3, 3), dt), ("bias", bias, (3,), dt),
@@ -67,9 +112,17 @@ def tail_fused(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch
                 f"tail: {name} must be a contiguous {tdt} {shape} CUDA tensor")
     out = torch.empty((b, 3, H, W), dtype=dt, device=sr.device)
     lib = _lib()
-    rc = lib.savsr_tail_fused(dtype_code(sr), ptr(sr), ptr(xc), ptr(weight), ptr(bias),
-                              ptr(rows_j0), ptr(rows_wy), ptr(cols_c0), ptr(cols_w), ptr(out),
-                              b, c, H, W, h0, w0, stream_ptr(sr))
+    if dt == torch.float32:
+        rc = lib.savsr_tail_fused(ptr(sr), ptr(xc), ptr(weight), ptr(bias), ptr(rows_j0),
+                                  ptr(rows_wy), ptr(cols_c0), ptr(cols_w), ptr(out),
+                                  b, c, H, W, h0, w0, stream_ptr(sr))
+    else:
+        require(c % 16 == 0 and 16 <= c <= 64,
+                f"tail: bf16 takes C in 16, 32, 48, 64, got {c}")
+        srk, pitch = tma_part(sr)  # TMA reads rows at a 16-byte pitch
+        rc = lib.savsr_tail_mma(ptr(srk), pitch, ptr(xc), ptr(pack_tail_weights(weight)),
+                                ptr(bias), ptr(rows_j0), ptr(rows_wy), ptr(cols_c0), ptr(cols_w),
+                                ptr(out), b, c, H, W, h0, w0, stream_ptr(sr))
     check_rc(lib, rc, "tail_fused")
     launches["tail"] += 1
     return out

@@ -23,7 +23,8 @@ from savsr_tpu_torch.archs.savsr_arch import (SAVSR, STAUpsample, _stau_head, ge
                                               stau_sampler_planes, tail_operands)
 from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
-from savsr_tpu_torch.ops.stau import stau_upsample_fused, stau_upsample_fused_plain
+from savsr_tpu_torch.ops.stau import (stau_upsample_fused, stau_upsample_fused_plain,
+                                      stau_window_plan)
 from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
 
 pytestmark = pytest.mark.cuda
@@ -159,6 +160,75 @@ def test_tail_kernel_matches_plain(dev, c, h0, w0, scale, dtype):
     args = (sr, xc, o["tail_j0"], o["tail_wy"], o["tail_c0"], o["tail_cw"],
             _rand(rng, (3, c, 3, 3), dtype, dev, 0.1), _rand(rng, (3,), dtype, dev, 0.1))
     _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), dtype, "tail")
+
+
+# the bf16 STAU kernel (tensor cores, tiles of 8 HR rows x 64 HR columns,
+# staged LR windows): C 32 and 64, the three serving scales, LR widths off
+# and on a multiple of 8 (the landing copy's plain loads and its cp.async),
+# every H and W off the tile, batch 1 and 8 (b, c, (h, w), scale)
+STAU_BF16 = [(b, c, hw, scale) for b, c, hw in ((1, 32, (13, 23)), (8, 64, (12, 40)),
+                                                 (8, 32, (9, 16)), (1, 64, (17, 21)))
+             for scale in ((4.0, 4.0), (1.5, 3.5), (3.05, 3.05))]
+
+
+def _stau_bf16_case(dev, b, c, hw, scale, seed, large=False):
+    m = STAUpsample(c)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * 0.3))
+    m.to(dev)
+    h, w = hw
+    with torch.no_grad():
+        pix = stau_sampler_planes(_stau_head(m, h, w, scale, torch.float32, dev), scale, h, w)
+    if large:  # offsets of up to +-3 LR rows/columns x 8 on the upper left tiles
+        off = torch.from_numpy(rng.uniform(-24, 24, (4, 16, 64)).astype(np.float32)).to(dev)
+        pix[:4, :16, :64] += off
+    plan = stau_window_plan(pix, h, w)
+    x, sta = _rand(rng, (b, c, h, w), torch.bfloat16, dev), _rand(rng, (b, c, h, w),
+                                                                   torch.bfloat16, dev)
+    args = (x, sta, pix, m.weight_compress.to(torch.bfloat16),
+            m.weight_expand.to(torch.bfloat16), m.fusion.weight.to(torch.bfloat16), m.fusion.bias)
+    _agree(lambda: stau_upsample_fused(*args, plan=plan),
+           lambda: stau_upsample_fused_plain(*args), torch.bfloat16, "stau")
+    return plan
+
+
+@pytest.mark.parametrize("case", STAU_BF16, ids=[f"b{c[0]}-c{c[1]}-{c[2][0]}x{c[2][1]}-x{c[3][0]}"
+                                                 for c in STAU_BF16])
+def test_stau_bf16_kernel_matches_plain(dev, case):
+    plan = _stau_bf16_case(dev, *case, seed=sum(case[2]) + case[1])
+    assert bool((plan[:, 4] > 0).all())  # every tile staged
+
+
+@pytest.mark.parametrize("b,c", [(1, 64), (8, 32)])
+def test_stau_bf16_kernel_direct_tiles(dev, b, c):
+    """Large offsets: the plan marks tiles for the gather from device
+    memory, and those tiles agree as well."""
+    plan = _stau_bf16_case(dev, b, c, (20, 40), (4.0, 4.0), seed=c, large=True)
+    assert 0 < int((plan[:, 4] == 0).sum()) < plan.shape[0]
+
+
+# the bf16 tail kernel (tensor cores, 128-px strips walked down runs of rows):
+# (b, c, H, W, h0, w0): W under, over and off the strip, on and off a
+# multiple of 8 (16-byte loads or plain ones), H short of a run and long
+# enough for several, C 16, 32 and 64, batch 1 and 8
+TAIL_BF16 = [(8, 64, 37, 300, 10, 75), (1, 32, 45, 256, 15, 64), (1, 64, 16, 136, 4, 34),
+             (2, 16, 5, 33, 3, 11), (8, 64, 90, 128, 30, 32), (1, 48, 23, 200, 8, 50)]
+
+
+@pytest.mark.parametrize("case", TAIL_BF16, ids=[f"b{c[0]}-c{c[1]}-{c[2]}x{c[3]}"
+                                                 for c in TAIL_BF16])
+def test_tail_bf16_kernel_matches_plain(dev, case):
+    b, c, H, W, h0, w0 = case
+    rng = np.random.default_rng(c + H)
+    sr = _rand(rng, (b, c, H, W), torch.bfloat16, dev)
+    xc = torch.from_numpy(rng.random((b, 3, h0, w0)).astype(np.float32)).to(dev, torch.bfloat16)
+    o = tail_operands(h0, w0, H, W, dev)
+    args = (sr, xc, o["tail_j0"], o["tail_wy"], o["tail_c0"], o["tail_cw"],
+            _rand(rng, (3, c, 3, 3), torch.bfloat16, dev, 0.1),
+            _rand(rng, (3,), torch.bfloat16, dev, 0.1))
+    _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), torch.bfloat16, "tail")
 
 
 @pytest.mark.parametrize("scale", [(2.0, 2.0), (1.5, 3.5)])
