@@ -9,17 +9,20 @@ Phases (each prints its lines; any failure exits non-zero):
             one process per source, all at once) for sm_90a; prints ptxas's
             registers and spills and the tensor-core instructions in the
             SASS of the libraries with bf16 tensor-core kernels: HGMMA
-            (wgmma) in conv and osconv (the bf16 conv, which also runs the
-            bf16 OSConv forward and dx, and the bf16 OSConv weight
-            gradient), HMMA (mma.sync) in stau and tail; neither count may
-            be 0 where the kernels use it.
+            (wgmma) in conv, osconv and sta (the bf16 conv, which also runs
+            the bf16 OSConv forward and dx, the bf16 OSConv weight gradient
+            and the bf16 STA K product), HMMA (mma.sync) in stau and tail;
+            neither count may be 0 where the kernels use it.
 2. kernels  each kernel wrapper against its plain PyTorch version on the
             card, f32 and bf16: max abs error, median time, the plain
             version's time, the time of one library call computing the same
             function (where there is one), the card's bound for the work,
             and the achieved TFLOP/s and share of the bound, all from
-            back-to-back calls. The serving kernels at the serving path's
-            shapes (8 windows of 180x320 per launch, x4, flagship widths); the
+            back-to-back calls (STA's bound holds its K product to the bf16
+            tensor-core rate and its 25-tap filter, which has no matrix
+            form, to the f32 CUDA-core rate). The serving kernels at the
+            serving path's shapes (8 windows of 180x320 per launch, x4,
+            flagship widths); the
             bf16 STAU kernel on the window plan of the serving statics (the
             plan's count of tiles gathered from device memory is printed for
             each serving scale); the two OSConv kernels at the training
@@ -117,6 +120,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SOURCES = {
     "conv3x3": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:386"),
     "conv1x1": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:531"),
+    # bf16 (the timed headline) runs the tensor-core sta_mma_kernel; f32 the
+    # CUDA-core sta_kernel
     "sta": ("savsr_tpu_torch/csrc/sta.cu", "savsr_tpu/ops/pallas/sta_kernel.py:84"),
     # bf16 (the timed headline) runs the tensor-core kernels stau_mma_kernel
     # and tail_mma_kernel; f32 the CUDA-core stau_kernel and tail_kernel
@@ -212,8 +217,10 @@ def short_name(kernel: str) -> str:
     return name.split("(")[0].strip()[:48]
 
 
-def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound_ms(flops: float, nbytes: float, dtype, ops_ms=None) -> tuple:
+    """(the least time for the work, "operations" or "bytes"); ``ops_ms``
+    overrides the operations' time where they run at more than one rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3 if ops_ms is None else ops_ms
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -223,7 +230,7 @@ def nbytes(*ts) -> int:
 
 
 def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
-          io_bytes: int, dtype, device, tol=None, graph: bool = False) -> dict:
+          io_bytes: int, dtype, device, tol=None, graph: bool = False, ops_ms=None) -> dict:
     """Run the kernel and its plain version on the same inputs, compare in
     f32, time both (and the library call), and return the result row.
     ``tol`` (relative to max|plain|) overrides TOL[dtype]. ``ms`` and
@@ -248,7 +255,7 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
             graphed = {"graph_ms": graph_ms(kernel_fn),
                        "library_graph_ms": None if library_fn is None else graph_ms(library_fn),
                        "breakdown": per_call_breakdown(kernel_fn)}
-    b_ms, b_by = bound_ms(flops, io_bytes, dtype)
+    b_ms, b_by = bound_ms(flops, io_bytes, dtype, ops_ms)
     tflops = flops / ms * 1e-9
     row = {"name": name, "case": label, "dtype": DT_NAME[dtype], "max_abs_err": err,
            "max_abs_plain": scale, "ok": ok, "ms": ms, "plain_ms": plain_ms,
@@ -428,10 +435,18 @@ def sta_case(rng, model, dtype, device, b=WINDOWS):
     x = _rand(rng, (b, c, h, w), dtype, device)
     st = _rand(rng, (b, c, h, w), dtype, device)
     wk, bk = kc.weight.to(dtype), kc.bias.to(dtype)
-    flops = 2.0 * 25 * c * (c + 1) * h * w * b
+    # the K product (2*25*C*C FLOPs a pixel) fits the tensor cores in bf16;
+    # the 25-tap filter (2*25*C) is a per-pixel, per-channel multiply-add
+    # with no matrix form, so it runs at the f32 CUDA-core rate in both
+    # types. In bf16 the tensor cores run beside the FP32 pipe, so the
+    # slower of the two sets the bound; in f32 one pipe does both
+    k_flops, filter_flops = 2.0 * 25 * c * c * h * w * b, 2.0 * 25 * c * h * w * b
+    t_k, t_filter = k_flops / PEAK_FLOPS[dtype], filter_flops / PEAK_FLOPS[torch.float32]
+    ops_ms = (max(t_k, t_filter) if dtype == torch.bfloat16 else t_k + t_filter) * 1e3
     io = nbytes(x, st, wk, bk) + x.numel() * x.element_size()  # the output is x-sized
     return check("sta", f"C={c} {h}x{w}", lambda: sta_conv_fused(x, st, wk, bk),
-                 lambda: sta_conv_fused_plain(x, st, wk, bk), None, flops, io, dtype, device)
+                 lambda: sta_conv_fused_plain(x, st, wk, bk), None, k_flops + filter_flops, io,
+                 dtype, device, ops_ms=ops_ms)
 
 
 def stau_case(rng, model, statics, dtype, device, b=WINDOWS):
@@ -976,7 +991,8 @@ def tensor_core_count(lib_path: str):
 
 
 # the tensor-core instruction each library's bf16 kernels must contain
-TENSOR_CORE_OPS = {"conv": "HGMMA", "osconv": "HGMMA", "stau": "HMMA", "tail": "HMMA"}
+TENSOR_CORE_OPS = {"conv": "HGMMA", "osconv": "HGMMA", "sta": "HGMMA", "stau": "HMMA",
+                   "tail": "HMMA"}
 
 
 def phase_build() -> None:

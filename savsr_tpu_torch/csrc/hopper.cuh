@@ -3,8 +3,9 @@
 // and the bf16 wgmmas (m64n128k16 with B MN-major; m64n64k16 and m64n192k16
 // with both operands K-major; m64nNk16 with A from registers), each one PTX
 // instruction (or a short loop of one); the warp-level mma.sync m16n8k16,
-// ldmatrix.trans and cp.async; and, on the host, cuTensorMapEncodeTiled
-// through the runtime's driver entry point, so a library needs no -lcuda.
+// ldmatrix.trans and cp.async (16-byte, and 4-byte in groups); and, on the
+// host, cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// a library needs no -lcuda.
 
 #pragma once
 
@@ -230,14 +231,15 @@ __device__ __forceinline__ void wgmma_m64n192k16_bf16_kk(float (&d)[96], uint64_
 // warpgroup its 16 rows, in the mma.sync m16n8k16 A fragment layout), B
 // K-major in shared memory, bf16, f32 accumulators in the fragment layout
 // above (d[4i + 2j + c]: row g + 8j of the warp's 16, column 8i + 2q + c).
-// The A registers are read asynchronously: keep them until wgmma_wait.
+// The A registers are read asynchronously: keep them until wgmma_wait. With
+// accumulate = 0 the product overwrites D (D = A * B, D's old values unread).
 template <int N>
 __device__ __forceinline__ void wgmma_m64nNk16_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                                       uint64_t desc_b);
+                                                       uint64_t desc_b, int accumulate = 1);
 
 template <>
 __device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<16>(float (&d)[8], const uint32_t (&a)[4],
-                                                           uint64_t desc_b) {
+                                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -247,12 +249,12 @@ __device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<16>(float (&d)[8], const 
       " {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<32>(float (&d)[16], const uint32_t (&a)[4],
-                                                           uint64_t desc_b) {
+                                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -262,12 +264,12 @@ __device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<32>(float (&d)[16], const
       " {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                                           uint64_t desc_b) {
+                                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -277,7 +279,7 @@ __device__ __forceinline__ void wgmma_m64nNk16_bf16_rs<64>(float (&d)[32], const
       " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // ---- mma.sync, ldmatrix, cp.async (the warp-level tensor-core path) -------------
@@ -318,6 +320,21 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 4 bytes from global to shared memory without registers (both ends 4-byte
+// aligned); grouped by cp_async_commit, complete after cp_async_wait<N> has
+// left at most N of the issuing thread's later groups in flight
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // two floats as one register of two bf16 (round to nearest even), and back

@@ -20,15 +20,16 @@
 // takes a per-sample weight, repacked by the wrapper), the weight gradient on
 // osconv_dagg_wgmma_kernel below. f32 (the train-parity tier: true f32, no
 // TF32) and bf16 at any other padding run the CUDA-core kernels
-// osconv_agg_kernel and osconv_dagg_kernel.
+// osconv_agg_kernel and osconv_dagg_kernel (f32 only: the wrapper widens bf16
+// inputs first).
 //
 // Bound on the H100: at the training shapes (8 samples of 60x60, Cin 64..320,
 // Cout 64, or the reverse for dx) each does 2*9*Cin*Cout FLOPs per pixel
 // against (Cin + Cout) values moved per pixel plus the 9*Cin*Cout weights of
 // each sample, so both are bound by operations: in f32 held to the 67 TFLOP/s
 // CUDA-core rate, in bf16 to the 989 TFLOP/s tensor-core rate. The CUDA-core
-// kernels work in f32 (bf16 inputs are widened on load) and cannot approach
-// the bf16 bound; that is why bf16 goes to the tensor cores.
+// kernels work in f32 (bf16 inputs are widened) and cannot approach the bf16
+// bound; that is why bf16 goes to the tensor cores.
 //
 // Design, CUDA-core forward/dx: a block computes a 64-channel x 8-row x
 // 32-column output tile; each warp owns 8 output channels, each lane one
@@ -38,17 +39,24 @@
 // shared memory. The weight layout [tap][Cin][Cout] makes the weight loads
 // contiguous in Cout.
 //
-// Design, CUDA-core weight gradient: the TPU kernel carries its [P, Cin,
-// Cout] accumulator across the sequential row-tile steps of one sample;
-// blocks on this card run in no order and carry nothing over. Here a block
-// owns one (sample, 32-input-channel tile, 64-output-channel tile, chunk of
-// pixel rows) and keeps all K*K taps of its tile in registers (each thread:
-// 2 input channels x 4 output channels x 9 taps) while it walks its chunk's
-// pixels 2 rows x 32 columns at a time through shared memory; the 3x3 window
-// of x slides along the row in registers. With more than one chunk the
-// blocks write f32 partials [chunk][B][P][Cin][Cout] and a second kernel
-// adds them in chunk order, so the sum order is fixed and the result is the
-// same from run to run (no atomics).
+// Design, CUDA-core weight gradient (f32; bf16 inputs are widened by the
+// wrapper): per (sample, tap) the gradient is a GEMM, M = Cin, N = Cout, K =
+// the pixels, and the tap's shift is moved from x to g (as on the tensor
+// cores below), so x rows are staged as they lie. The TPU kernel carries its
+// [P, Cin, Cout] accumulator across the sequential row-tile steps of one
+// sample; blocks on this card run in no order and carry nothing over. Here a
+// block owns (sample, 64-Cin tile, 64-Cout tile, chunk of pixel rows,
+// segment of up to 64 columns) and one group of 128 threads per dy tap, each
+// thread 8 Cin x 4 Cout x the K dx taps (96 f32 accumulators at K = 3). It
+// walks its chunk one x row at a time: 4-byte cp.async lands the next x row
+// and the next g row (a ring of K + 1 g rows, zero columns at the image's
+// edges) while the block computes the current one, and along the row the
+// threads take 4 pixels at a time, so 4 pixels are 12 16-byte shared loads
+// for 384 FMAs. The wrapper sizes the chunks so
+// that the blocks fill one wave of the card's SMs (one block per SM). With
+// more than one chunk or segment the blocks write f32 partials [part][B][P]
+// [Cin][Cout] and a second kernel adds them in part order, so the sum order
+// is fixed and the result is the same from run to run (no atomics).
 //
 // Design, tensor-core weight gradient (osconv_dagg_wgmma_kernel, bf16,
 // padding K/2): per (sample, tap) the gradient is a GEMM, M = Cin, N = Cout,
@@ -204,112 +212,170 @@ cudaError_t launch_agg(const void* x, const void* agg, void* out, int B, int Cin
 // per-sample weight gradient
 // ---------------------------------------------------------------------------
 
-constexpr int DI = 32;             // input channels per block (16 thread groups x 2)
-constexpr int DO = 64;             // output channels per block (16 thread groups x 4)
-constexpr int DR = 2;              // pixel rows per shared-memory stage
-constexpr int DC = 32;             // pixel columns per shared-memory stage
-constexpr int DPIX = DR * DC + 1;  // odd row stride: the 16 o-groups hit 16 banks
+constexpr int DG_CH = 64;   // Cin and Cout per block (8 and 16 thread groups x 8 and 4)
+constexpr int DG_SEG = 64;  // pixel columns per block (a longer row is cut into segments)
+// row pitches (floats), 4 mod 8: 16-byte loads of 8 rows hit distinct banks.
+// An x row holds the segment's columns; a g row holds column c of the image
+// at c - c0 - pad + DG_G0, so the column of step j (x column c0 + j, g
+// column c0 + j + pad) sits at j + DG_G0 and the two before it (the dx taps
+// reach back 2) at j + 2 and j + 3
+constexpr int DG_XP = DG_SEG + 4;
+constexpr int DG_G0 = 4;
+constexpr int DG_GP = DG_SEG + 12;
 
-template <typename T, int KS>
-__global__ void __launch_bounds__(THREADS)
-osconv_dagg_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ out,
-                   int Cin, int H, int W, int Cout, int Ho, int Wo, int pad,
-                   int rows_per_chunk, long long chunk_stride) {
+template <int KS>
+struct DgRows {
+  static constexpr int THREADS = 128 * KS;  // one group of 128 per dy tap
+  static constexpr int NG = KS + 1;          // g rows in the ring: KS in use, 1 landing
+  static constexpr int X_FLOATS = 2 * DG_CH * DG_XP;
+  static constexpr int SMEM = 4 * (X_FLOATS + NG * DG_CH * DG_GP);
+};
+
+// cp.async of one channel row per warp at a time, 4 bytes a lane: x row y
+// (the segment's columns) into x slot `xs`, and g row gr, if 0 <= gr < Ho
+// (the columns the segment's steps read, clipped to the image), into its
+// ring slot gr % NG
+template <int KS>
+__device__ __forceinline__ void dagg_stage_x(float* s_x, const float* xb, int y, int i0, int Cin,
+                                             int H, int W, int c0, int sw, int xs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* xd = s_x + xs * DG_CH * DG_XP;
+  for (int ci = warp; ci < DG_CH && i0 + ci < Cin; ci += DgRows<KS>::THREADS / 32)
+    for (int c = lane; c < sw; c += 32)
+      hopper::cp_async4(xd + ci * DG_XP + c,
+                        xb + (long long)(i0 + ci) * H * W + (long long)y * W + c0 + c);
+}
+
+template <int KS>
+__device__ __forceinline__ void dagg_stage_g(float* s_g, const float* gb, int gr, int o0, int Cout,
+                                             int Ho, int Wo, int c0, int sw, int pad) {
+  if (gr < 0 || gr >= Ho) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* gd = s_g + (gr % DgRows<KS>::NG) * DG_CH * DG_GP + DG_G0 - c0 - pad;
+  // the columns steps 0..sw-1 read, and the two before (zero off the image)
+  const int g0 = max(c0 + pad - 2, 0), g1 = min(c0 + sw + pad, Wo);
+  for (int o = warp; o < DG_CH && o0 + o < Cout; o += DgRows<KS>::THREADS / 32)
+    for (int c = g0 + lane; c < g1; c += 32)
+      hopper::cp_async4(gd + o * DG_GP + c,
+                        gb + (long long)(o0 + o) * Ho * Wo + (long long)gr * Wo + c);
+}
+
+// The weight gradient as shifted-g GEMMs (see the file's comment): a block
+// owns (sample, 64-Cin tile, 64-Cout tile, chunk of x rows, segment of x
+// columns) and KS groups of 128 threads, one per dy. Thread (cig, cog) of a
+// group holds input channels cig + 8k (k < 8) x output channels cog + 16m (m
+// < 4) x the KS dx taps: 96 f32 accumulators at KS = 3. Each step stages one
+// x row and the newest g row (a ring of KS + 1 g rows) with cp.async while
+// the previous step computes; group dy multiplies x row y by g row y + pad -
+// dy. Along the row the threads walk 4 pixels at a time: per pixel quad 8
+// 16-byte x loads and 4 16-byte g loads (the g columns of the two steps
+// before stay in registers for the dx taps), and 8 x 4 x KS x 4 FMAs. The 2
+// x 16 threads of a warp read 2 x rows (broadcast) and 16 g rows at a
+// pitch of 4 mod 8 (distinct banks for each 8-thread phase).
+template <int KS>
+__global__ void __launch_bounds__(DgRows<KS>::THREADS, 1)
+osconv_dagg_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                   float* __restrict__ out, int Cin, int H, int W, int Cout, int Ho, int Wo,
+                   int pad, int rows_per_chunk, int nseg, long long chunk_stride) {
+  using Cfg = DgRows<KS>;
   constexpr int KK = KS * KS;
-  constexpr int XR = DR + KS - 1;
-  constexpr int XC = DC + KS - 1;
-  __shared__ float s_x[DI][XR][XC];
-  __shared__ float s_g[DO][DPIX];
+  extern __shared__ __align__(16) float dg_smem[];
+  float* s_x = dg_smem;                 // [2][DG_CH][DG_XP]
+  float* s_g = dg_smem + Cfg::X_FLOATS;  // [NG][DG_CH][DG_GP] (see DG_G0)
 
-  const int og = threadIdx.x & 15;  // owns output channels og + 16k, k = 0..3
-  const int ig = threadIdx.x >> 4;  // owns input channels 2*ig, 2*ig + 1
-  const int n_otile = (Cout + DO - 1) / DO;
-  const int i0 = (blockIdx.x / n_otile) * DI;
-  const int o0 = (blockIdx.x % n_otile) * DO;
-  const int chunk = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long HW = (long long)H * W, HoWo = (long long)Ho * Wo;
-  const T* xb = x + (long long)b * Cin * HW;
-  const T* gb = g + (long long)b * Cout * HoWo;
-  const int row0 = chunk * rows_per_chunk;
-  const int row1 = min(Ho, row0 + rows_per_chunk);
+  const int dy = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int cog = lt % 16, cig = lt / 16;
+  const int n_otile = (Cout + DG_CH - 1) / DG_CH;
+  const int i0 = (blockIdx.x / n_otile) * DG_CH, o0 = (blockIdx.x % n_otile) * DG_CH;
+  const int part = blockIdx.y, b = blockIdx.z;
+  const int chunk = part / nseg, c0 = (part % nseg) * DG_SEG;
+  const int sw = min(DG_SEG, W - c0);
+  const int r0 = chunk * rows_per_chunk, r1 = min(H, r0 + rows_per_chunk);
+  const float* xb = x + (long long)b * Cin * H * W;
+  const float* gb = g + (long long)b * Cout * Ho * Wo;
 
-  float acc[2][4][KK];
-#pragma unroll
-  for (int ii = 0; ii < 2; ++ii)
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int t = 0; t < KK; ++t) acc[ii][k][t] = 0.f;
+  // columns off the image (g) or past the segment (x, read by the last
+  // 4-pixel step) stay zero: the copies never write them
+  for (int e = threadIdx.x; e < Cfg::X_FLOATS + Cfg::NG * DG_CH * DG_GP; e += Cfg::THREADS)
+    dg_smem[e] = 0.f;
+  __syncthreads();
 
-  for (int y0 = row0; y0 < row1; y0 += DR) {
-    for (int x0 = 0; x0 < Wo; x0 += DC) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < DI * XR * XC; e += THREADS) {
-        const int ci = e / (XR * XC), r = (e / XC) % XR, c = e % XC;
-        const int gy = y0 + r - pad, gx = x0 + c - pad;
-        float v = 0.f;
-        if (i0 + ci < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = ld(xb, (i0 + ci) * HW + (long long)gy * W + gx);
-        s_x[ci][r][c] = v;
-      }
-      // cotangent tile; rows past this chunk and columns past Wo are zero
-      for (int e = threadIdx.x; e < DO * DR * DC; e += THREADS) {
-        const int o = e / (DR * DC), r = (e / DC) % DR, c = e % DC;
-        const int gy = y0 + r, gx = x0 + c;
-        float v = 0.f;
-        if (o0 + o < Cout && gy < row1 && gx < Wo)
-          v = ld(gb, (o0 + o) * HoWo + (long long)gy * Wo + gx);
-        s_g[o][r * DC + c] = v;
-      }
-      __syncthreads();
-      for (int r = 0; r < DR; ++r) {
-        float xw[2][KS][KS];  // the KxK window of x at the current pixel
+  float acc[8][4][KS];
 #pragma unroll
-        for (int ii = 0; ii < 2; ++ii)
+  for (int k = 0; k < 8; ++k)
 #pragma unroll
-          for (int dy = 0; dy < KS; ++dy)
+    for (int m = 0; m < 4; ++m)
 #pragma unroll
-            for (int dx = 1; dx < KS; ++dx) xw[ii][dy][dx] = s_x[ig * 2 + ii][r + dy][dx - 1];
+      for (int d = 0; d < KS; ++d) acc[k][m][d] = 0.f;
+
+  // the g rows that x row r0 needs before its newest one, then the first step
+  for (int gr = r0 + pad - KS + 1; gr < r0 + pad; ++gr)
+    dagg_stage_g<KS>(s_g, gb, gr, o0, Cout, Ho, Wo, c0, sw, pad);
+  if (r0 < r1) {
+    dagg_stage_x<KS>(s_x, xb, r0, i0, Cin, H, W, c0, sw, 0);
+    dagg_stage_g<KS>(s_g, gb, r0 + pad, o0, Cout, Ho, Wo, c0, sw, pad);
+  }
+  hopper::cp_async_commit();
+
+  for (int y = r0; y < r1; ++y) {
+    if (y + 1 < r1) {  // the next step's rows land while this one computes
+      dagg_stage_x<KS>(s_x, xb, y + 1, i0, Cin, H, W, c0, sw, (y + 1 - r0) & 1);
+      dagg_stage_g<KS>(s_g, gb, y + 1 + pad, o0, Cout, Ho, Wo, c0, sw, pad);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const int gr = y + pad - dy;
+    if (gr >= 0 && gr < Ho) {
+      const float* xr = s_x + ((y - r0) & 1) * DG_CH * DG_XP + cig * DG_XP;
+      const float* grow = s_g + (gr % Cfg::NG) * DG_CH * DG_GP + cog * DG_GP;
+      float2 prev[4];  // per output channel the g columns of steps j0 - 2, j0 - 1
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
+      for (int m = 0; m < 4; ++m)
+        prev[m] = *reinterpret_cast<const float2*>(grow + 16 * m * DG_GP + DG_G0 - 2);
+      for (int j0 = 0; j0 < sw; j0 += 4) {  // 4 pixels a step: 16-byte loads
+        float4 gv[4], xv[8];
 #pragma unroll
-          for (int ii = 0; ii < 2; ++ii)
+        for (int m = 0; m < 4; ++m)
+          gv[m] = *reinterpret_cast<const float4*>(grow + 16 * m * DG_GP + DG_G0 + j0);
 #pragma unroll
-            for (int dy = 0; dy < KS; ++dy) {
+        for (int k = 0; k < 8; ++k)
+          xv[k] = *reinterpret_cast<const float4*>(xr + 8 * k * DG_XP + j0);
 #pragma unroll
-              for (int dx = 0; dx + 1 < KS; ++dx) xw[ii][dy][dx] = xw[ii][dy][dx + 1];
-              xw[ii][dy][KS - 1] = s_x[ig * 2 + ii][r + dy][c + KS - 1];
-            }
-          float gv[4];
+        for (int u = 0; u < 4; ++u) {
 #pragma unroll
-          for (int k = 0; k < 4; ++k) gv[k] = s_g[og + 16 * k][r * DC + c];
+          for (int k = 0; k < 8; ++k) {
+            const float xk = u == 0 ? xv[k].x : u == 1 ? xv[k].y : u == 2 ? xv[k].z : xv[k].w;
 #pragma unroll
-          for (int ii = 0; ii < 2; ++ii)
+            for (int m = 0; m < 4; ++m)
 #pragma unroll
-            for (int k = 0; k < 4; ++k)
-#pragma unroll
-              for (int dy = 0; dy < KS; ++dy)
-#pragma unroll
-                for (int dx = 0; dx < KS; ++dx)
-                  acc[ii][k][dy * KS + dx] =
-                      fmaf(xw[ii][dy][dx], gv[k], acc[ii][k][dy * KS + dx]);
+              for (int d = 0; d < KS; ++d) {  // tap dx = d reads the column of step j0 + u - d
+                const int s = u - d;
+                const float gk = s == 0 ? gv[m].x : s == 1 ? gv[m].y : s == 2 ? gv[m].z
+                               : s == 3 ? gv[m].w : s == -1 ? prev[m].y : prev[m].x;
+                acc[k][m][d] = fmaf(xk, gk, acc[k][m][d]);
+              }
+          }
         }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) prev[m] = make_float2(gv[m].z, gv[m].w);
       }
     }
+    __syncthreads();
   }
 
-  float* ob = out + chunk * chunk_stride + (long long)b * KK * Cin * Cout;
+  float* ob = out + part * chunk_stride + (long long)b * KK * Cin * Cout;
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int i = i0 + ig * 2 + ii;
+  for (int k = 0; k < 8; ++k) {
+    const int i = i0 + cig + 8 * k;
     if (i >= Cin) continue;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int o = o0 + og + 16 * k;
+    for (int m = 0; m < 4; ++m) {
+      const int o = o0 + cog + 16 * m;
       if (o >= Cout) continue;
 #pragma unroll
-      for (int t = 0; t < KK; ++t) ob[((long long)t * Cin + i) * Cout + o] = acc[ii][k][t];
+      for (int d = 0; d < KS; ++d)
+        ob[((long long)(dy * KS + d) * Cin + i) * Cout + o] = acc[k][m][d];
     }
   }
 }
@@ -325,21 +391,29 @@ __global__ void dagg_reduce_kernel(const float* __restrict__ part, float* __rest
   }
 }
 
-template <typename T, int KS>
-cudaError_t launch_dagg(const void* x, const void* g, float* out, float* scratch, int nchunks,
+template <int KS>
+cudaError_t launch_dagg(const float* x, const float* g, float* out, float* scratch, int nchunks,
                         int rows_per_chunk, int B, int Cin, int H, int W, int Cout, int pad,
                         cudaStream_t stream) {
+  using Cfg = DgRows<KS>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(osconv_dagg_kernel<KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
   const int Ho = H + 2 * pad - KS + 1, Wo = W + 2 * pad - KS + 1;
+  const int nseg = (W + DG_SEG - 1) / DG_SEG, nparts = nchunks * nseg;
   const long long n = (long long)B * KS * KS * Cin * Cout;
-  dim3 grid(((Cin + DI - 1) / DI) * ((Cout + DO - 1) / DO), nchunks, B);
-  osconv_dagg_kernel<T, KS><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), nchunks > 1 ? scratch : out, Cin, H,
-      W, Cout, Ho, Wo, pad, rows_per_chunk, n);
+  dim3 grid(((Cin + DG_CH - 1) / DG_CH) * ((Cout + DG_CH - 1) / DG_CH), nparts, B);
+  osconv_dagg_kernel<KS><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
+      x, g, nparts > 1 ? scratch : out, Cin, H, W, Cout, Ho, Wo, pad, rows_per_chunk, nseg, n);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || nchunks == 1) return e;
+  if (e != cudaSuccess || nparts == 1) return e;
   const int blocks = static_cast<int>((n + THREADS - 1) / THREADS);
   dagg_reduce_kernel<<<blocks < 1024 ? blocks : 1024, THREADS, 0, stream>>>(scratch, out, n,
-                                                                            nchunks);
+                                                                            nparts);
   return cudaGetLastError();
 }
 
@@ -629,31 +703,28 @@ extern "C" int savsr_osconv_agg(int ksize, int dtype, const void* x, const void*
   return static_cast<int>(e);
 }
 
-// The pixel rows are cut into `nchunks` chunks of `rows_per_chunk` rows (a
-// multiple of 2); with nchunks > 1, `scratch` holds nchunks f32 copies of the
-// output's size for the partial sums.
-extern "C" int savsr_osconv_dagg(int ksize, int dtype, const void* x, const void* g, void* out,
+// f32 on the CUDA cores. The pixel rows of x are cut into `nchunks` chunks
+// of `rows_per_chunk` rows and each row into segments of DG_SEG columns (the
+// wrapper's plan: ops/osconv.py dagg_plan); with more than one part (chunk
+// x segment), `scratch` holds that many f32 copies of the output's size for
+// the partial sums.
+extern "C" int savsr_osconv_dagg(int ksize, const void* x, const void* g, void* out,
                                  void* scratch, int nchunks, int rows_per_chunk, int B, int Cin,
                                  int H, int W, int Cout, int pad, void* stream) {
-  const int Ho = H + 2 * pad - ksize + 1;
-  if ((ksize != 1 && ksize != 3) || dtype < 0 || dtype > 1 || pad < 0 || pad >= ksize ||
-      nchunks < 1 || rows_per_chunk < DR || rows_per_chunk % DR != 0 ||
-      (long long)nchunks * rows_per_chunk < Ho || (nchunks > 1 && scratch == nullptr))
+  const int nparts = nchunks * ((W + DG_SEG - 1) / DG_SEG);
+  if ((ksize != 1 && ksize != 3) || pad < 0 || pad >= ksize || nchunks < 1 ||
+      rows_per_chunk < 1 || (long long)nchunks * rows_per_chunk < H ||
+      (nparts > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
   float* o = static_cast<float*>(out);
   float* sc = static_cast<float*>(scratch);
-  cudaError_t e;
-  if (dtype == 0)
-    e = ksize == 3
-            ? launch_dagg<float, 3>(x, g, o, sc, nchunks, rows_per_chunk, B, Cin, H, W, Cout, pad, s)
-            : launch_dagg<float, 1>(x, g, o, sc, nchunks, rows_per_chunk, B, Cin, H, W, Cout, pad, s);
-  else
-    e = ksize == 3 ? launch_dagg<__nv_bfloat16, 3>(x, g, o, sc, nchunks, rows_per_chunk, B, Cin, H,
-                                                   W, Cout, pad, s)
-                   : launch_dagg<__nv_bfloat16, 1>(x, g, o, sc, nchunks, rows_per_chunk, B, Cin, H,
-                                                   W, Cout, pad, s);
-  return static_cast<int>(e);
+  const int r = rows_per_chunk;
+  return static_cast<int>(
+      ksize == 3 ? launch_dagg<3>(xf, gf, o, sc, nchunks, r, B, Cin, H, W, Cout, pad, s)
+                 : launch_dagg<1>(xf, gf, o, sc, nchunks, r, B, Cin, H, W, Cout, pad, s));
 }
 
 // The tensor-core weight gradient: bf16, padding ksize / 2 (so Ho = H, Wo =

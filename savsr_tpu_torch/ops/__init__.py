@@ -10,6 +10,7 @@ makes. Counts are process-wide; ``reset_counts`` zeroes them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,6 +50,11 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_rc(lib, rc: int, what: str) -> None:

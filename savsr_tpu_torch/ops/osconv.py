@@ -32,7 +32,9 @@ Which kernel runs is chosen by dtype and padding alone (``tensor_cores``):
   that copy of x for the backward.
 - f32 at any padding (the train-parity tier: true f32, no TF32), and bf16
   at any other padding: the CUDA-core kernels ``osconv_agg_kernel`` and
-  ``osconv_dagg_kernel`` (csrc/osconv.cu).
+  ``osconv_dagg_kernel`` (csrc/osconv.cu). The weight gradient's kernel
+  takes f32 only: bf16 inputs are widened to f32 first (the same products
+  and sums as widening on load).
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises. Each launch counts once in
@@ -50,17 +52,13 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from . import check_rc, count_plain, dtype_code, launches, ptr, require, stream_ptr
+from . import (check_rc, count_plain, dtype_code, launches, ptr, require, sm_count,
+               stream_ptr)
 from .conv import pack_index, run_conv, tma_part
 
-# pixel rows per shared-memory stage of the weight-gradient kernel (DR in
-# csrc/osconv.cu): a chunk of rows is a multiple of it
-DAGG_ROWS = 2
-# channel tiles of the weight-gradient kernel (DI, DO in csrc/osconv.cu)
-DAGG_CIN_TILE, DAGG_COUT_TILE = 32, 64
-# blocks wanted in flight (two per SM of a 132-SM card) before the pixel rows
-# stop being split further, and the most chunks the rows are split into
-DAGG_TARGET_BLOCKS, DAGG_MAX_CHUNKS = 264, 8
+# the CUDA-core weight gradient's channel tile (Cin and Cout per block) and
+# column segment (DG_CH, DG_SEG in csrc/osconv.cu); it runs one block per SM
+DAGG_TILE, DAGG_SEG = 64, 64
 # the tensor-core weight gradient's channel tile (Cin and Cout per block,
 # TG_CH in csrc/osconv.cu); it runs one block per SM. A chunk of rows walks
 # 2 more g rows than x rows and writes a whole f32 partial, so chunks keep at
@@ -143,7 +141,7 @@ def _lib():
     lib.savsr_osconv_agg.argtypes = [i, i, p, p, p,        # ksize, dtype, x, agg, out
                                      i, i, i, i, i, i, p]  # B, Cin, H, W, Cout, pad, stream
     lib.savsr_osconv_dagg.restype = i
-    lib.savsr_osconv_dagg.argtypes = [i, i, p, p, p, p,    # ksize, dtype, x, g, out, scratch
+    lib.savsr_osconv_dagg.argtypes = [i, p, p, p, p,       # ksize, x, g, out, scratch
                                       i, i,                # nchunks, rows_per_chunk
                                       i, i, i, i, i, i, p]  # B, Cin, H, W, Cout, pad, stream
     ll = ctypes.c_longlong
@@ -155,15 +153,15 @@ def _lib():
     return lib
 
 
-def dagg_chunks(b: int, cin: int, cout: int, ho: int):
+def dagg_chunks(b: int, cin: int, cout: int, h: int, w: int, sms: int):
     """(number of pixel-row chunks, rows per chunk) of the CUDA-core
-    weight-gradient launch: the rows are split until about two blocks per SM
-    are in flight."""
-    base = b * -(-cin // DAGG_CIN_TILE) * -(-cout // DAGG_COUT_TILE)
-    row_tiles = -(-ho // DAGG_ROWS)
-    want = min(DAGG_MAX_CHUNKS, -(-DAGG_TARGET_BLOCKS // base), row_tiles)
-    rows = -(-row_tiles // want) * DAGG_ROWS
-    return -(-ho // rows), rows
+    weight-gradient launch, over the rows of x: one block per SM, so the rows
+    of each (sample, channel tiles, column segment) are split into as many
+    chunks as keep every block in the first wave (or one chunk)."""
+    base = b * -(-cin // DAGG_TILE) * -(-cout // DAGG_TILE) * -(-w // DAGG_SEG)
+    want = max(1, min(h, sms // base))
+    rows = -(-h // want)
+    return -(-h // rows), rows
 
 
 def dagg_tc_chunks(b: int, cin: int, cout: int, h: int, sms: int):
@@ -175,11 +173,6 @@ def dagg_tc_chunks(b: int, cin: int, cout: int, h: int, sms: int):
     want = max(1, min(h // DAGG_TC_MIN_ROWS, sms // base))
     rows = -(-h // want)
     return -(-h // rows), rows
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def tensor_cores(dtype: torch.dtype, k: int, padding: int) -> bool:
@@ -249,15 +242,17 @@ def _dagg(x: torch.Tensor, g: torch.Tensor, k: int, padding: int, x_tma=None,
     ``g_tma``: x / g as an earlier kernel 6 launch read them (``_agg``), if
     the caller holds them (used on the tensor cores only)."""
     b, cin, h, w = x.shape
-    cout, ho = g.shape[1], g.shape[2]
+    cout = g.shape[1]
     out = torch.empty((b, k * k, cin, cout), dtype=torch.float32, device=x.device)
     with record_function("osconv_dagg"):
         lib = _lib()
         tc = tensor_cores(x.dtype, k, padding)
-        nchunks, rows = (dagg_tc_chunks(b, cin, cout, h, _sm_count(x.device)) if tc
-                         else dagg_chunks(b, cin, cout, ho))
-        scratch = (torch.empty((nchunks,) + tuple(out.shape), dtype=torch.float32,
-                               device=x.device) if nchunks > 1 else None)
+        sms = sm_count(x.device)
+        nchunks, rows = dagg_tc_chunks(b, cin, cout, h, sms) if tc else dagg_chunks(
+            b, cin, cout, h, w, sms)
+        nparts = nchunks if tc else nchunks * -(-w // DAGG_SEG)
+        scratch = (torch.empty((nparts,) + tuple(out.shape), dtype=torch.float32,
+                               device=x.device) if nparts > 1 else None)
         if tc:
             xb, xpitch = x_tma if x_tma is not None else tma_part(x)
             gb, gpitch = g_tma if g_tma is not None else tma_part(g)
@@ -265,8 +260,9 @@ def _dagg(x: torch.Tensor, g: torch.Tensor, k: int, padding: int, x_tma=None,
                                              gb.stride(0), gpitch, ptr(out), ptr(scratch),
                                              nchunks, rows, b, cin, h, w, cout, stream_ptr(x))
         else:
-            rc = lib.savsr_osconv_dagg(k, dtype_code(x), ptr(x), ptr(g), ptr(out), ptr(scratch),
-                                       nchunks, rows, b, cin, h, w, cout, padding, stream_ptr(x))
+            xf, gf = x.float(), g.float()
+            rc = lib.savsr_osconv_dagg(k, ptr(xf), ptr(gf), ptr(out), ptr(scratch), nchunks,
+                                       rows, b, cin, h, w, cout, padding, stream_ptr(x))
         check_rc(lib, rc, "osconv_dagg")
     launches["osconv_dagg"] += 1
     return out

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's bf16 STAU and tail kernels goes: each kernel
-built again with one part switched off, timed at the serving shape on one
-CUDA card.
+"""Where the time of the port's hand-written kernels goes: each kernel built
+again with one part switched off, timed at its main-path shape on one CUDA
+card.
 
-    python3 scripts/torch_kernel_variants.py [--out FILE]
+    python3 scripts/torch_kernel_variants.py [--kernels K [K ...]] [--out FILE]
 
-A variant is a text edit of a copy of ``savsr_tpu_torch/csrc/<kernel>.cu``
+A variant is a text edit of a copy of ``savsr_tpu_torch/csrc/<source>.cu``
 in a temporary directory (the edit must match the source, or the script
 stops), built with the package's nvcc flags and called through the
-package's wrapper at 8 windows of 180x320 LR, x4, C = 64 (STAU with the
-flagship weights' window plan), back-to-back between CUDA events as
-``chip_smoke.py`` times every kernel. The variants compute wrong results:
-their error against the plain version is printed only to show which part
-was switched off. The time a variant saves is an upper bound on what that
-part costs, since the parts overlap.
+package's wrapper, back-to-back between CUDA events as ``chip_smoke.py``
+times every kernel; a variant may instead (or also) set a module attribute
+of the wrapper for its call (a launch plan, a tile width). Shapes: STAU and
+the tail at 8 windows of 180x320 LR, x4, C = 64 (STAU with the flagship
+weights' window plan), bf16; STA at 8 windows of 180x320, C = 64, bf16; the
+f32 OSConv weight gradient at 8 x 60x60, 192 -> 64, k = 3, padding 1. The
+edited variants compute wrong results: their error against the plain
+version is printed only to show which part was switched off. The time a
+variant saves is an upper bound on what that part costs, since the parts
+overlap.
 """
 
 from __future__ import annotations
@@ -63,17 +67,57 @@ VARIANTS = {
             ("        out[((long long)b * 3 + k) * HW + (long long)(y + r) * W + x] =",
              "        if (v == 12345.f) out[((long long)b * 3 + k) * HW + (long long)(y + r) * W + x] =")],
     },
+    "sta": {
+        "full": [],
+        "no wgmma": [("    wgmma_m64nNk16_bf16_rs<C>(acc, a[kb], make_desc(w_tap + kb * C * 32, 128, 256, "
+                      "kInterleave),\n                              kb > 0);",
+                      "    acc[0] += __uint_as_float(a[kb][0] & 0x3f800000u);")],
+        "no x loads in the epilogue": [
+            ("      const uint32_t xv = hx[j * HALO * StaCfg<C>::PW + 4 * i];",
+             "      const uint32_t xv = 0x3f803f80u;")],
+        "no operand loads": [("    sta_fetch<C>(x, st, tl, H, W, sn, hn);",
+                              "    if (tile < 0) sta_fetch<C>(x, st, tl, H, W, sn, hn);")],
+        "no L2 prefetch of the next tile": [("    if (tile + gridDim.x < ntiles)\n      sta_prefetch",
+                                             "    if (tile < 0)\n      sta_prefetch")],
+    },
+    "osconv_dagg": {
+        "full": [],
+        "no staging copies": [
+            ("      hopper::cp_async4(xd + ci * DG_XP + c,",
+             "      if (c < 0) hopper::cp_async4(xd + ci * DG_XP + c,"),
+            ("      hopper::cp_async4(gd + o * DG_GP + c,",
+             "      if (c < 0) hopper::cp_async4(gd + o * DG_GP + c,")],
+        "FMAs of 1 of 3 dx taps": [
+            ("                acc[k][m][d] = fmaf(xk, gk, acc[k][m][d]);",
+             "                if (d == 0) acc[k][m][d] = fmaf(xk, gk, acc[k][m][d]);")],
+        "no reduce": [("  dagg_reduce_kernel<<<blocks < 1024 ? blocks : 1024, THREADS, 0, stream>>>"
+                       "(scratch, out, n,\n"
+                       "                                                                            "
+                       "nparts);\n", "")],
+        "1 chunk of 60 rows": {"dagg_chunks": lambda *a: (1, 60)},
+        "3 chunks of 20 rows": {"dagg_chunks": lambda *a: (3, 20)},
+        "6 chunks of 10 rows": {"dagg_chunks": lambda *a: (6, 10)},
+        "10 chunks of 6 rows": {"dagg_chunks": lambda *a: (10, 6)},
+    },
 }
 
 
-def build_variants(tmp: str) -> dict:
-    """Compile every variant at once; {(kernel, variant): library path}."""
-    from savsr_tpu_torch.csrc import build
+def _edits(variant):
+    return [] if isinstance(variant, dict) else variant
 
+
+def build_variants(tmp: str, build, variants: dict) -> dict:
+    """Compile every variant with edits at once (one nvcc each; a variant
+    without edits uses the package's own library); {(kernel, variant):
+    library path}."""
     procs = {}
-    for kern, variants in VARIANTS.items():
-        src = open(os.path.join(build.CSRC_DIR, f"{kern}.cu")).read()
-        for i, (name, edits) in enumerate(variants.items()):
+    for kern, vs in variants.items():
+        source = "osconv" if kern == "osconv_dagg" else kern
+        src = open(os.path.join(build.CSRC_DIR, f"{source}.cu")).read()
+        for i, (name, variant) in enumerate(vs.items()):
+            edits = _edits(variant)
+            if not edits:
+                continue
             text = src
             for old, new in edits:
                 if old not in text:
@@ -98,6 +142,8 @@ def build_variants(tmp: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--kernels", nargs="+", default=["stau", "tail", "sta", "osconv_dagg"],
+                    help="the kernels to vary")
     ap.add_argument("--out", default=None, help="also write the times here as JSON")
     args = ap.parse_args(argv)
 
@@ -106,8 +152,9 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     from savsr_tpu_torch.archs.savsr_arch import SAVSR
+    from savsr_tpu_torch.csrc import build
     from savsr_tpu_torch.inference import flagship_net_kwargs
-    from savsr_tpu_torch.ops import stau, tail
+    from savsr_tpu_torch.ops import osconv, sta, stau, tail
     from savsr_tpu_torch.utils.convert import load_into
 
     if not torch.cuda.is_available():
@@ -127,6 +174,8 @@ def main(argv=None) -> int:
     with cs.float32_precision(True):
         st = model.stau_statics(cs.LR_HW, cs.SCALE, device=device)
     up, bf = model.upsample, torch.bfloat16
+    kc = up.kernel_conv[0]
+    tb, th, tw = cs.TRAIN_B, *cs.TRAIN_HW
     calls = {
         "stau": (stau, "stau_upsample_fused", (
             cs._rand(rng, (b, c, h, w), bf, device), cs._rand(rng, (b, c, h, w), bf, device),
@@ -139,23 +188,41 @@ def main(argv=None) -> int:
               for k in ("tail_j0", "tail_wy", "tail_c0", "tail_cw")),
             cs._rand(rng, (3, c, 3, 3), bf, device, 0.1), cs._rand(rng, (3,), bf, device, 0.1)),
             {}),
+        "sta": (sta, "sta_conv_fused", (
+            cs._rand(rng, (b, c, h, w), bf, device), cs._rand(rng, (b, c, h, w), bf, device),
+            kc.weight.to(bf), kc.bias.to(bf)), {}),
+        "osconv_dagg": (osconv, "osconv_dagg", (
+            cs._rand(rng, (tb, 192, th, tw), torch.float32, device),
+            cs._rand(rng, (tb, 64, th, tw), torch.float32, device), 3, 3, 1), {}),
     }
+    variants = {k: VARIANTS[k] for k in args.kernels}
     results = []
-    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
-        libs = build_variants(tmp)
-        for kern, (mod, fn_name, fn_args, kw) in calls.items():
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad(), cs.float32_precision(True):
+        libs = build_variants(tmp, build, variants)
+        for kern, vs in variants.items():
+            mod, fn_name, fn_args, kw = calls[kern]
             real = mod._lib()
             fn = getattr(mod, fn_name)
             want = getattr(mod, fn_name + "_plain")(*fn_args).float()
-            for name in VARIANTS[kern]:
-                lib = ctypes.CDLL(libs[(kern, name)])
-                for sym in ("savsr_error_string", f"savsr_{kern}_fused", f"savsr_{kern}_mma"):
-                    getattr(lib, sym).argtypes = getattr(real, sym).argtypes
-                    getattr(lib, sym).restype = getattr(real, sym).restype
-                mod._lib = lambda lib=lib: lib
-                err = float((fn(*fn_args, **kw).float() - want).abs().max())
-                ms = cs.timed_ms(lambda: fn(*fn_args, **kw), device)
-                print(f"[variants] {kern} {name:20s} ms {ms:.4f} (max abs err {err:.3e})",
+            for name, variant in vs.items():
+                patch = variant if isinstance(variant, dict) else {}
+                if (kern, name) in libs:
+                    lib = ctypes.CDLL(libs[(kern, name)])
+                    for sym in dir(real):
+                        if sym.startswith("savsr_"):
+                            getattr(lib, sym).argtypes = getattr(real, sym).argtypes
+                            getattr(lib, sym).restype = getattr(real, sym).restype
+                    patch = {**patch, "_lib": lambda lib=lib: lib}
+                saved = {k: getattr(mod, k) for k in patch}
+                for k, v in patch.items():
+                    setattr(mod, k, v)
+                try:
+                    err = float((fn(*fn_args, **kw).float() - want).abs().max())
+                    ms = cs.timed_ms(lambda: fn(*fn_args, **kw), device)
+                finally:
+                    for k, v in saved.items():
+                        setattr(mod, k, v)
+                print(f"[variants] {kern} {name:28s} ms {ms:.4f} (max abs err {err:.3e})",
                       flush=True)
                 results.append({"kernel": kern, "variant": name, "ms": ms, "max_abs_err": err})
     if args.out:

@@ -3,16 +3,18 @@
 (``savsr_tpu_torch.ops.osconv``) at the training path's shapes, for one or
 more checkouts of the repo, on one CUDA card.
 
-    python3 scripts/torch_osconv_ab.py [--plans] [--train] [--out FILE] ROOT [ROOT ...]
+    python3 scripts/torch_osconv_ab.py [--dtype bf16|f32] [--plans] [--train] [--out FILE]
+        ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repo (this one, or a ``git archive`` of
 another commit unpacked into a directory). They run one after another, each
 in a process of its own that imports that checkout's package and builds its
 kernels, so an A/B in one call reads ``A B B A``.
 
-Per checkout and case (8 samples of 60x60, k = 3, padding 1, bf16: the
-forward and the dx call of ``osconv_agg`` at 192/320/64 <-> 64, and
-``osconv_dagg`` at 192/320/64 -> 64):
+Per checkout and case (8 samples of 60x60, k = 3, padding 1, in ``--dtype``
+(bf16, the training path's, or f32, the train-parity tier's, with TF32 off
+for the library calls too): the forward and the dx call of ``osconv_agg`` at
+192/320/64 <-> 64, and ``osconv_dagg`` at 192/320/64 -> 64):
 
 - ``ms``: back-to-back calls of the wrapper between CUDA events (median of
   5 means of 10 calls), as ``chip_smoke.py`` times every kernel;
@@ -22,8 +24,8 @@ forward and the dx call of ``osconv_agg`` at 192/320/64 <-> 64, and
   computes the same function (``F.conv2d`` grouped by sample,
   ``torch.nn.grad.conv2d_weight``);
 - ``rel_err``: max |wrapper - plain version| over max |plain version|,
-  held to chip_smoke's tolerances (2e-2 for bf16 outputs, 1e-4 for the f32
-  weight gradient).
+  held to chip_smoke's tolerances (2e-2 for bf16 outputs, 1e-4 for f32
+  outputs and for the weight gradient, which is f32 for both types).
 
 The dx call is timed as the training Function's backward makes it: through
 ``osconv_agg_dx`` where the checkout has it, else as a flipped,
@@ -94,14 +96,16 @@ def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def cases(oc, cin: int, rng):
+def cases(oc, cin: int, rng, dtype):
     """(label, wrapper call, plain version, library call, tolerance) at cin."""
     import torch
     import torch.nn.functional as F
 
     def rand(shape, std=1.0):
         return torch.from_numpy((std * rng.standard_normal(shape)).astype("float32")).to(
-            "cuda", torch.bfloat16)
+            "cuda", dtype)
+
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
 
     x, g = rand((B, cin, H, W)), rand((B, COUT, H, W))
     agg = rand((B, 3, 3, cin, COUT), (cin * 9) ** -0.5)
@@ -115,9 +119,9 @@ def cases(oc, cin: int, rng):
     return [
         (f"osconv_agg fwd {cin}->64", lambda: oc.osconv_agg(x, agg, 1),
          lambda: oc.osconv_agg_plain(x, agg, 1),
-         lambda: F.conv2d(x.reshape(1, B * cin, H, W), w_fwd, padding=1, groups=B), 2e-2),
+         lambda: F.conv2d(x.reshape(1, B * cin, H, W), w_fwd, padding=1, groups=B), tol),
         (f"osconv_agg dx 64->{cin}", dx, lambda: oc.osconv_agg_plain(g, agg_t, 1),
-         lambda: F.conv2d(g.reshape(1, B * COUT, H, W), w_dx, padding=1, groups=B), 2e-2),
+         lambda: F.conv2d(g.reshape(1, B * COUT, H, W), w_dx, padding=1, groups=B), tol),
         (f"osconv_dagg {cin}->64", lambda: oc.osconv_dagg(x, g, 3, 3, 1),
          lambda: oc.osconv_dagg_plain(x, g, 3, 3, 1),
          lambda: torch.nn.grad.conv2d_weight(x.reshape(1, B * cin, H, W), (B * COUT, cin, 3, 3),
@@ -171,13 +175,16 @@ def plan_rows(oc, cin: int, x, g, log) -> list:
     return out
 
 
-def child(root: str, out_path: str, plans: bool, train: bool) -> None:
+def child(root: str, out_path: str, dtype_name: str, plans: bool, train: bool) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
 
+    from savsr_tpu_torch.archs.arch_util import float32_precision
     from savsr_tpu_torch.csrc import build
     from savsr_tpu_torch.ops import osconv as oc
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
 
     if not os.path.abspath(oc.__file__).startswith(root + os.sep):
         raise AssertionError(f"imported {oc.__file__}, not the checkout at {root}")
@@ -188,20 +195,22 @@ def child(root: str, out_path: str, plans: bool, train: bool) -> None:
     build.build_all()
     rng = np.random.default_rng(0)
     rows, plan_out = [], []
-    with torch.no_grad():
+    with torch.no_grad(), float32_precision(True):
         for cin in CINS:
-            case_list, (x, g) = cases(oc, cin, rng)
+            case_list, (x, g) = cases(oc, cin, rng, dtype)
             for label, fn, plain, library, tol in case_list:
                 want = plain().float()
                 err = float((fn().float() - want).abs().max() / want.abs().max())
                 row = {"case": label, "rel_err": err, "ok": err <= tol,
                        "ms": timed_ms(fn), "graph_ms": graph_ms(fn),
                        "library_ms": timed_ms(library), "library_graph_ms": graph_ms(library)}
-                log(f"{label:24s} bf16 rel err {err:.2e} (tol {tol:g}) ms {row['ms']:.4f} "
+                row["dtype"] = dtype_name
+                log(f"{label:24s} {dtype_name} rel err {err:.2e} (tol {tol:g}) ms {row['ms']:.4f} "
                     f"graph {row['graph_ms']:.4f}; library ms {row['library_ms']:.4f} "
                     f"graph {row['library_graph_ms']:.4f} {'ok' if row['ok'] else 'FAIL'}")
                 rows.append(row)
-            if plans and hasattr(oc, "dagg_tc_chunks") and cin in (192, 64):
+            if plans and dtype == torch.bfloat16 and hasattr(oc, "dagg_tc_chunks") \
+                    and cin in (192, 64):
                 plan_out += plan_rows(oc, cin, x, g, log)
     if train:
         import chip_smoke
@@ -217,14 +226,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("roots", nargs="+", help="checkouts of the repo, run in this order")
-    ap.add_argument("--plans", action="store_true", help="also time the dagg row-chunk plans")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
+                    help="the wrappers' input type (default bf16, the training path's)")
+    ap.add_argument("--plans", action="store_true",
+                    help="also time the tensor-core dagg row-chunk plans (bf16)")
     ap.add_argument("--train", action="store_true",
                     help="also run each checkout's chip_smoke.phase_training")
     ap.add_argument("--out", default=None, help="write every checkout's results here as JSON")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        child(os.path.abspath(args.roots[0]), args.child, args.plans, args.train)
+        child(os.path.abspath(args.roots[0]), args.child, args.dtype, args.plans, args.train)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -234,7 +246,8 @@ def main(argv=None) -> int:
         for i, root in enumerate(args.roots):
             path = os.path.join(tmp, f"{i}.json")
             root = os.path.abspath(root)
-            cmd = [sys.executable, os.path.abspath(__file__), root, "--child", path]
+            cmd = [sys.executable, os.path.abspath(__file__), root, "--child", path,
+                   "--dtype", args.dtype]
             cmd += ["--plans"] * args.plans + ["--train"] * args.train
             subprocess.run(cmd, check=True, cwd=root)
             with open(path) as f:
@@ -242,7 +255,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "runs": results}, f, indent=1)
+            json.dump({"card": smi, "dtype": args.dtype, "runs": results}, f, indent=1)
     return 0
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The bf16 STAU and tail kernels of the PyTorch port (savsr_tpu_torch) and
-the serving forward's device time, for one or more checkouts of the repo,
+"""The bf16 STA, STAU and tail kernels of the PyTorch port (savsr_tpu_torch)
+and the serving forward's device time, for one or more checkouts of the repo,
 on one CUDA card.
 
     python3 scripts/torch_serving_ab.py [--out FILE] ROOT [ROOT ...]
@@ -14,14 +14,15 @@ one call reads ``A B B A``. The flagship weights come from this checkout's
 
 Per checkout:
 
-- the checkout's own ``chip_smoke.stau_case`` and ``chip_smoke.tail_case``
-  in bf16 at the serving shape (8 windows of 180x320 LR, x4, C = 64): the
+- the checkout's own ``chip_smoke.sta_case``, ``chip_smoke.stau_case`` and
+  ``chip_smoke.tail_case`` in bf16 at the serving shape (8 windows of 180x320 LR, x4, C = 64): the
   kernel against its plain version, ``ms`` from back-to-back calls between
   CUDA events (the method of every kernel row of chip_smoke.py), the plain
   version's and the library call's times, and the bound;
 - the serving profile, as ``chip_smoke.phase_profile`` takes it: one bf16
   forward of 8 windows unprofiled (median of 3) and under torch.profiler,
-  its device busy time and the device time of the STAU and tail kernels.
+  its device busy time and the device time of the STA, STAU and tail
+  kernels.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def profile(cs, model, device) -> dict:
     rows = cs.device_rows(prof)
     return {"forward_ms": fwd_ms, "device_ms": sum(r[1] for r in rows),
             "kernels": {name: ms for name, ms, _ in rows
-                        if cs.short_name(name).startswith(("stau", "tail"))}}
+                        if cs.short_name(name).startswith(("sta", "tail"))}}
 
 
 def child(root: str, out_path: str) -> None:
@@ -84,7 +85,8 @@ def child(root: str, out_path: str) -> None:
     rng = np.random.default_rng(0)
     with cs.float32_precision(True):
         statics = model.stau_statics(cs.LR_HW, cs.SCALE, dtype=torch.float32, device=device)
-        rows = [cs.stau_case(rng, model, statics, torch.bfloat16, device),
+        rows = [cs.sta_case(rng, model, torch.bfloat16, device),
+                cs.stau_case(rng, model, statics, torch.bfloat16, device),
                 cs.tail_case(rng, model, torch.bfloat16, device)]
     del model
     model = build_serving_model("bf16")  # as chip_smoke.phase_profile builds it
@@ -124,7 +126,8 @@ def main(argv=None) -> int:
                 results.append(json.load(f))
     for r in results:
         by = {c["name"]: c for c in r["cases"]}
-        print(f"[ab] {r['root']}: stau {by['stau']['ms']:.4f} ms, tail {by['tail']['ms']:.4f} ms "
+        print(f"[ab] {r['root']}: sta {by['sta']['ms']:.4f} ms (bound {by['sta']['bound_ms']:.4f}), "
+              f"stau {by['stau']['ms']:.4f} ms, tail {by['tail']['ms']:.4f} ms "
               f"(library {by['tail']['library_ms']:.4f}), device busy "
               f"{r['profile']['device_ms']:.2f} ms per forward", flush=True)
     if args.out:

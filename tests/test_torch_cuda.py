@@ -128,6 +128,38 @@ def test_sta_kernel_matches_plain(dev, c, h, w, dtype):
            dtype, "sta")
 
 
+# the bf16 STA kernel (tensor cores: 8x8-pixel tiles, all 25 taps' weights in
+# shared memory, the K product on wgmma): C 16, 32 and 64, h and w off the
+# tile (5x7, 9x18, 6x33, 37x61), batch 1 and 8 (b, c, (h, w))
+STA_BF16 = [(b, c, hw) for c in (16, 32, 64)
+            for b, hw in ((1, (5, 7)), (8, (9, 18)), (1, (6, 33)), (8, (37, 61)))]
+
+
+@pytest.mark.parametrize("case", STA_BF16, ids=[f"b{c[0]}-c{c[1]}-{c[2][0]}x{c[2][1]}"
+                                                for c in STA_BF16])
+def test_sta_bf16_kernel_matches_plain(dev, case):
+    """Inputs of std 4 and weights of std 2/sqrt(C), so that K spans many
+    bf16 binades and its rounding point matters; each replicate-padded
+    border (two rows or columns at each of the four edges) on its own, and a
+    second launch bit for bit. The launch went through the tensor-core
+    route (its packed weights are on the weight)."""
+    b, c, (h, w) = case
+    rng = np.random.default_rng(c + h + w)
+    x, st = (_rand(rng, (b, c, h, w), torch.bfloat16, dev, 4.0) for _ in range(2))
+    wk = _rand(rng, (25 * c, c, 1, 1), torch.bfloat16, dev, 2 * c ** -0.5)
+    bk = _rand(rng, (25 * c,), torch.bfloat16, dev, 0.5)
+    got = _agree(lambda: sta_conv_fused(x, st, wk, bk), lambda: sta_conv_fused_plain(x, st, wk, bk),
+                 torch.bfloat16, "sta")
+    assert hasattr(wk, "_savsr_sta_packed")
+    with torch.no_grad():
+        want = sta_conv_fused_plain(x, st, wk, bk).float()
+        again = sta_conv_fused(x, st, wk, bk).float()
+    assert torch.equal(got, again)
+    tol = TOL[torch.bfloat16] * float(want.abs().max())
+    for edge in (np.s_[..., :2, :], np.s_[..., -2:, :], np.s_[..., :, :2], np.s_[..., :, -2:]):
+        assert float((got[edge] - want[edge]).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("scale", [(2.5, 1.7), (4.0, 4.0)])
 def test_stau_kernel_matches_plain(dev, scale, dtype):
@@ -254,11 +286,14 @@ def test_small_forward_on_the_card_matches_torch_golden(dev, scale):
 # 40, 72), W 60 and 130 (pitch-padded copies; 130 also crosses column tiles,
 # so the halo boxes are used), W 24 (a multiple of 8, read in place), H 13,
 # 6 and 37 (off the 4-row tile; 37 cuts into row chunks of 10, 10, 10 and
-# 7), Cout 64 and 72, and the training shape 320 -> 64
+# 7), Cout 64 and 72, and the training shape 320 -> 64; then the third
+# training shape, 64 -> 64. In f32 the weight gradient's CUDA-core kernel
+# walks 64-column segments (130: three) and one-wave row chunks
 OSCONV_SHAPES = [(2, 48, 13, 10, 32, 3, 1), (1, 16, 10, 12, 8, 3, 0), (3, 40, 9, 37, 72, 3, 2),
                  (2, 24, 7, 33, 16, 1, 0), (8, 192, 60, 60, 64, 3, 1),
                  (2, 100, 13, 60, 64, 3, 1), (2, 72, 9, 24, 72, 3, 1), (1, 40, 6, 130, 64, 3, 1),
-                 (3, 40, 5, 130, 72, 1, 0), (8, 320, 60, 60, 64, 3, 1), (8, 64, 37, 24, 64, 3, 1)]
+                 (3, 40, 5, 130, 72, 1, 0), (8, 320, 60, 60, 64, 3, 1), (8, 64, 37, 24, 64, 3, 1),
+                 (8, 64, 60, 60, 64, 3, 1)]
 
 
 def _osconv_inputs(shape, dtype, dev):

@@ -159,11 +159,19 @@ def test_wrapper_refusals():
         osconv_dagg(x.half(), g.half(), 3, 3, 1)
 
 
-@pytest.mark.parametrize("b,cin,cout,ho", [(8, 192, 64, 60), (8, 320, 64, 60), (8, 64, 64, 60),
-                                           (1, 16, 8, 10), (2, 48, 32, 13), (1, 4, 4, 1)])
-def test_dagg_chunks_cover_the_rows(b, cin, cout, ho):
-    """The weight-gradient launch plan: chunks of an even number of rows
-    that cover every output row, at most 8 of them, none empty."""
-    n, rows = dagg_chunks(b, cin, cout, ho)
-    assert 1 <= n <= 8 and rows % 2 == 0 and rows >= 2
-    assert n * rows >= ho and (n - 1) * rows < ho
+@pytest.mark.parametrize("b,cin,cout,h,w", [(8, 192, 64, 60, 60), (8, 320, 64, 60, 60),
+                                             (8, 64, 64, 60, 60), (1, 16, 8, 10, 12),
+                                             (2, 48, 32, 13, 10), (1, 4, 4, 1, 1),
+                                             (3, 40, 72, 37, 9), (2, 100, 64, 13, 130)])
+def test_dagg_chunks_cover_the_rows(b, cin, cout, h, w):
+    """The CUDA-core weight-gradient launch plan: chunks of rows that cover
+    every row of x exactly once, none empty, and as many blocks as fit one
+    wave of a 132-SM card (more only when a single chunk already exceeds
+    it)."""
+    sms = 132
+    n, rows = dagg_chunks(b, cin, cout, h, w, sms)
+    covered = np.concatenate([np.arange(i * rows, min(h, (i + 1) * rows)) for i in range(n)])
+    assert np.array_equal(covered, np.arange(h))
+    assert (n - 1) * rows < h <= n * rows
+    blocks = b * -(-cin // 64) * -(-cout // 64) * -(-w // 64)
+    assert n * blocks <= sms or n == 1

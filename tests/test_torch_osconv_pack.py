@@ -2,7 +2,8 @@
 bf16 at padding k//2): the weight gather from the JAX layout [B, k, k, Cin,
 Cout] into the bf16 conv kernel's A operand (``pack_agg``, with the dx call's
 tap flip and channel swap folded into the index), and the weight gradient's
-shift of g instead of x.
+shift of g instead of x; and the CUDA-core weight gradient's (f32, any
+padding) launch plan and row walk.
 
 The kernels run only on the card (chip_smoke.py, tests/test_torch_cuda.py).
 Here their decompositions are replayed in PyTorch on the CPU, in f32 (the
@@ -14,7 +15,11 @@ point is the algorithm):
   x row, x times the g row ``h - dy + P`` read one pixel right, in place and
   one pixel left (the three dx taps of one wgmma), with the halo pixels from
   the neighbouring column tiles and TMA's zero fill outside the image; chunk
-  partials added in chunk order.
+  partials added in chunk order;
+- the CUDA-core dagg: per part (chunk of x rows from ``dagg_chunks``, times
+  segment of ``DAGG_SEG`` columns), per x row and dy, x times g row ``y +
+  pad - dy`` read at column ``c + pad - dx`` (zero off the image); part
+  partials added in part order.
 
 Each replay is held to the plain version (f32, max abs <= 1e-5, or 1e-5 of
 the max for dagg: summation order) and, for one tiny case, to the JAX
@@ -30,9 +35,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from savsr_tpu.ops.pallas.osconv_kernel import osconv_pallas_agg, osconv_pallas_dagg
 from savsr_tpu_torch.ops.conv import CI_STEP, CO_TILE, pack_weight, tma_part
-from savsr_tpu_torch.ops.osconv import (dagg_tc_chunks, osconv_agg_dx, osconv_agg_plain,
-                                        osconv_agg_train, osconv_dagg_plain, pack_agg,
-                                        tensor_cores)
+from savsr_tpu_torch.ops.osconv import (DAGG_SEG, dagg_chunks, dagg_tc_chunks, osconv_agg_dx,
+                                        osconv_agg_plain, osconv_agg_train, osconv_dagg_plain,
+                                        pack_agg, tensor_cores)
 
 HALO_PX = 8  # the weight-gradient kernel's halo box (TG_HALO_PX in csrc/osconv.cu)
 
@@ -206,6 +211,52 @@ def test_replayed_dagg_matches_pallas():
     got = _replay_dagg(nchw(x), nchw(g), 3, sms=4, px=4).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _replay_cuda_core_dagg(x: torch.Tensor, g: torch.Tensor, k: int, pad: int,
+                           sms: int) -> torch.Tensor:
+    """The CUDA-core weight gradient's walk: per part (row chunk x column
+    segment) the x rows of the chunk, each against the g rows y + pad - dy,
+    at g columns c + pad - dx (zero off the image); parts added in order."""
+    b, cin, h, w = x.shape
+    cout, ho, wo = g.shape[1:]
+    nchunks, rows = dagg_chunks(b, cin, cout, h, w, sms)
+    out = None
+    for chunk in range(nchunks):
+        for c0 in range(0, w, DAGG_SEG):
+            cols = torch.arange(c0, min(w, c0 + DAGG_SEG))
+            part = torch.zeros(b, k * k, cin, cout)
+            for y in range(chunk * rows, min(h, (chunk + 1) * rows)):
+                for dy in range(k):
+                    gr = y + pad - dy
+                    if not 0 <= gr < ho:
+                        continue
+                    for dx in range(k):
+                        gc = cols + pad - dx
+                        ok = (gc >= 0) & (gc < wo)
+                        gv = torch.zeros(b, cout, len(cols))
+                        gv[..., ok] = g[:, :, gr, gc[ok]]
+                        part[:, dy * k + dx] += torch.einsum("bic,boc->bio", x[:, :, y, cols], gv)
+            out = part if out is None else out + part
+    return out
+
+
+# (B, Cin, H, W, Cout, k, padding, SMs): one and several row chunks (SMs 132
+# and 4), W over one column segment (130: segments of 64, 64, 2), every
+# padding of k = 3 (Ho = H - 2, H, H + 2) and k = 1
+CUDA_CORE_DAGG = [(2, 20, 9, 13, 8, 3, 1, 132), (1, 6, 7, 130, 72, 3, 0, 4),
+                  (2, 5, 6, 70, 9, 3, 2, 4), (2, 16, 5, 11, 24, 1, 0, 4)]
+
+
+@pytest.mark.parametrize("case", CUDA_CORE_DAGG, ids=str)
+def test_replayed_cuda_core_dagg_matches_plain(case):
+    b, cin, h, w, cout, k, pad, sms = case
+    rng = np.random.default_rng(h + w + cin)
+    x = _t(rng, (b, cin, h, w))
+    g = _t(rng, (b, cout, h + 2 * pad - k + 1, w + 2 * pad - k + 1))
+    want = osconv_dagg_plain(x, g, k, k, pad)
+    got = _replay_cuda_core_dagg(x, g, k, pad, sms)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("b,cin,cout,h,sms,plan", [
