@@ -45,7 +45,9 @@ Phases (each prints its lines; any failure exits non-zero):
             window is held against the strict tier (deviation PSNR >= 50 dB).
 5. profile  device time by kernel over one bf16 serving forward of 8
             windows (torch.profiler), against its unprofiled time, and the
-            bf16 conv's weight repack (the gather kernels).
+            bf16 conv's weight repack (the gather kernels); then the same
+            for one strict-tier (f32) forward of 8 windows, with the f32
+            conv kernel's share of its device time and its launches.
 6. train-parity  the small config in strict f32 on the card: one loss +
             backward on the golden batch against the torch oracle's
             gradients (tests/goldens/savsr_small_grads.npz: loss within
@@ -128,7 +130,7 @@ SOURCES = {
     "stau": ("savsr_tpu_torch/csrc/stau.cu", "savsr_tpu/ops/pallas/stau_kernel.py:183"),
     "tail": ("savsr_tpu_torch/csrc/tail.cu", "savsr_tpu/ops/pallas/tail_kernel.py:89"),
     # bf16 (the training path, the timed headline) runs the bf16 conv's
-    # kernel; f32 runs osconv.cu's CUDA-core kernel
+    # kernel; f32 the f32 conv's (conv.cu conv_f32_kernel)
     "osconv_agg": ("savsr_tpu_torch/csrc/conv.cu",
                    "savsr_tpu/ops/pallas/osconv_kernel.py:139"),
     "osconv_dagg": ("savsr_tpu_torch/csrc/osconv.cu",
@@ -539,7 +541,7 @@ def require_kernels_ran(phase: str, kernels=SERVING_KERNELS) -> dict:
     return launches
 
 
-def phase_parity(model, device) -> None:
+def phase_parity(model, device) -> dict:
     """Strict tier, flagship weights, against the torch reference outputs."""
     g = np.load(os.path.join(GOLDENS, "savsr_realsize_forward.npz"))
     x = torch.from_numpy(g["x"]).to(device)
@@ -560,6 +562,7 @@ def phase_parity(model, device) -> None:
             raise AssertionError(f"parity {key}: deviation PSNR {psnr:.2f} dB <= 100")
     launches = require_kernels_ran("parity")
     log(f"[parity] kernel launches over the three forwards: {launches}")
+    return launches
 
 
 def write_clip(root: str, n: int, hw) -> str:
@@ -650,49 +653,65 @@ def device_rows(prof) -> list:
                   key=lambda r: -r[1])
 
 
-def phase_profile(sd, device, windows: int = WINDOWS) -> None:
-    """Device time by kernel over one bf16 serving forward of ``windows``
-    windows (torch.profiler), against the forward's unprofiled time."""
+def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dict:
+    """Device time by kernel over one serving forward of ``windows`` windows
+    at ``tier`` (torch.profiler), against the forward's unprofiled time; for
+    the strict tier also the f32 conv kernel's share and launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    model = build_serving_model("bf16")
+    dt = torch.bfloat16 if tier == "bf16" else torch.float32
+    model = build_serving_model(tier)
     load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()})
-    model.to(device=device, dtype=torch.bfloat16)
+    model.to(device=device, dtype=dt)
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.random((windows, 7, 3) + LR_HW, dtype=np.float32)).to(
-        device, torch.bfloat16)
-    statics = model.stau_statics(LR_HW, SCALE, dtype=torch.bfloat16, device=device)
+    x = torch.from_numpy(rng.random((windows, 7, 3) + LR_HW, dtype=np.float32)).to(device, dt)
+    statics = model.stau_statics(LR_HW, SCALE, dtype=dt, device=device)
     fwd_ms = timed_ms(lambda: model(x, SCALE, stau_statics=statics), device, reps=3, iters=1)
+    ops.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(x, SCALE, stau_statics=statics)
         if device.type == "cuda":
             torch.cuda.synchronize()
+    launches = dict(ops.launches)
     rows = device_rows(prof)
     total = sum(r[1] for r in rows)
-    log(f"[profile] bf16 forward of {windows} windows {LR_HW[0]}x{LR_HW[1]} x{SCALE[0]}: "
+    log(f"[profile] {tier} forward of {windows} windows {LR_HW[0]}x{LR_HW[1]} x{SCALE[0]}: "
         f"{fwd_ms:.2f} ms unprofiled; device busy {total:.2f} ms "
         f"({100 * total / fwd_ms:.1f}% of the forward)")
     for name, ms, count in rows[:12]:
-        log(f"[profile] {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {name[:90]}")
+        log(f"[profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} {name[:90]}")
     port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
-        "conv_fused", "conv_wgmma", "sta", "stau", "stau_mma", "tail", "tail_mma"))]
+        "conv_f32", "conv_f32_reduce", "conv_wgmma", "sta", "sta_mma", "stau", "stau_mma", "tail",
+        "tail_mma"))]
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
         f"everything else {total - port_ms:.2f} ms in {sum(r[2] for r in rows) - sum(r[2] for r in port)} "
         f"device events")
+    result = {"tier": tier, "forward_ms": fwd_ms, "device_ms": total, "launches": launches}
+    if tier == "strict":
+        f32 = [r for r in rows if "conv_f32" in r[0]]
+        f32_ms = sum(r[1] for r in f32)
+        log(f"[profile] strict: the f32 conv kernels {f32_ms:.2f} ms = "
+            f"{100 * f32_ms / max(total, 1e-9):.1f}% of device busy {total:.2f} ms, in "
+            f"{sum(r[2] for r in f32)} device launches (wrapper calls conv3x3 "
+            f"{launches['conv3x3']}, conv1x1 {launches['conv1x1']}): "
+            + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in f32))
+        result["f32_conv_ms"] = f32_ms
+        return result
     # the bf16 conv's weight repack (ops/conv.py pack_weight: a zero pad and
     # an index_select, whose CUDA kernel is PyTorch's gather, for each
     # per-sample OSConv weight; shared weights keep their packed copy)
     repack = [r for r in rows if "scatter_gather" in r[0]]
     log(f"[profile] gather kernels (the bf16 conv weight repack): "
         f"{sum(r[1] for r in repack):.2f} ms in {sum(r[2] for r in repack)} launches")
+    return result
 
 
 SMALL_CFG = dict(num_in_ch=3, num_feat=16, num_frame=7, slid_win=3, fusion_win=5, interval=0,
                  w1_num_block=2, w2_num_block=1, n_resgroups=1, n_resblocks=2)
 
 
-def phase_train_parity(device) -> None:
+def phase_train_parity(device) -> dict:
     """Small config, strict f32 (TF32 off) on the card: one Charbonnier loss
     + backward on the golden batch against the torch oracle's gradients, at
     the bounds tests/test_grad_parity.py holds the JAX package to (loss 1e-5;
@@ -733,6 +752,7 @@ def phase_train_parity(device) -> None:
         f"osconv_agg {launches['osconv_agg']}, osconv_dagg {launches['osconv_dagg']}")
     if not d_loss < 1e-5 or failed:
         raise AssertionError(f"train-parity: loss off by {d_loss}, gradients off: {failed[:5]}")
+    return launches
 
 
 TRAIN_ITERS = 6
@@ -1040,31 +1060,42 @@ def main(argv=None) -> int:
     model.to(device)
 
     rows = phase_kernels(model, device)
-    phase_parity(model, device)
+    parity = phase_parity(model, device)
     del model
     torch.cuda.empty_cache()
     serving = phase_serving(sd, device)
     phase_profile(sd, device)
     torch.cuda.empty_cache()
-    phase_train_parity(device)
+    strict = phase_profile(sd, device, tier="strict")
+    torch.cuda.empty_cache()
+    train_parity = phase_train_parity(device)
     training = phase_training(device)
 
-    kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        head = next(r for r in rows if r["name"] == name and r["dtype"] == "bf16"
+    def entry(name, dtype, source, replaces, launches):
+        head = next(r for r in rows if r["name"] == name and r["dtype"] == dtype
                     and r["case"] == HEADLINE.get(name, r["case"]))
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": (training if name in TRAINING_KERNELS
-                                     else serving)["launches"][name],
-                        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-                        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-                        **{k: head[k] for k in ("graph_ms", "library_graph_ms") if k in head}})
+        return {"name": name, "dtype": dtype, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                **{k: head[k] for k in ("graph_ms", "library_graph_ms") if k in head}}
+
+    # the bf16 rows: launches on the main paths (serving, training); the f32
+    # conv kernel's rows (csrc/conv.cu conv_f32_kernel, the strict tier and
+    # every f32 OSConv): launches on the strict parity forwards and the f32
+    # train-parity step
+    kernels = [entry(name, "bf16", source, replaces,
+                     (training if name in TRAINING_KERNELS else serving)["launches"][name])
+               for name, (source, replaces) in SOURCES.items()]
+    kernels += [entry(name, "f32", "savsr_tpu_torch/csrc/conv.cu", SOURCES[name][1],
+                      (train_parity if name in TRAINING_KERNELS else parity)[name])
+                for name in ("conv3x3", "conv1x1", "osconv_agg")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "cases": rows, "serving": serving, "training": training,
-                       "kernels": kernels},
+            json.dump({"card": smi, "cases": rows, "serving": serving, "strict": strict,
+                       "training": training, "kernels": kernels},
                       f, indent=1)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))

@@ -1,27 +1,66 @@
 // Fused KxK convolution (K = 1 or 3, zero padding) with epilogue — kernels 1
-// and 2 of the serving path.
+// and 2 of the serving path, and in f32 also kernel 6 of the training path.
 //
 // Replaces savsr_tpu/ops/pallas/chw_conv.py::conv3x3_chw (and the Cin
 // chunking of conv3x3_chw_parts) and ::conv1x1_chw. Semantics per output
 // (b, co, y, x), accumulated in f32 over the concatenated input channels:
-//     v = sum_{ci,dy,dx} W[co, ci, dy, dx] * X[ci, y+dy-K/2, x+dx-K/2]
+//     v = sum_{ci,dy,dx} W[co, ci, dy, dx] * X[ci, y+dy-P, x+dx-P]
 //     v += bias[co]; v += pre_add; v *= out_scale[co]; v = a*v + b*|v|;
 //     v += residual;  out = v (rounded to the I/O type)
+// with P = K/2. The f32 kernel also takes any padding 0..K-1 (output
+// (H+2P-K+1) x (W+2P-K+1)) and a weight read through strides, so the f32
+// OSConv forward and its dx call (savsr_tpu/ops/pallas/osconv_kernel.py::
+// osconv_pallas_agg: a per-sample weight agg[b, dy, dx, ci, co]; for dx agg
+// with its taps flipped and its channel axes swapped) run on it too
+// (ops/osconv.py).
 //
 // Bound on the H100: at the main-path shapes (180x320, Cin 64..320, Cout
 // 64/128) a 3x3 conv does 2*9*Cin*Cout FLOPs per pixel against (Cin + Cout)
 // values moved per pixel. In f32, held to the 67 TFLOP/s CUDA-core rate
-// (the strict tier must not use TF32), it is bound by operations. In bf16,
-// held to the 989 TFLOP/s tensor-core rate, 64->64 sits at the ridge
-// (~290 FLOP per byte) and the wider convs are bound by operations.
+// (the strict tier must not use TF32), every shape is bound by operations:
+// 3x3 64->64 at 8x180x320 0.507 ms of FMAs against 0.035 ms of bytes, 1x1
+// 192->64 0.169 against 0.141, the OSConv 192->64 at 8x60x60 0.095 against
+// 0.007. In bf16, held to the 989 TFLOP/s tensor-core rate, 64->64 sits at
+// the ridge (~290 FLOP per byte) and the wider convs are bound by
+// operations.
 //
 // Two kernels, one per type:
 //
-// * f32 (conv_fused_kernel, CUDA cores): a block computes a 64-channel x
-//   8-row x 32-column output tile, each warp 8 output channels, each lane
-//   one column of 8 rows (64 accumulators). Input channels stream through
-//   shared memory 8 at a time with their halo; weights for the 8 channels
-//   and 64 outputs are broadcast from shared memory.
+// * f32 (conv_f32_kernel, CUDA cores): an implicit GEMM whose aim is to keep
+//   the FMA pipe issuing. A block computes 64 output channels x 4 rows x 64
+//   columns; a warp 32 of the channels x 4 rows x 16 columns, a lane 8
+//   channels x 2 rows x 4 columns of them: per input channel and tap an
+//   8 x 8 outer product into 64 f32 accumulators. Per input channel a lane
+//   loads its input rows once (a float4, plus a float2 for the 3x3's two
+//   extra columns, each shared by the warp's 4 channel groups), then each
+//   tap's 8 weights as two float4 (shared by the 8 lanes of a channel
+//   group): a 3x3 input channel is 576 FMAs for 26 shared loads, a 1x1 one
+//   64 for 4, and rows 72 floats apart keep the loads off each other's
+//   banks.
+//   Input channels are staged CI at a time (8 for 3x3, 16 for 1x1) through
+//   a ring of 3 (4) shared-memory stages filled by cp.async, so the next
+//   stages' loads are in flight under this stage's FMAs; one barrier a
+//   stage. Rows are copied as they lie in device memory, with zero fill
+//   (src-size 0) for the image border, the halo and channels past a part's
+//   end, so no padded copy of any input is made: by 16-byte copies where the
+//   part's rows are 16-byte aligned (W % 4 == 0: every main-path shape), so
+//   a staged row starts at the 16-byte boundary at or left of the tile's
+//   first input column (x0 - 4 for padding 1 and 2; the padding is a
+//   template parameter, so each lane's loads of its 6 input columns are
+//   fixed at compile time), otherwise by 4-byte copies into the same
+//   layout, a warp per channel and a lane per column, from offsets and
+//   bounds computed once a block.
+//   Weights are [tap][Cin][Cout] (ops/conv.py pack_weight_f32 repacks the
+//   conv weight; the OSConv's agg is laid out so, and its dx call reads agg
+//   flipped and channel-swapped through the strides), staged contiguous in
+//   Cout at a 68-float row pitch, so that neither the copies nor the reads
+//   conflict. Two blocks run on each SM (<= 128 registers, 98 / 89 KiB of
+//   shared memory). Where the output has too few tiles to fill the card
+//   (the OSConv at 8 x 60x60: 120 tiles for 264 block slots), the wrapper
+//   splits the Cin reduction into chunks (ops/conv.py f32_chunks): each
+//   chunk writes f32 partials and conv_f32_reduce_kernel adds them in chunk
+//   order and applies the epilogue, so the result is the same from run to
+//   run (no atomics).
 //
 // * bf16 (conv_wgmma_kernel, tensor cores): an implicit GEMM in the TPU
 //   kernel's CHW form, Y[co, pix] = sum_k W[co, k] X[k, pix], on wgmma
@@ -55,9 +94,8 @@
 //
 // Layout: NCHW. Input channel parts are read through separate pointers (f32)
 // or tensor maps (bf16), each with its own batch stride, so a channel concat
-// is never copied. f32 weights are [Cout, Cin, K, K], shared or per sample
-// (w_bstride elements apart); bf16 weights come packed (ops/conv.py
-// pack_weight), shared or per sample.
+// is never copied. Weights come packed by the wrapper (ops/conv.py
+// pack_weight_f32 / pack_weight), shared or per sample.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -68,134 +106,368 @@
 
 namespace {
 
-constexpr int MAXP = 8;       // channel parts per launch
-constexpr int TW = 32;        // tile columns (one per lane)
-constexpr int TH = 8;         // tile rows (per lane)
-constexpr int CT = 64;        // output channels per block
-constexpr int CPW = 8;        // output channels per warp
-constexpr int CI = 8;         // input channels per shared-memory stage
-constexpr int WS = CT + 4;    // weight row stride in shared memory (16-byte rows)
-constexpr int THREADS = 256;  // 8 warps x 8 channels = CT
+constexpr int MAXP = 8;  // channel parts per launch
 
-struct Parts {
-  const void* p[MAXP];
-  long long bstride[MAXP];
-  int c[MAXP];
-  int n;
+// ---------------------------------------------------------------------------
+// f32: CUDA-core implicit GEMM fed by a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int F_THREADS = 256;  // 8 warps: 2 x 32 output channels by 4 x 16 columns
+constexpr int F_CO = 64;        // output channels per tile
+constexpr int F_ROWS = 4;       // output rows per tile (2 per lane)
+constexpr int F_COLS = 64;      // output columns per tile (4 per lane)
+constexpr int F_WP = F_CO + 4;  // staged weight row pitch (floats)
+
+template <int KS, int PAD = KS / 2>
+struct FCfg {
+  static constexpr int KK = KS * KS;
+  static constexpr int CI = KS == 3 ? 8 : 16;     // input channels per stage
+  static constexpr int STAGES = KS == 3 ? 3 : 4;  // ring depth
+  static constexpr int UNROLL = KS == 3 ? 1 : 2;  // input channels per unrolled step
+  static constexpr int IR = F_ROWS + KS - 1;      // staged input rows
+  // staged columns: from the 16-byte boundary at or left of the tile's
+  // first input column x0 - PAD, through its last input column
+  static constexpr int LEFT = PAD ? 4 : 0;
+  static constexpr int IC = LEFT + F_COLS + KS - 1 - PAD;
+  static constexpr int NV = (IC + 3) / 4;         // 16-byte columns of a staged row
+  static constexpr int IP = 72;  // staged row pitch: rows 2 apart 16 banks apart
+  static constexpr int IN = CI * IR * IP;         // floats of a stage's input
+  static constexpr int STAGE = IN + CI * KK * F_WP;
+  static constexpr int SMEM = STAGES * STAGE * 4;
+  static_assert(CI % (F_THREADS / 32) == 0, "input channels are shared out evenly to the warps");
+  static_assert(IP >= 4 * NV, "a staged row holds its 16-byte columns");
 };
 
-__device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
+// One launch: the channel parts, the output geometry, the weight's strides,
+// the Cin split and the epilogue. Weight element (b, tap, ci, co) is at
+// wt[b * w_b + w_off + tap * w_tap + ci * w_ci + co * w_co].
+struct F32Conv {
+  const float* part[MAXP];
+  long long bstride[MAXP];
+  int c[MAXP];
+  int vec[MAXP];  // 1: the part's rows may be staged by 16-byte copies
+  int n, stages;  // parts; stages in all (each part starts a new one)
+  int B, H, W, Ho, Wo, Cout;
+  const float* wt;
+  long long w_b, w_off, w_tap, w_ci, w_co;
+  int w_vec;  // 1: w_co == 1, Cout % 4 == 0 and 16-byte aligned weight rows
+  int nchunks, chunk_stages;
+  const float* bias;
+  const float* pre;
+  const float* scale;
+  long long s_bstride;
+  int lrelu;
+  float la, lb;
+  const float* res;
+  float* out;      // [B, Cout, Ho, Wo]
+  float* partial;  // [nchunks][B][Cout][Ho][Wo] when nchunks > 1
+  int out_vec;     // 1: Wo % 4 == 0 and out, pre, res 16-byte aligned
+};
 
-template <typename T, int KS>
-__global__ void __launch_bounds__(THREADS)
-conv_fused_kernel(Parts parts, int Cin, int H, int W, int Cout,
-                  const T* __restrict__ wt, long long w_bstride,
-                  const T* __restrict__ bias, const T* __restrict__ pre,
-                  const float* __restrict__ scale, long long s_bstride,
-                  int lrelu, float la, float lb,
-                  const T* __restrict__ res, T* __restrict__ out) {
-  constexpr int HALO = KS / 2;
-  constexpr int IR = TH + 2 * HALO;
-  constexpr int IC = TW + 2 * HALO;
-  constexpr int KK = KS * KS;
-  __shared__ float s_in[CI][IR][IC];
-  __shared__ __align__(16) float s_w[CI * KK][WS];
+// Where a stage's channels come from: part p at sample b (x), its channels
+// c0.. of c, and the part's first channel in the concatenation (cb).
+struct FSrc {
+  const float* x;
+  int p, c, c0, cb, vec;
+};
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int ntile = (Cout + CT - 1) / CT;
-  const int b = blockIdx.z / ntile;
-  const int co0 = (blockIdx.z % ntile) * CT;
-  const long long HW = (long long)H * W;
-  const T* wb = wt + b * w_bstride;
-
-  float acc[CPW][TH];
+// Part p from its first channel. Static indices only: a runtime index into
+// the kernel's parameter struct would copy the struct to local memory.
+__device__ __forceinline__ void f32_part(const F32Conv& a, int p, int b, FSrc& s) {
+  int cb = 0;
 #pragma unroll
-  for (int i = 0; i < CPW; ++i)
-#pragma unroll
-    for (int r = 0; r < TH; ++r) acc[i][r] = 0.f;
+  for (int i = 0; i < MAXP; ++i) {
+    if (i == p) {
+      s.x = a.part[i] + b * a.bstride[i];
+      s.c = a.c[i];
+      s.vec = a.vec[i];
+      s.cb = cb;
+    }
+    if (i < p) cb += a.c[i];
+  }
+  s.p = p;
+  s.c0 = 0;
+}
 
-  int cbase = 0;
-  for (int p = 0; p < parts.n; ++p) {
-    const T* xp = static_cast<const T*>(parts.p[p]) + b * parts.bstride[p];
-    const int cp = parts.c[p];
-    for (int c0 = 0; c0 < cp; c0 += CI) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < CI * IR * IC; e += THREADS) {
-        const int ci = e / (IR * IC), r = (e / IC) % IR, c = e % IC;
-        const int gy = y0 + r - HALO, gx = x0 + c - HALO;
-        float v = 0.f;
-        if (c0 + ci < cp && gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = ld(xp, (c0 + ci) * HW + (long long)gy * W + gx);
-        s_in[ci][r][c] = v;
+template <int KS>
+__device__ __forceinline__ void f32_next(const F32Conv& a, int b, FSrc& s) {
+  s.c0 += FCfg<KS>::CI;
+  if (s.c0 >= s.c) f32_part(a, s.p + 1, b, s);
+}
+
+// Issue the cp.async copies of one stage (this thread's share) into `st`:
+// the input rows [CI][IR][IP] (staged column s holds image column x0 - LEFT
+// + s) and the weights [CI][tap][F_WP] of output channels co0..co0+63. Bit r
+// of rows_ok: row y0 - PAD + r is in the image; bit m of cols_ok: column
+// x0 - LEFT + lane + 32 m is.
+template <int KS, int PAD>
+__device__ __forceinline__ void f32_stage(const F32Conv& a, const FSrc& s, int b, int co0,
+                                          int x0, int y0, unsigned rows_ok, unsigned cols_ok,
+                                          float* st) {
+  using C = FCfg<KS, PAD>;
+  using namespace hopper;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cn = min(C::CI, s.c - s.c0);  // channels of the stage that exist
+  const long long HW = (long long)a.H * a.W;
+  const float* xs = s.x + s.c0 * HW;
+  if (s.vec) {  // W % 4 == 0, aligned part: a float4 is all in or all out
+    constexpr int NV = C::NV, N = C::CI * C::IR * NV;
+#pragma unroll
+    for (int k = 0; k < (N + F_THREADS - 1) / F_THREADS; ++k) {
+      const int e = tid + k * F_THREADS;
+      if (N % F_THREADS == 0 || e < N) {
+        const int q = e % NV, row = e / NV, ci = row / C::IR, gy = y0 - PAD + row % C::IR;
+        const int gx = x0 - C::LEFT + 4 * q;
+        const bool ok = ci < cn && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+        cp_async16_zfill(st + row * C::IP + 4 * q,
+                         ok ? xs + ci * HW + (long long)gy * a.W + gx : s.x, ok);
       }
-      // weights of CI input channels: a contiguous run of CI*KK per output
-      for (int e = threadIdx.x; e < CT * CI * KK; e += THREADS) {
-        const int co = e / (CI * KK), r = e % (CI * KK);
-        float v = 0.f;
-        if (co0 + co < Cout && c0 + r / KK < cp)
-          v = ld(wb, ((long long)(co0 + co) * Cin + cbase + c0) * KK + r);
-        s_w[r][co] = v;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int ci = 0; ci < CI; ++ci) {
+    }
+  } else {  // a warp per channel, a lane per column, row by row
+    const float* x = xs + warp * HW + (long long)(y0 - PAD) * a.W + x0 - C::LEFT + lane;
+    float* d = st + warp * (C::IR * C::IP) + lane;
+#pragma unroll 1
+    for (int ci = warp; ci < C::CI; ci += F_THREADS / 32) {
+      const unsigned rok = ci < cn ? rows_ok : 0u;
 #pragma unroll
-        for (int dx = 0; dx < KS; ++dx) {
-          float col[IR];
+      for (int r = 0; r < C::IR; ++r) {
 #pragma unroll
-          for (int r = 0; r < IR; ++r) col[r] = s_in[ci][r][lane + dx];
-#pragma unroll
-          for (int dy = 0; dy < KS; ++dy) {
-            const float4* wp =
-                reinterpret_cast<const float4*>(&s_w[ci * KK + dy * KS + dx][warp * CPW]);
-            const float4 wa = wp[0], wc = wp[1];
-            const float wv[CPW] = {wa.x, wa.y, wa.z, wa.w, wc.x, wc.y, wc.z, wc.w};
-#pragma unroll
-            for (int i = 0; i < CPW; ++i)
-#pragma unroll
-              for (int r = 0; r < TH; ++r) acc[i][r] = fmaf(wv[i], col[r + dy], acc[i][r]);
+        for (int m = 0; m < (C::IC + 31) / 32; ++m) {
+          if (lane + 32 * m < C::IC) {
+            const bool ok = (rok >> r) & (cols_ok >> m) & 1u;
+            cp_async4_zfill(d + r * C::IP + 32 * m, ok ? x + r * a.W + 32 * m : s.x, ok);
           }
         }
       }
+      x += (F_THREADS / 32) * HW;
+      d += (F_THREADS / 32) * (C::IR * C::IP);
     }
-    cbase += cp;
   }
-
-  const int gx = x0 + lane;
-  if (gx >= W) return;
-#pragma unroll
-  for (int i = 0; i < CPW; ++i) {
-    const int oc = co0 + warp * CPW + i;
-    if (oc >= Cout) continue;
-    const float bv = bias ? ld(bias, oc) : 0.f;
-#pragma unroll
-    for (int r = 0; r < TH; ++r) {
-      const int gy = y0 + r;
-      if (gy >= H) break;
-      const long long idx = ((long long)b * Cout + oc) * HW + (long long)gy * W + gx;
-      float v = acc[i][r] + bv;
-      if (pre) v += ld(pre, idx);
-      if (scale) v *= scale[b * s_bstride + oc];
-      if (lrelu) v = la * v + lb * fabsf(v);
-      if (res) v += ld(res, idx);
-      st(out, idx, v);
+  float* sw = st + C::IN;
+  const float* wb = a.wt + b * a.w_b + a.w_off + (long long)(s.cb + s.c0) * a.w_ci;
+  if (a.w_vec) {  // 16-byte copies along Cout
+    constexpr int N = C::CI * C::KK * (F_CO / 4);
+#pragma unroll 1
+    for (int k = 0; k < (N + F_THREADS - 1) / F_THREADS; ++k) {
+      const int e = tid + k * F_THREADS;
+      if (N % F_THREADS == 0 || e < N) {
+        const int q = e % (F_CO / 4), row = e / (F_CO / 4), ci = row / C::KK, tap = row % C::KK;
+        const int co = co0 + 4 * q;
+        const bool ok = ci < cn && co < a.Cout;
+        cp_async16_zfill(sw + row * F_WP + 4 * q,
+                         ok ? wb + tap * a.w_tap + ci * a.w_ci + co : a.wt, ok);
+      }
+    }
+  } else {  // 4-byte copies, input channel fastest (the dx call's agg is contiguous in it)
+    constexpr int N = C::CI * C::KK * F_CO;
+#pragma unroll 1
+    for (int k = 0; k < N / F_THREADS; ++k) {
+      const int e = tid + k * F_THREADS;
+      const int ci = e % C::CI, co = (e / C::CI) % F_CO, tap = e / (C::CI * F_CO);
+      const bool ok = ci < cn && co0 + co < a.Cout;
+      cp_async4_zfill(sw + (ci * C::KK + tap) * F_WP + co,
+                      ok ? wb + tap * a.w_tap + ci * a.w_ci + (co0 + co) * a.w_co : a.wt, ok);
     }
   }
 }
 
-template <typename T, int KS>
-cudaError_t launch(const Parts& parts, int Cin, int B, int H, int W, int Cout,
-                   const void* wt, long long w_bstride, const void* bias,
-                   const void* pre, const float* scale, long long s_bstride,
-                   int lrelu, float la, float lb, const void* res, void* out,
-                   cudaStream_t stream) {
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * ((Cout + CT - 1) / CT));
-  conv_fused_kernel<T, KS><<<grid, THREADS, 0, stream>>>(
-      parts, Cin, H, W, Cout, static_cast<const T*>(wt), w_bstride,
-      static_cast<const T*>(bias), static_cast<const T*>(pre), scale, s_bstride,
-      lrelu, la, lb, static_cast<const T*>(res), static_cast<T*>(out));
+// The FMAs of one stage: `si` is the stage's input at this lane's first row
+// and column, `sw` its weights at this warp's first output channel.
+template <int KS, int PAD>
+__device__ __forceinline__ void f32_fma(float (&acc)[8][2][4], const float* si,
+                                        const float* sw) {
+  using C = FCfg<KS, PAD>;
+#pragma unroll 1
+  for (int c = 0; c < C::CI; c += C::UNROLL) {
+#pragma unroll
+    for (int u = 0; u < C::UNROLL; ++u) {
+      const float* x = si + (c + u) * (C::IR * C::IP);
+      const float* w = sw + (c + u) * (C::KK * F_WP);
+      float v[1 + KS][4 + KS - 1];
+#pragma unroll
+      for (int ir = 0; ir < 1 + KS; ++ir) {
+        const float* row = x + ir * C::IP + C::LEFT - PAD;  // this lane's first input column
+        if constexpr ((C::LEFT - PAD) % 4 == 0) {
+          const float4 p = *reinterpret_cast<const float4*>(row);
+          v[ir][0] = p.x, v[ir][1] = p.y, v[ir][2] = p.z, v[ir][3] = p.w;
+          if constexpr (KS == 3) {
+            const float2 q = *reinterpret_cast<const float2*>(row + 4);
+            v[ir][4] = q.x, v[ir][5] = q.y;
+          }
+        } else if constexpr (C::LEFT - PAD == 3) {
+          const float4 p = *reinterpret_cast<const float4*>(row + 1);
+          v[ir][0] = row[0], v[ir][1] = p.x, v[ir][2] = p.y, v[ir][3] = p.z, v[ir][4] = p.w;
+          v[ir][5] = row[5];
+        } else {
+          const float2 q = *reinterpret_cast<const float2*>(row);
+          const float4 p = *reinterpret_cast<const float4*>(row + 2);
+          v[ir][0] = q.x, v[ir][1] = q.y, v[ir][2] = p.x, v[ir][3] = p.y, v[ir][4] = p.z;
+          v[ir][5] = p.w;
+        }
+      }
+#pragma unroll
+      for (int tap = 0; tap < KS * KS; ++tap) {
+        const int dy = tap / KS, dx = tap % KS;
+        const float4 lo = *reinterpret_cast<const float4*>(w + tap * F_WP);
+        const float4 hi = *reinterpret_cast<const float4*>(w + tap * F_WP + 4);
+        const float wv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][r][j] = fmaf(wv[i], v[r + dy][j + dx], acc[i][r][j]);
+      }
+    }
+  }
+}
+
+// The epilogue in the TPU order; neutral terms where a pointer is null.
+__device__ __forceinline__ float f32_epilogue(const F32Conv& a, float v, float bv, float sc,
+                                              float pv, float rv) {
+  v = v + bv;
+  v = v + pv;
+  v = v * sc;
+  if (a.lrelu) v = a.la * v + a.lb * fabsf(v);
+  return v + rv;
+}
+
+// blockIdx: (column tile, row tile, (sample, channel tile, chunk)).
+template <int KS, int PAD>
+__global__ void __launch_bounds__(F_THREADS, 2) conv_f32_kernel(const __grid_constant__ F32Conv a) {
+  using C = FCfg<KS, PAD>;
+  extern __shared__ __align__(16) float f_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = blockIdx.x * F_COLS, y0 = blockIdx.y * F_ROWS;
+  const int nct = (a.Cout + F_CO - 1) / F_CO;
+  const int chunk = blockIdx.z % a.nchunks, bc = blockIdx.z / a.nchunks;
+  const int co0 = (bc % nct) * F_CO, b = bc / nct;
+  const int t0 = chunk * a.chunk_stages, nst = min(a.chunk_stages, a.stages - t0);
+
+  unsigned rows_ok = 0, cols_ok = 0;
+#pragma unroll
+  for (int r = 0; r < C::IR; ++r)
+    rows_ok |= unsigned(y0 - PAD + r >= 0 && y0 - PAD + r < a.H) << r;
+#pragma unroll
+  for (int m = 0; m < (C::IC + 31) / 32; ++m) {
+    const int gx = x0 - C::LEFT + lane + 32 * m;
+    cols_ok |= unsigned(gx >= 0 && gx < a.W) << m;
+  }
+  FSrc load;
+  f32_part(a, 0, b, load);
+  for (int t = 0; t < t0; ++t) f32_next<KS>(a, b, load);
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < nst) {
+      f32_stage<KS, PAD>(a, load, b, co0, x0, y0, rows_ok, cols_ok, f_smem + s * C::STAGE);
+      f32_next<KS>(a, b, load);
+    }
+    hopper::cp_async_commit();
+  }
+
+  float acc[8][2][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][r][j] = 0.f;
+  // lane: output channels cw..cw+7, rows 2 rp, 2 rp + 1, columns px..px+3
+  // of the tile; a warp covers 32 channels x 4 rows x 16 columns, so that a
+  // shared load serves 8 lanes (pixels) or 4 (weights) with one address
+  const int g = lane & 3, rp = (lane >> 2) & 1, cg = lane >> 3;
+  const int px = 16 * (warp >> 1) + 4 * g, cw = 32 * (warp & 1) + 8 * cg;
+  for (int t = 0; t < nst; ++t) {
+    hopper::cp_async_wait<C::STAGES - 2>();  // stage t has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; and every warp is done with stage t - 1's buffer
+    const int ahead = t + C::STAGES - 1;
+    if (ahead < nst) {
+      f32_stage<KS, PAD>(a, load, b, co0, x0, y0, rows_ok, cols_ok,
+                    f_smem + (ahead % C::STAGES) * C::STAGE);
+      f32_next<KS>(a, b, load);
+    }
+    hopper::cp_async_commit();
+    const float* st = f_smem + (t % C::STAGES) * C::STAGE;
+    f32_fma<KS, PAD>(acc, st + 2 * rp * C::IP + px, st + C::IN + cw);
+  }
+
+  const int gx = x0 + px;
+  if (gx >= a.Wo) return;
+  const bool split = a.nchunks > 1;
+  float* dst = split ? a.partial + (long long)chunk * a.B * a.Cout * a.Ho * a.Wo : a.out;
+  const bool v4 = a.out_vec && gx + 3 < a.Wo;  // Wo % 4 == 0: all four columns or none
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int co = co0 + cw + i;
+    if (co >= a.Cout) break;
+    const float bv = a.bias && !split ? a.bias[co] : 0.f;
+    const float sc = a.scale && !split ? a.scale[b * a.s_bstride + co] : 1.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int gy = y0 + 2 * rp + r;
+      if (gy >= a.Ho) break;
+      const long long idx = (((long long)b * a.Cout + co) * a.Ho + gy) * a.Wo + gx;
+      float v[4] = {acc[i][r][0], acc[i][r][1], acc[i][r][2], acc[i][r][3]};
+      if (v4) {
+        if (!split) {
+          const float4 p = a.pre ? *reinterpret_cast<const float4*>(a.pre + idx) : float4{};
+          const float4 q = a.res ? *reinterpret_cast<const float4*>(a.res + idx) : float4{};
+          v[0] = f32_epilogue(a, v[0], bv, sc, p.x, q.x);
+          v[1] = f32_epilogue(a, v[1], bv, sc, p.y, q.y);
+          v[2] = f32_epilogue(a, v[2], bv, sc, p.z, q.z);
+          v[3] = f32_epilogue(a, v[3], bv, sc, p.w, q.w);
+        }
+        *reinterpret_cast<float4*>(dst + idx) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (gx + j >= a.Wo) break;
+          if (!split)
+            v[j] = f32_epilogue(a, v[j], bv, sc, a.pre ? a.pre[idx + j] : 0.f,
+                                a.res ? a.res[idx + j] : 0.f);
+          dst[idx + j] = v[j];
+        }
+      }
+    }
+  }
+}
+
+// The split's second pass: output (b, co) plane blockIdx.y, the chunks'
+// partials added in chunk order, then the epilogue.
+__global__ void __launch_bounds__(256) conv_f32_reduce_kernel(const __grid_constant__ F32Conv a) {
+  const int plane = a.Ho * a.Wo, co = blockIdx.y % a.Cout, b = blockIdx.y / a.Cout;
+  const long long n = (long long)a.B * a.Cout * plane;
+  const float bv = a.bias ? a.bias[co] : 0.f;
+  const float sc = a.scale ? a.scale[b * a.s_bstride + co] : 1.f;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < plane; p += gridDim.x * blockDim.x) {
+    const long long idx = (long long)blockIdx.y * plane + p;
+    float v = a.partial[idx];
+    for (int k = 1; k < a.nchunks; ++k) v += a.partial[k * n + idx];
+    a.out[idx] = f32_epilogue(a, v, bv, sc, a.pre ? a.pre[idx] : 0.f, a.res ? a.res[idx] : 0.f);
+  }
+}
+
+template <int KS, int PAD>
+cudaError_t launch_f32(const F32Conv& a, cudaStream_t stream) {
+  using C = FCfg<KS, PAD>;
+  static bool ready = false;
+  if (!ready) {  // two blocks' shared memory on one SM
+    cudaError_t e = cudaFuncSetAttribute(conv_f32_kernel<KS, PAD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(conv_f32_kernel<KS, PAD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  const int nct = (a.Cout + F_CO - 1) / F_CO;
+  dim3 grid((a.Wo + F_COLS - 1) / F_COLS, (a.Ho + F_ROWS - 1) / F_ROWS, a.B * nct * a.nchunks);
+  conv_f32_kernel<KS, PAD><<<grid, F_THREADS, C::SMEM, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.nchunks == 1) return e;
+  const int plane = a.Ho * a.Wo, px = (plane + 255) / 256;
+  conv_f32_reduce_kernel<<<dim3(px < 16 ? px : 16, a.B * a.Cout), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -537,40 +809,82 @@ extern "C" const char* savsr_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Null pointers switch an epilogue term off.
-// part_pitch: each part's row pitch in elements (f32: must equal W; bf16: a
-// multiple of 8, with 16-byte aligned base and batch stride, for TMA).
-// f32 weights are [(B,) Cout, Cin, K, K]; bf16 weights are packed as
-// ops/conv.py pack_weight lays them out, w_bstride elements per sample.
-extern "C" int savsr_conv_fused(int ksize, int dtype, int nparts,
-                                const void* const* part_ptrs, const int* part_ch,
-                                const long long* part_bstride, const long long* part_pitch,
-                                int B, int H, int W, int Cout, const void* wt,
-                                long long w_bstride, const void* bias, const void* pre,
-                                const void* scale, long long s_bstride, int lrelu, float la,
-                                float lb, const void* res, void* out, void* stream) {
-  if (nparts < 1 || nparts > MAXP || (ksize != 1 && ksize != 3) || dtype < 0 || dtype > 1)
+static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// f32 on the CUDA cores (conv_f32_kernel). Null pointers switch an epilogue
+// term off. Each part's channel planes are contiguous (row pitch W), with
+// its own batch stride. The output is [B, Cout, Ho, Wo], Ho = H + 2 pad - K
+// + 1 (likewise Wo), 0 <= pad <= K - 1. Weight element (b, tap, ci, co), tap
+// = dy * K + dx, is at wt[b * w_b + w_off + tap * w_tap + ci * w_ci + co *
+// w_co] (strides may be negative). The Cin reduction is cut into `nchunks`
+// chunks of `chunk_stages` stages (ops/conv.py f32_chunks: a stage is CI
+// channels of one part); with nchunks > 1, `partial` holds nchunks f32
+// copies of the output.
+extern "C" int savsr_conv_f32(int ksize, int nparts, const void* const* part_ptrs,
+                              const int* part_ch, const long long* part_bstride, int B, int H,
+                              int W, int pad, int Cout, const void* wt, long long w_b,
+                              long long w_off, long long w_tap, long long w_ci, long long w_co,
+                              const void* bias, const void* pre, const void* scale,
+                              long long s_bstride, int lrelu, float la, float lb,
+                              const void* res, void* out, void* partial, int nchunks,
+                              int chunk_stages, void* stream) {
+  if (nparts < 1 || nparts > MAXP || (ksize != 1 && ksize != 3) || pad < 0 || pad >= ksize ||
+      B < 1 || Cout < 1 || (long long)B * Cout > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ci = ksize == 3 ? FCfg<3>::CI : FCfg<1>::CI;
+  F32Conv a{};
+  for (int i = 0; i < nparts; ++i) {
+    if (part_ch[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    a.part[i] = static_cast<const float*>(part_ptrs[i]);
+    a.c[i] = part_ch[i];
+    a.bstride[i] = part_bstride[i];
+    a.vec[i] = W % 4 == 0 && part_bstride[i] % 4 == 0 && aligned16(part_ptrs[i]);
+    a.stages += (part_ch[i] + ci - 1) / ci;
+  }
+  a.n = nparts;
+  a.B = B, a.H = H, a.W = W, a.Cout = Cout;
+  a.Ho = H + 2 * pad - ksize + 1, a.Wo = W + 2 * pad - ksize + 1;
+  if (nchunks < 1 || chunk_stages < 1 || (long long)(nchunks - 1) * chunk_stages >= a.stages ||
+      (long long)nchunks * chunk_stages < a.stages || (nchunks > 1 && partial == nullptr) ||
+      a.Ho < 1 || a.Wo < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.wt = static_cast<const float*>(wt);
+  a.w_b = w_b, a.w_off = w_off, a.w_tap = w_tap, a.w_ci = w_ci, a.w_co = w_co;
+  a.w_vec = w_co == 1 && Cout % 4 == 0 && w_b % 4 == 0 && w_off % 4 == 0 && w_tap % 4 == 0 &&
+            w_ci % 4 == 0 && aligned16(wt);
+  a.nchunks = nchunks, a.chunk_stages = chunk_stages;
+  a.bias = static_cast<const float*>(bias);
+  a.pre = static_cast<const float*>(pre);
+  a.scale = static_cast<const float*>(scale);
+  a.s_bstride = s_bstride;
+  a.lrelu = lrelu, a.la = la, a.lb = lb;
+  a.res = static_cast<const float*>(res);
+  a.out = static_cast<float*>(out);
+  a.partial = static_cast<float*>(partial);
+  a.out_vec = a.Wo % 4 == 0 && aligned16(out) && aligned16(pre) && aligned16(res) &&
+              (nchunks == 1 || aligned16(partial));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ksize == 1) return static_cast<int>(launch_f32<1, 0>(a, s));
+  return static_cast<int>(pad == 1 ? launch_f32<3, 1>(a, s)
+                                   : pad == 0 ? launch_f32<3, 0>(a, s) : launch_f32<3, 2>(a, s));
+}
+
+// bf16 on the tensor cores (conv_wgmma_kernel). Null pointers switch an
+// epilogue term off. part_pitch: each part's row pitch in elements, a
+// multiple of 8, with 16-byte aligned base and batch stride, for TMA.
+// Weights are packed as ops/conv.py pack_weight lays them out, w_bstride
+// elements per sample.
+extern "C" int savsr_conv_fused(int ksize, int nparts, const void* const* part_ptrs,
+                                const int* part_ch, const long long* part_bstride,
+                                const long long* part_pitch, int B, int H, int W, int Cout,
+                                const void* wt, long long w_bstride, const void* bias,
+                                const void* pre, const void* scale, long long s_bstride,
+                                int lrelu, float la, float lb, const void* res, void* out,
+                                void* stream) {
+  if (nparts < 1 || nparts > MAXP || (ksize != 1 && ksize != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    Parts parts{};
-    int cin = 0;
-    for (int i = 0; i < nparts; ++i) {
-      if (part_pitch[i] != W) return static_cast<int>(cudaErrorInvalidValue);
-      parts.p[i] = part_ptrs[i];
-      parts.c[i] = part_ch[i];
-      parts.bstride[i] = part_bstride[i];
-      cin += part_ch[i];
-    }
-    parts.n = nparts;
-    cudaError_t e = ksize == 3 ? launch<float, 3>(parts, cin, B, H, W, Cout, wt, w_bstride, bias,
-                                                  pre, sc, s_bstride, lrelu, la, lb, res, out, s)
-                               : launch<float, 1>(parts, cin, B, H, W, Cout, wt, w_bstride, bias,
-                                                  pre, sc, s_bstride, lrelu, la, lb, res, out, s);
-    return static_cast<int>(e);
-  }
-
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (!encode) return ERR_NO_ENCODER;
   TmaParts parts{};

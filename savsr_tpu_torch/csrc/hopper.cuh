@@ -329,6 +329,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
+// The same copies with zero fill: `ok` false writes zeros and reads nothing
+// (src-size 0; `src` must still be a valid address)
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

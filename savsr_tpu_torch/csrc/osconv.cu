@@ -1,43 +1,33 @@
-// Per-sample-weight KxK convolution (K = 1 or 3, stride 1, any zero padding
-// 0..K-1) and its per-sample weight gradient — kernels 6 and 7, the OSConv
-// engine of the training path.
+// The per-sample weight gradient of the per-sample-weight KxK convolution
+// (K = 1 or 3, stride 1, any zero padding 0..K-1) — kernel 7, with kernel 6
+// the OSConv engine of the training path.
 //
-// osconv_agg_kernel replaces savsr_tpu/ops/pallas/osconv_kernel.py::
-// osconv_pallas_agg: for sample b, with its own weight agg[b],
+// Kernel 6 (savsr_tpu/ops/pallas/osconv_kernel.py::osconv_pallas_agg: for
+// sample b, with its own weight agg[b],
 //     y[b, o, h, w] = sum_{dy,dx,i} xpad[b, i, h+dy, w+dx] * agg[b, dy, dx, i, o]
-// (xpad = x zero-padded by `pad`), f32 accumulation, output in the I/O type,
-// no bias and no epilogue. The training backward calls the same kernel for
-// dx: on the cotangent, with the taps flipped and the channel axes swapped,
-// at padding K-1-pad.
+// and the backward's dx, the same on the cotangent with the taps flipped and
+// the channel axes swapped, at padding K-1-pad) runs on csrc/conv.cu's
+// kernels: bf16 at padding K/2 on the tensor cores (conv_wgmma_kernel, the
+// weight gathered by ops/osconv.py pack_agg), f32 and every other padding on
+// the CUDA cores (conv_f32_kernel, which reads agg, or the dx call's flipped
+// and channel-swapped agg, through strides; bf16 there is widened to f32 by
+// the wrapper).
 //
 // osconv_dagg_kernel and osconv_dagg_wgmma_kernel replace ::osconv_pallas_dagg:
 //     dagg[b, dy*K+dx, i, o] = sum_{h,w} xpad[b, i, h+dy, w+dx] * g[b, o, h, w]
-// f32 accumulation and f32 output for both input types.
-//
-// Which kernel runs (ops/osconv.py chooses by dtype and padding alone): bf16
-// at padding K/2, the training path's case, runs on the tensor cores — the
-// forward and dx on csrc/conv.cu's conv_wgmma_kernel (the bf16 conv, which
-// takes a per-sample weight, repacked by the wrapper), the weight gradient on
-// osconv_dagg_wgmma_kernel below. f32 (the train-parity tier: true f32, no
-// TF32) and bf16 at any other padding run the CUDA-core kernels
-// osconv_agg_kernel and osconv_dagg_kernel (f32 only: the wrapper widens bf16
-// inputs first).
+// f32 accumulation and f32 output for both input types. bf16 at padding K/2,
+// the training path's case, runs osconv_dagg_wgmma_kernel on the tensor
+// cores; f32 (the train-parity tier: true f32, no TF32) and bf16 at any
+// other padding run osconv_dagg_kernel on the CUDA cores (f32 only: the
+// wrapper widens bf16 inputs first).
 //
 // Bound on the H100: at the training shapes (8 samples of 60x60, Cin 64..320,
-// Cout 64, or the reverse for dx) each does 2*9*Cin*Cout FLOPs per pixel
-// against (Cin + Cout) values moved per pixel plus the 9*Cin*Cout weights of
-// each sample, so both are bound by operations: in f32 held to the 67 TFLOP/s
+// Cout 64) the gradient does 2*9*Cin*Cout FLOPs per pixel against (Cin +
+// Cout) values read per pixel and the 9*Cin*Cout weights written per
+// sample, so it is bound by operations: in f32 held to the 67 TFLOP/s
 // CUDA-core rate, in bf16 to the 989 TFLOP/s tensor-core rate. The CUDA-core
-// kernels work in f32 (bf16 inputs are widened) and cannot approach the bf16
+// kernel works in f32 (bf16 inputs are widened) and cannot approach the bf16
 // bound; that is why bf16 goes to the tensor cores.
-//
-// Design, CUDA-core forward/dx: a block computes a 64-channel x 8-row x
-// 32-column output tile; each warp owns 8 output channels, each lane one
-// column of 8 rows (64 accumulators in registers). Input channels stream
-// through shared memory 8 at a time with a bounds-checked halo (no padded
-// copy of x), the sample's weights for those channels are broadcast from
-// shared memory. The weight layout [tap][Cin][Cout] makes the weight loads
-// contiguous in Cout.
 //
 // Design, CUDA-core weight gradient (f32; bf16 inputs are widened by the
 // wrapper): per (sample, tap) the gradient is a GEMM, M = Cin, N = Cout, K =
@@ -80,9 +70,9 @@
 // written once per chunk in f32 and added in chunk order by
 // dagg_reduce_kernel, as for the CUDA-core kernel: deterministic.
 //
-// Layout: x [B, Cin, H, W], g and y [B, Cout, Ho, Wo] (NCHW, contiguous; the
-// tensor-core kernel takes a row pitch, a multiple of 8), agg [B, K, K, Cin,
-// Cout], dagg [B, K*K, Cin, Cout].
+// Layout: x [B, Cin, H, W], g [B, Cout, Ho, Wo] (NCHW, contiguous; the
+// tensor-core kernel takes a row pitch, a multiple of 8), dagg [B, K*K, Cin,
+// Cout].
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,120 +83,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// ---------------------------------------------------------------------------
-// forward / dx
-// ---------------------------------------------------------------------------
-
-constexpr int TW = 32;      // tile columns (one per lane)
-constexpr int TH = 8;       // tile rows (per lane)
-constexpr int CT = 64;      // output channels per block
-constexpr int CPW = 8;      // output channels per warp (8 warps x 8 = CT)
-constexpr int CI = 8;       // input channels per shared-memory stage
-constexpr int WS = CT + 4;  // weight row stride in shared memory (16-byte rows)
-
-template <typename T, int KS>
-__global__ void __launch_bounds__(THREADS)
-osconv_agg_kernel(const T* __restrict__ x, const T* __restrict__ agg, T* __restrict__ out,
-                  int Cin, int H, int W, int Cout, int Ho, int Wo, int pad) {
-  constexpr int IR = TH + KS - 1;
-  constexpr int IC = TW + KS - 1;
-  constexpr int KK = KS * KS;
-  __shared__ float s_in[CI][IR][IC];
-  __shared__ __align__(16) float s_w[CI * KK][WS];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int ntile = (Cout + CT - 1) / CT;
-  const int b = blockIdx.z / ntile;
-  const int co0 = (blockIdx.z % ntile) * CT;
-  const long long HW = (long long)H * W;
-  const T* xb = x + (long long)b * Cin * HW;
-  const T* wb = agg + (long long)b * KK * Cin * Cout;
-
-  float acc[CPW][TH];
-#pragma unroll
-  for (int i = 0; i < CPW; ++i)
-#pragma unroll
-    for (int r = 0; r < TH; ++r) acc[i][r] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += CI) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < CI * IR * IC; e += THREADS) {
-      const int ci = e / (IR * IC), r = (e / IC) % IR, c = e % IC;
-      const int gy = y0 + r - pad, gx = x0 + c - pad;
-      float v = 0.f;
-      if (c0 + ci < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = ld(xb, (c0 + ci) * HW + (long long)gy * W + gx);
-      s_in[ci][r][c] = v;
-    }
-    // weights of CI input channels, all taps: contiguous in Cout
-    for (int e = threadIdx.x; e < CI * KK * CT; e += THREADS) {
-      const int co = e % CT, rr = e / CT;  // rr = ci * KK + tap
-      const int ci = rr / KK, tap = rr % KK;
-      float v = 0.f;
-      if (co0 + co < Cout && c0 + ci < Cin)
-        v = ld(wb, ((long long)tap * Cin + c0 + ci) * Cout + co0 + co);
-      s_w[rr][co] = v;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int ci = 0; ci < CI; ++ci) {
-#pragma unroll
-      for (int dx = 0; dx < KS; ++dx) {
-        float col[IR];
-#pragma unroll
-        for (int r = 0; r < IR; ++r) col[r] = s_in[ci][r][lane + dx];
-#pragma unroll
-        for (int dy = 0; dy < KS; ++dy) {
-          const float4* wp =
-              reinterpret_cast<const float4*>(&s_w[ci * KK + dy * KS + dx][warp * CPW]);
-          const float4 wa = wp[0], wc = wp[1];
-          const float wv[CPW] = {wa.x, wa.y, wa.z, wa.w, wc.x, wc.y, wc.z, wc.w};
-#pragma unroll
-          for (int i = 0; i < CPW; ++i)
-#pragma unroll
-            for (int r = 0; r < TH; ++r) acc[i][r] = fmaf(wv[i], col[r + dy], acc[i][r]);
-        }
-      }
-    }
-  }
-
-  const int gx = x0 + lane;
-  if (gx >= Wo) return;
-#pragma unroll
-  for (int i = 0; i < CPW; ++i) {
-    const int oc = co0 + warp * CPW + i;
-    if (oc >= Cout) continue;
-#pragma unroll
-    for (int r = 0; r < TH; ++r) {
-      const int gy = y0 + r;
-      if (gy >= Ho) break;
-      st(out, (((long long)b * Cout + oc) * Ho + gy) * Wo + gx, acc[i][r]);
-    }
-  }
-}
-
-template <typename T, int KS>
-cudaError_t launch_agg(const void* x, const void* agg, void* out, int B, int Cin, int H,
-                       int W, int Cout, int pad, cudaStream_t stream) {
-  const int Ho = H + 2 * pad - KS + 1, Wo = W + 2 * pad - KS + 1;
-  dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * ((Cout + CT - 1) / CT));
-  osconv_agg_kernel<T, KS><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(agg), static_cast<T*>(out), Cin, H, W,
-      Cout, Ho, Wo, pad);
-  return cudaGetLastError();
-}
+constexpr int THREADS = 256;  // dagg_reduce_kernel
 
 // ---------------------------------------------------------------------------
 // per-sample weight gradient
@@ -685,22 +562,6 @@ extern "C" const char* savsr_error_string(int e) {
   if (e == ERR_NO_ENCODER) return "cuTensorMapEncodeTiled not found in the CUDA driver";
   if (e == ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(e));
-}
-
-// dtype: 0 = float32, 1 = bfloat16; ksize 1 or 3; 0 <= pad <= ksize - 1.
-extern "C" int savsr_osconv_agg(int ksize, int dtype, const void* x, const void* agg, void* out,
-                                int B, int Cin, int H, int W, int Cout, int pad, void* stream) {
-  if ((ksize != 1 && ksize != 3) || dtype < 0 || dtype > 1 || pad < 0 || pad >= ksize)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = ksize == 3 ? launch_agg<float, 3>(x, agg, out, B, Cin, H, W, Cout, pad, s)
-                   : launch_agg<float, 1>(x, agg, out, B, Cin, H, W, Cout, pad, s);
-  else
-    e = ksize == 3 ? launch_agg<__nv_bfloat16, 3>(x, agg, out, B, Cin, H, W, Cout, pad, s)
-                   : launch_agg<__nv_bfloat16, 1>(x, agg, out, B, Cin, H, W, Cout, pad, s);
-  return static_cast<int>(e);
 }
 
 // f32 on the CUDA cores. The pixel rows of x are cut into `nchunks` chunks

@@ -16,6 +16,14 @@ parts through separate pointers (f32) or TMA tensor maps (bf16), so no
 concat is ever copied. ``weight`` is [Cout, Cin, K, K] (shared) or [B, Cout,
 Cin, K, K] (per sample: the attention-folded OSConv weight).
 
+The f32 kernel runs on the CUDA cores (true f32, the strict tier's
+contract). Its wrapper repacks the weight into [(B,) K*K, Cin, Cout]
+(``pack_weight_f32``) and plans a split of the Cin reduction where the
+output has too few tiles to fill the card (``f32_chunks``; the partials
+are added in chunk order by a second kernel). ``run_conv_f32`` is also the
+f32 OSConv's launch (ops/osconv.py): any padding 0..K-1 and a weight read
+through strides.
+
 The bf16 kernel is a tensor-core implicit GEMM. Its wrapper owns two layout
 steps: ``pack_weight`` reorders the weight into the kernel's A-operand
 stages (``pack_index``), and ``tma_part`` gives each part a row pitch that
@@ -32,13 +40,22 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import check_rc, count_plain, dtype_code, launches, ptr, require, stream_ptr
+from . import check_rc, count_plain, dtype_code, launches, ptr, require, sm_count, stream_ptr
 
 MAX_PARTS = 8
 # the bf16 kernel's tiles: output channels per tile (wgmma M) and input
 # channels per pipeline stage (wgmma K); a stage's weights are one
 # [64 co][16 ci] block per tap
 CO_TILE, CI_STEP = 64, 16
+# the f32 kernel (csrc/conv.cu F_CO, F_ROWS, F_COLS, FCfg::CI): output tiles
+# of 64 channels x 4 rows x 64 columns, input channels staged 8 (3x3) or 16
+# (1x1) at a time, each part from its own first channel; two blocks run on
+# each SM. A split of the Cin reduction keeps at least F32_MIN_STAGES stages
+# a chunk and makes at most F32_MAX_CHUNKS chunks.
+F32_TILE = (64, 4, 64)
+F32_STAGE_CH = {3: 8, 1: 16}
+F32_BLOCKS_PER_SM = 2
+F32_MIN_STAGES, F32_MAX_CHUNKS = 2, 8
 
 
 def _kernel_name(weight: torch.Tensor) -> str:
@@ -115,28 +132,77 @@ def _pack_index_on(cout: int, chans: Tuple[int, ...], k: int, device: str) -> to
     return pack_index(cout, chans, k).to(device)
 
 
+def _packed_once(weight: torch.Tensor, plan, pack) -> torch.Tensor:
+    """``pack()``; for a shared weight (a parameter) kept as its attribute
+    ``_savsr_packed`` and reused while its storage, version counter (an
+    in-place write moves it) and ``plan`` stay the same. Per-sample weights
+    are built anew every forward and are packed at every call."""
+    if weight.dim() != 4:
+        return pack()
+    key = (weight.data_ptr(), weight._version, plan)
+    hit = getattr(weight, "_savsr_packed", None)
+    if hit is None or hit[0] != key:
+        hit = weight._savsr_packed = (key, pack())
+    return hit[1]
+
+
 def pack_weight(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
     """The bf16 kernel's weight layout (``pack_index``): [L] for a shared
-    [Cout, Cin, k, k] weight, [B, L] for per-sample [B, Cout, Cin, k, k].
+    [Cout, Cin, k, k] weight, [B, L] for per-sample [B, Cout, Cin, k, k];
+    a shared weight's is packed once (``_packed_once``)."""
+    def pack():
+        shared = weight.dim() == 4
+        cout, k = weight.shape[-4], weight.shape[-1]
+        flat = weight.detach().reshape(-1, weight.numel() if shared else weight[0].numel())
+        idx = _pack_index_on(cout, tuple(chans), k, str(weight.device))
+        packed = F.pad(flat, (0, 1)).index_select(1, idx)
+        return packed[0] if shared else packed
 
-    A shared weight (a parameter) keeps its packed copy as an attribute,
-    ``_savsr_packed``, reused while its storage, version counter (an
-    in-place write moves it) and parts stay the same; per-sample weights
-    are built anew every forward and are packed at every call."""
-    shared = weight.dim() == 4
-    key = (weight.data_ptr(), weight._version, tuple(chans))
-    if shared:
-        hit = getattr(weight, "_savsr_packed", None)
-        if hit is not None and hit[0] == key:
-            return hit[1]
-    cout, k = weight.shape[-4], weight.shape[-1]
-    flat = weight.detach().reshape(-1, weight.numel() if shared else weight[0].numel())
-    idx = _pack_index_on(cout, tuple(chans), k, str(weight.device))
-    packed = F.pad(flat, (0, 1)).index_select(1, idx)
-    if shared:
-        packed = packed[0]
-        weight._savsr_packed = (key, packed)
-    return packed
+    return _packed_once(weight, tuple(chans), pack)
+
+
+def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
+    """The f32 kernel's weight layout: [K*K, Cin, Cout] for a shared [Cout,
+    Cin, K, K] weight, [B, K*K, Cin, Cout] per sample, contiguous in Cout (the
+    OSConv's agg layout); a shared weight's is packed once
+    (``_packed_once``)."""
+    def pack():
+        w = weight.detach().flatten(-2)  # [(B,) Cout, Cin, K*K]
+        return (w.permute(2, 1, 0) if weight.dim() == 4 else w.permute(0, 3, 2, 1)).contiguous()
+
+    return _packed_once(weight, "f32", pack)
+
+
+def f32_stages(chans: Sequence[int], k: int) -> List[Tuple[int, int]]:
+    """The f32 kernel's stages, in order: (part, first channel) of each
+    group of ``F32_STAGE_CH[k]`` channels; each part starts a new one."""
+    step = F32_STAGE_CH[k]
+    return [(p, c0) for p, c in enumerate(chans) for c0 in range(0, c, step)]
+
+
+def f32_chunks(b: int, chans: Sequence[int], cout: int, ho: int, wo: int, k: int,
+               sms: int) -> Tuple[int, int]:
+    """(chunks, stages per chunk) of the f32 kernel's Cin reduction. Blocks
+    are (sample, channel tile, row tile, column tile, chunk), two resident
+    on each SM. A launch takes about (waves of block slots) / chunks of an
+    unsplit block's time; the split with the fewest (the fewest chunks on a
+    tie) is taken where it saves at least an eighth of the unsplit launch's
+    time, which pays for its partials and second pass. So a launch whose
+    tiles fill the slots is not split."""
+    co, rows, cols = F32_TILE
+    nst = len(f32_stages(chans, k))
+    base = b * -(-cout // co) * -(-ho // rows) * -(-wo // cols)
+    slots = F32_BLOCKS_PER_SM * sms
+    one = -(-base // slots)
+    best, best_waves = 1, one
+    for n in range(2, min(F32_MAX_CHUNKS, nst // F32_MIN_STAGES) + 1):
+        waves = -(-base * n // slots)
+        if waves * best < best_waves * n:  # waves / n < best_waves / best
+            best, best_waves = n, waves
+    if 8 * best_waves > 7 * one * best:  # saves less than an eighth
+        return 1, nst
+    per = -(-nst // best)
+    return -(-nst // per), per
 
 
 def tma_part(p: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -159,20 +225,35 @@ def _lib():
     from ..csrc.build import load
 
     lib = load("conv")
-    lib.savsr_conv_fused.restype = ctypes.c_int
+    i, ll, f, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
+    lib.savsr_conv_fused.restype = i
     lib.savsr_conv_fused.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,                # K, dtype, nparts
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_longlong),                       # parts, ch, bstride, pitch
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, Cout
-        ctypes.c_void_p, ctypes.c_longlong,                      # weight, w_bstride
-        ctypes.c_void_p, ctypes.c_void_p,                        # bias, pre_add
-        ctypes.c_void_p, ctypes.c_longlong,                      # out_scale, s_bstride
-        ctypes.c_int, ctypes.c_float, ctypes.c_float,            # lrelu, a, b
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,       # residual, out, stream
+        i, i,                                                    # K, nparts
+        ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll),
+        ctypes.POINTER(ll),                                      # parts, ch, bstride, pitch
+        i, i, i, i,                                              # B, H, W, Cout
+        p, ll,                                                   # weight, w_bstride
+        p, p, p, ll,                                 # bias, pre_add, out_scale, s_bstride
+        i, f, f,                                                 # lrelu, a, b
+        p, p, p,                                                 # residual, out, stream
+    ]
+    lib.savsr_conv_f32.restype = i
+    lib.savsr_conv_f32.argtypes = [
+        i, i, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll),  # K, nparts, parts
+        i, i, i, i, i,                                           # B, H, W, pad, Cout
+        p, ll, ll, ll, ll, ll,                                   # weight, w_b, off, tap, ci, co
+        p, p, p, ll,                                 # bias, pre_add, out_scale, s_bstride
+        i, f, f,                                                 # lrelu, a, b
+        p, p, p, i, i, p,                            # residual, out, partial, nchunks, per, stream
     ]
     return lib
+
+
+def _part_arrays(parts):
+    n = len(parts)
+    return (n, (ctypes.c_void_p * n)(*[p.data_ptr() for p in parts]),
+            (ctypes.c_int * n)(*[p.shape[1] for p in parts]),
+            (ctypes.c_longlong * n)(*[p.stride(0) for p in parts]))
 
 
 def _launch(parts: List[torch.Tensor], weight, bias, pre_add, out_scale,
@@ -180,6 +261,7 @@ def _launch(parts: List[torch.Tensor], weight, bias, pre_add, out_scale,
     x0 = parts[0]
     b, _, h, w = x0.shape
     dt = x0.dtype
+    dtype_code(x0)  # f32 or bf16
     k = weight.shape[-1]
     require(k in (1, 3) and weight.shape[-2] == k, f"kernel size {tuple(weight.shape)}")
     require(1 <= len(parts) <= MAX_PARTS, f"{len(parts)} parts (max {MAX_PARTS})")
@@ -209,15 +291,17 @@ def _launch(parts: List[torch.Tensor], weight, bias, pre_add, out_scale,
         s_bstride = cout if out_scale.numel() == b * cout else 0
 
     out = torch.empty((b, cout, h, w), dtype=dt, device=x0.device)
-    chans = [p.shape[1] for p in parts]
-    if dt == torch.bfloat16:
-        parts, pitch = zip(*(tma_part(p) for p in parts))
-        wt = pack_weight(weight, chans)
-        w_bstride = wt.shape[1] if per_sample else 0
-    else:
-        pitch = [w] * len(parts)
-        wt, w_bstride = weight, cout * cin * k * k if per_sample else 0
-    run_conv(k, parts, pitch, wt, w_bstride, out, _kernel_name(weight), bias, pre_add,
+    name = _kernel_name(weight)
+    if dt == torch.float32:
+        wt = pack_weight_f32(weight)
+        kk = k * k
+        strides = (kk * cin * cout if per_sample else 0, 0, cin * cout, cout, 1)
+        run_conv_f32(k, parts, k // 2, wt, strides, out, name, bias, pre_add, out_scale,
+                     s_bstride, lrelu, residual)
+        return out
+    parts, pitch = zip(*(tma_part(p) for p in parts))
+    wt = pack_weight(weight, [p.shape[1] for p in parts])
+    run_conv(k, parts, pitch, wt, wt.shape[1] if per_sample else 0, out, name, bias, pre_add,
              out_scale, s_bstride, lrelu, residual)
     return out
 
@@ -225,23 +309,47 @@ def _launch(parts: List[torch.Tensor], weight, bias, pre_add, out_scale,
 def run_conv(k: int, parts, pitch, wt: torch.Tensor, w_bstride: int, out: torch.Tensor,
              counter: str, bias=None, pre_add=None, out_scale=None, s_bstride: int = 0,
              lrelu=None, residual=None) -> None:
-    """One launch of ``savsr_conv_fused`` (checked by the caller): conv_k of
-    the channel parts, each read at its row pitch (``tma_part`` for bf16),
-    with the weight as the kernel takes it (``pack_weight`` for bf16;
-    ``w_bstride`` elements per sample, 0 for a shared weight) into ``out``
+    """One launch of the bf16 kernel, ``savsr_conv_fused`` (checked by the
+    caller): conv_k of the channel parts, each read at its row pitch
+    (``tma_part``), with the weight as ``pack_weight`` lays it out
+    (``w_bstride`` elements per sample, 0 for a shared weight) into ``out``
     [B, Cout, H, W]; counted once as ``counter``."""
     b, cout, h, w = out.shape
-    n = len(parts)
-    part_ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in parts])
-    part_ch = (ctypes.c_int * n)(*[p.shape[1] for p in parts])
-    part_bs = (ctypes.c_longlong * n)(*[p.stride(0) for p in parts])
+    n, part_ptrs, part_ch, part_bs = _part_arrays(parts)
     part_pitch = (ctypes.c_longlong * n)(*pitch)
     la, lb = lrelu if lrelu is not None else (1.0, 0.0)
     lib = _lib()
-    rc = lib.savsr_conv_fused(k, dtype_code(out), n, part_ptrs, part_ch, part_bs, part_pitch,
+    rc = lib.savsr_conv_fused(k, n, part_ptrs, part_ch, part_bs, part_pitch,
                               b, h, w, cout, ptr(wt), w_bstride, ptr(bias), ptr(pre_add),
                               ptr(out_scale), s_bstride, int(lrelu is not None), la, lb,
                               ptr(residual), ptr(out), stream_ptr(out))
+    check_rc(lib, rc, counter)
+    launches[counter] += 1
+
+
+def run_conv_f32(k: int, parts, padding: int, wt: torch.Tensor, w_strides, out: torch.Tensor,
+                 counter: str, bias=None, pre_add=None, out_scale=None, s_bstride: int = 0,
+                 lrelu=None, residual=None) -> None:
+    """One launch of the f32 kernel, ``savsr_conv_f32`` (checked by the
+    caller): conv_k at ``padding`` of the f32 channel parts (contiguous
+    channel planes) into ``out`` [B, Cout, Ho, Wo], the weight element (b,
+    tap, ci, co) read at ``b * w_b + off + tap * s_tap + ci * s_ci + co *
+    s_co`` for ``w_strides`` = (w_b, off, s_tap, s_ci, s_co); the Cin
+    reduction split as ``f32_chunks`` plans it; counted once as
+    ``counter``."""
+    b, cout, ho, wo = out.shape
+    h, w = parts[0].shape[2:]
+    nchunks, per = f32_chunks(b, [p.shape[1] for p in parts], cout, ho, wo, k,
+                              sm_count(out.device))
+    partial = (torch.empty((nchunks,) + tuple(out.shape), dtype=torch.float32,
+                           device=out.device) if nchunks > 1 else None)
+    n, part_ptrs, part_ch, part_bs = _part_arrays(parts)
+    la, lb = lrelu if lrelu is not None else (1.0, 0.0)
+    lib = _lib()
+    rc = lib.savsr_conv_f32(k, n, part_ptrs, part_ch, part_bs, b, h, w, padding, cout, ptr(wt),
+                            *w_strides, ptr(bias), ptr(pre_add), ptr(out_scale), s_bstride,
+                            int(lrelu is not None), la, lb, ptr(residual), ptr(out),
+                            ptr(partial), nchunks, per, stream_ptr(out))
     check_rc(lib, rc, counter)
     launches[counter] += 1
 

@@ -31,10 +31,13 @@ Which kernel runs is chosen by dtype and padding alone (``tensor_cores``):
   pitch-padded buffer (``ops.conv.tma_part``); the training Function keeps
   that copy of x for the backward.
 - f32 at any padding (the train-parity tier: true f32, no TF32), and bf16
-  at any other padding: the CUDA-core kernels ``osconv_agg_kernel`` and
-  ``osconv_dagg_kernel`` (csrc/osconv.cu). The weight gradient's kernel
-  takes f32 only: bf16 inputs are widened to f32 first (the same products
-  and sums as widening on load).
+  at any other padding: the CUDA cores. ``osconv_agg`` runs the f32 conv's
+  ``conv_f32_kernel`` (csrc/conv.cu, through ``ops.conv.run_conv_f32``),
+  which reads agg as it lies and the dx call's flipped, channel-swapped
+  weight from agg through strides (no copy); ``osconv_dagg`` runs
+  ``osconv_dagg_kernel`` (csrc/osconv.cu). Both take f32 only: bf16 inputs
+  are widened to f32 first (the same products and sums as widening on
+  load), and the forward's output is rounded back to bf16.
 
 On CPU tensors every wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises. Each launch counts once in
@@ -54,7 +57,7 @@ from torch.profiler import record_function
 
 from . import (check_rc, count_plain, dtype_code, launches, ptr, require, sm_count,
                stream_ptr)
-from .conv import pack_index, run_conv, tma_part
+from .conv import pack_index, run_conv, run_conv_f32, tma_part
 
 # the CUDA-core weight gradient's channel tile (Cin and Cout per block) and
 # column segment (DG_CH, DG_SEG in csrc/osconv.cu); it runs one block per SM
@@ -137,9 +140,6 @@ def _lib():
 
     lib = load("osconv")
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.savsr_osconv_agg.restype = i
-    lib.savsr_osconv_agg.argtypes = [i, i, p, p, p,        # ksize, dtype, x, agg, out
-                                     i, i, i, i, i, i, p]  # B, Cin, H, W, Cout, pad, stream
     lib.savsr_osconv_dagg.restype = i
     lib.savsr_osconv_dagg.argtypes = [i, p, p, p, p,       # ksize, x, g, out, scratch
                                       i, i,                # nchunks, rows_per_chunk
@@ -208,13 +208,25 @@ def pack_agg(agg: torch.Tensor, transpose: bool = False) -> torch.Tensor:
     return flat.index_select(1, idx)
 
 
+def f32_agg_strides(shape, transpose: bool = False):
+    """Where the f32 conv kernel (``ops.conv.run_conv_f32``) reads weight
+    element (b, tap, ci, co) of the conv from agg [B, k, k, Cin, Cout] of
+    ``shape``: (per sample, offset, tap, ci, co) strides. As it lies; for
+    the dx call (``transpose``) tap k*k-1-tap with ci and co swapped."""
+    _, k, _, ci, co = shape
+    kk = k * k
+    if transpose:
+        return kk * ci * co, (kk - 1) * ci * co, -ci * co, 1, co
+    return kk * ci * co, 0, ci * co, co, 1
+
+
 def _agg(x: torch.Tensor, agg: torch.Tensor, padding: int, transpose: bool = False):
     """Kernel 6 on CUDA tensors (checked by the caller). ``transpose``: the
     dx call, with agg's taps flipped and channel axes swapped. Returns the
     output and (buffer, row pitch) of x as the kernel read it: on the tensor
     cores ``tma_part(x)``, which the training Function keeps for the weight
     gradient; on the CUDA cores x itself."""
-    b, cin, h, w = x.shape
+    b, _, h, w = x.shape
     k = agg.shape[1]
     cout = agg.shape[3] if transpose else agg.shape[4]
     out = torch.empty((b, cout, h + 2 * padding - k + 1, w + 2 * padding - k + 1),
@@ -226,13 +238,11 @@ def _agg(x: torch.Tensor, agg: torch.Tensor, padding: int, transpose: bool = Fal
             wt = pack_agg(agg, transpose)
             run_conv(k, [xb], [pitch], wt, wt.shape[1], out, "osconv_agg")
         else:
-            if transpose:
-                agg = agg.flip(1, 2).transpose(3, 4).contiguous()
-            lib = _lib()
-            rc = lib.savsr_osconv_agg(k, dtype_code(x), ptr(x), ptr(agg), ptr(out), b, cin, h, w,
-                                      cout, padding, stream_ptr(x))
-            check_rc(lib, rc, "osconv_agg")
-            launches["osconv_agg"] += 1
+            o32 = out if out.dtype == torch.float32 else torch.empty_like(out, dtype=torch.float32)
+            strides = f32_agg_strides(agg.shape, transpose)
+            run_conv_f32(k, [x.float()], padding, agg.float(), strides, o32, "osconv_agg")
+            if o32 is not out:
+                out.copy_(o32)
     return out, (xb, pitch)
 
 
@@ -293,8 +303,9 @@ def osconv_agg_dx(g: torch.Tensor, agg: torch.Tensor, padding: int = 1) -> torch
     """Kernel 6 as the backward's dx call: ``g`` [B, Cout, Ho, Wo] through
     ``agg`` [B, k, k, Cin, Cout] with its taps flipped and its channel axes
     swapped, at padding k-1-``padding`` (``padding`` is the forward's) ->
-    [B, Cin, H, W]. On the tensor cores the flip and swap are folded into the
-    weight's repack; the CUDA-core kernel takes a flipped copy."""
+    [B, Cin, H, W]. The flip and swap are never copied: on the tensor cores
+    they are folded into the weight's repack, the CUDA-core kernel reads agg
+    through strides."""
     require(agg.dim() == 5 and agg.shape[1] == agg.shape[2],
             f"osconv_agg_dx: agg must be [B, k, k, Cin, Cout], got {tuple(agg.shape)}")
     k = agg.shape[1]

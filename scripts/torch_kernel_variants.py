@@ -13,7 +13,9 @@ times every kernel; a variant may instead (or also) set a module attribute
 of the wrapper for its call (a launch plan, a tile width). Shapes: STAU and
 the tail at 8 windows of 180x320 LR, x4, C = 64 (STAU with the flagship
 weights' window plan), bf16; STA at 8 windows of 180x320, C = 64, bf16; the
-f32 OSConv weight gradient at 8 x 60x60, 192 -> 64, k = 3, padding 1. The
+f32 OSConv weight gradient at 8 x 60x60, 192 -> 64, k = 3, padding 1; the
+f32 conv (csrc/conv.cu conv_f32_kernel) at 8 windows of 180x320, 3x3 64 ->
+64 and 1x1 3x64 -> 64. The
 edited variants compute wrong results: their error against the plain
 version is printed only to show which part was switched off. The time a
 variant saves is an upper bound on what that part costs, since the parts
@@ -37,7 +39,31 @@ sys.path.insert(0, REPO)
 NO_MMA = ('#include "hopper.cuh"\n',
           '#include "hopper.cuh"\n#define mma_m16n8k16_bf16(d, a, b0, b1) '
           '(d[0] += __uint_as_float((a[0] ^ b0 ^ b1) & 0x3f800000u))\n')
+CONV_F32_COMMON = {
+    "full": [],
+    "no staging copies": [("  const int cn = min(C::CI, s.c - s.c0);  // channels of the stage that exist",
+                           "  if (a.Cout > 0) return;\n"
+                           "  const int cn = min(C::CI, s.c - s.c0);  // channels of the stage that exist")],
+    # constant operands: the FMAs become adds of a constant, on the same pipe
+    "no shared loads in the FMAs": [
+        ("          const float4 p = *reinterpret_cast<const float4*>(row);",
+         "          const float4 p = make_float4(ir, 0.5f, 0.25f, 0.125f);"),
+        ("          const float4 p = *reinterpret_cast<const float4*>(row + 1);\n"
+         "          v[ir][0] = row[0],",
+         "          const float4 p = make_float4(ir, 0.5f, 0.25f, 0.125f);\n"
+         "          v[ir][0] = 0.375f,"),
+        ("          v[ir][5] = row[5];", "          v[ir][5] = 0.625f;"),
+        ("        const float4 lo = *reinterpret_cast<const float4*>(w + tap * F_WP);\n"
+         "        const float4 hi = *reinterpret_cast<const float4*>(w + tap * F_WP + 4);",
+         "        const float4 lo = make_float4(1.f, tap, u, 2.f), hi = make_float4(u, 3.f, 5.f, 7.f);")],
+    "no barrier": [("    __syncthreads();  // ... everyone's; and every warp is done with stage t - 1's buffer\n",
+                    "")],
+}
 VARIANTS = {
+    "conv_f32": {**CONV_F32_COMMON, "FMAs and weights of 3 of 9 taps": [
+        ("      for (int tap = 0; tap < KS * KS; ++tap) {",
+         "      for (int tap = 0; tap < KS; ++tap) {")]},
+    "conv_f32_1x1": CONV_F32_COMMON,
     "stau": {
         "full": [],
         "no bilinear taps": [("    if (!ok[t]) continue;", "    if (true) continue;")],
@@ -102,6 +128,9 @@ VARIANTS = {
 }
 
 
+SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv"}
+
+
 def _edits(variant):
     return [] if isinstance(variant, dict) else variant
 
@@ -112,7 +141,7 @@ def build_variants(tmp: str, build, variants: dict) -> dict:
     library path}."""
     procs = {}
     for kern, vs in variants.items():
-        source = "osconv" if kern == "osconv_dagg" else kern
+        source = SOURCE.get(kern, kern)
         src = open(os.path.join(build.CSRC_DIR, f"{source}.cu")).read()
         for i, (name, variant) in enumerate(vs.items()):
             edits = _edits(variant)
@@ -154,7 +183,7 @@ def main(argv=None) -> int:
     from savsr_tpu_torch.archs.savsr_arch import SAVSR
     from savsr_tpu_torch.csrc import build
     from savsr_tpu_torch.inference import flagship_net_kwargs
-    from savsr_tpu_torch.ops import osconv, sta, stau, tail
+    from savsr_tpu_torch.ops import conv, osconv, sta, stau, tail
     from savsr_tpu_torch.utils.convert import load_into
 
     if not torch.cuda.is_available():
@@ -191,6 +220,14 @@ def main(argv=None) -> int:
         "sta": (sta, "sta_conv_fused", (
             cs._rand(rng, (b, c, h, w), bf, device), cs._rand(rng, (b, c, h, w), bf, device),
             kc.weight.to(bf), kc.bias.to(bf)), {}),
+        "conv_f32": (conv, "conv_fused", (
+            [cs._rand(rng, (b, c, h, w), torch.float32, device)],
+            cs._rand(rng, (c, c, 3, 3), torch.float32, device, (9 * c) ** -0.5),
+            cs._rand(rng, (c,), torch.float32, device, 0.1)), {}),
+        "conv_f32_1x1": (conv, "conv_fused", (
+            [cs._rand(rng, (b, c, h, w), torch.float32, device) for _ in range(3)],
+            cs._rand(rng, (c, 3 * c, 1, 1), torch.float32, device, (3 * c) ** -0.5),
+            cs._rand(rng, (c,), torch.float32, device, 0.1)), {}),
         "osconv_dagg": (osconv, "osconv_dagg", (
             cs._rand(rng, (tb, 192, th, tw), torch.float32, device),
             cs._rand(rng, (tb, 64, th, tw), torch.float32, device), 3, 3, 1), {}),

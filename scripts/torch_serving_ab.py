@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The bf16 STA, STAU and tail kernels of the PyTorch port (savsr_tpu_torch)
 and the serving forward's device time, for one or more checkouts of the repo,
-on one CUDA card.
+on one CUDA card; with ``--strict`` also the f32 conv kernels and the
+strict tier's forward.
 
-    python3 scripts/torch_serving_ab.py [--out FILE] ROOT [ROOT ...]
+    python3 scripts/torch_serving_ab.py [--strict] [--out FILE] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repo (this one, or a ``git archive`` of
 another commit unpacked into a directory; it needs ``savsr_tpu_torch/`` and
@@ -22,7 +23,13 @@ Per checkout:
 - the serving profile, as ``chip_smoke.phase_profile`` takes it: one bf16
   forward of 8 windows unprofiled (median of 3) and under torch.profiler,
   its device busy time and the device time of the STA, STAU and tail
-  kernels.
+  kernels;
+- with ``--strict``: every ``chip_smoke.CONV_CASES`` row in f32 (the
+  checkout's own ``chip_smoke.conv_case``: kernel against plain version,
+  back-to-back ms, ``F.conv2d`` with TF32 off, bound), and the same profile
+  of one strict-tier (f32) forward of 8 windows, with the device time of
+  the f32 conv kernels (``conv_f32_kernel`` and its reduce pass, or an older
+  checkout's ``conv_fused_kernel``).
 """
 
 from __future__ import annotations
@@ -38,28 +45,32 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(HERE, "tests", "goldens", "savsr_state_dict.npz")
 
 
-def profile(cs, model, device) -> dict:
-    """One bf16 serving forward of cs.WINDOWS windows: unprofiled ms, device
-    busy ms, and device ms by kernel."""
+def profile(cs, model, device, dtype) -> dict:
+    """One serving forward of cs.WINDOWS windows in ``dtype``: unprofiled
+    ms, device busy ms, and device ms by kernel (STA, STAU, tail, the f32
+    conv)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile as prof_
 
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.random((cs.WINDOWS, 7, 3) + cs.LR_HW, dtype=np.float32)).to(
-        device, torch.bfloat16)
-    statics = model.stau_statics(cs.LR_HW, cs.SCALE, dtype=torch.bfloat16, device=device)
+        device, dtype)
+    statics = model.stau_statics(cs.LR_HW, cs.SCALE, dtype=dtype, device=device)
     fwd_ms = cs.timed_ms(lambda: model(x, cs.SCALE, stau_statics=statics), device, reps=3, iters=1)
     with prof_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(x, cs.SCALE, stau_statics=statics)
         torch.cuda.synchronize()
     rows = cs.device_rows(prof)
-    return {"forward_ms": fwd_ms, "device_ms": sum(r[1] for r in rows),
-            "kernels": {name: ms for name, ms, _ in rows
-                        if cs.short_name(name).startswith(("sta", "tail"))}}
+    kernels = {name: ms for name, ms, _ in rows
+               if cs.short_name(name).startswith(("sta", "tail", "conv_f32", "conv_fused"))}
+    f32 = [(ms, n) for name, ms, n in rows
+           if cs.short_name(name).startswith(("conv_f32", "conv_fused"))]
+    return {"forward_ms": fwd_ms, "device_ms": sum(r[1] for r in rows), "kernels": kernels,
+            "f32_conv_ms": sum(ms for ms, _ in f32), "f32_conv_launches": sum(n for _, n in f32)}
 
 
-def child(root: str, out_path: str) -> None:
+def child(root: str, out_path: str, strict: bool) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -88,16 +99,24 @@ def child(root: str, out_path: str) -> None:
         rows = [cs.sta_case(rng, model, torch.bfloat16, device),
                 cs.stau_case(rng, model, statics, torch.bfloat16, device),
                 cs.tail_case(rng, model, torch.bfloat16, device)]
+        if strict:
+            rows += [cs.conv_case(rng, *case, torch.float32, device) for case in cs.CONV_CASES]
     del model
-    model = build_serving_model("bf16")  # as chip_smoke.phase_profile builds it
-    load_into(model, sd)
-    model.to(device=device, dtype=torch.bfloat16)
-    prof = profile(cs, model, device)
-    log(f"serving forward bf16, {cs.WINDOWS} windows {cs.LR_HW[0]}x{cs.LR_HW[1]} x4: "
-        f"{prof['forward_ms']:.2f} ms unprofiled, device busy {prof['device_ms']:.2f} ms; "
-        + "; ".join(f"{cs.short_name(k)} {v:.4f} ms" for k, v in prof["kernels"].items()))
+    profiles = {}
+    for tier, dtype in (("bf16", torch.bfloat16), ("strict", torch.float32))[:1 + strict]:
+        model = build_serving_model(tier)  # as chip_smoke.phase_profile builds it
+        load_into(model, sd)
+        model.to(device=device, dtype=dtype)
+        prof = profiles[tier] = profile(cs, model, device, dtype)
+        del model
+        torch.cuda.empty_cache()
+        log(f"serving forward {tier}, {cs.WINDOWS} windows {cs.LR_HW[0]}x{cs.LR_HW[1]} x4: "
+            f"{prof['forward_ms']:.2f} ms unprofiled, device busy {prof['device_ms']:.2f} ms "
+            f"(f32 conv {prof['f32_conv_ms']:.2f} ms in {prof['f32_conv_launches']} launches); "
+            + "; ".join(f"{cs.short_name(k)} {v:.4f} ms" for k, v in prof["kernels"].items()))
     with open(out_path, "w") as f:
-        json.dump({"root": root, "cases": rows, "profile": prof}, f)
+        json.dump({"root": root, "cases": rows, "profile": profiles["bf16"],
+                   "strict_profile": profiles.get("strict")}, f)
     if not all(r["ok"] for r in rows):
         raise AssertionError(f"{root}: a kernel disagrees with its plain version")
 
@@ -106,11 +125,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("roots", nargs="+", help="checkouts of the repo, run in this order")
+    ap.add_argument("--strict", action="store_true",
+                    help="also the f32 conv rows and the strict tier's forward")
     ap.add_argument("--out", default=None, help="write every checkout's results here as JSON")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        child(os.path.abspath(args.roots[0]), args.child)
+        child(os.path.abspath(args.roots[0]), args.child, args.strict)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -120,8 +141,8 @@ def main(argv=None) -> int:
         for i, root in enumerate(args.roots):
             path = os.path.join(tmp, f"{i}.json")
             root = os.path.abspath(root)
-            subprocess.run([sys.executable, os.path.abspath(__file__), root, "--child", path],
-                           check=True, cwd=root)
+            subprocess.run([sys.executable, os.path.abspath(__file__), root, "--child", path]
+                           + ["--strict"] * args.strict, check=True, cwd=root)
             with open(path) as f:
                 results.append(json.load(f))
     for r in results:
@@ -130,6 +151,13 @@ def main(argv=None) -> int:
               f"stau {by['stau']['ms']:.4f} ms, tail {by['tail']['ms']:.4f} ms "
               f"(library {by['tail']['library_ms']:.4f}), device busy "
               f"{r['profile']['device_ms']:.2f} ms per forward", flush=True)
+        if r["strict_profile"]:
+            f32 = [c for c in r["cases"] if c["dtype"] == "f32"]
+            print(f"[ab] {r['root']}: strict forward device busy "
+                  f"{r['strict_profile']['device_ms']:.2f} ms (f32 conv "
+                  f"{r['strict_profile']['f32_conv_ms']:.2f} ms); f32 conv rows ms (F.conv2d): "
+                  + "; ".join(f"{c['case']} {c['ms']:.4f} ({c['library_ms']:.4f})" for c in f32),
+                  flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,7 +1,9 @@
 """The layout steps of the bf16 tensor-core conv (savsr_tpu_torch/ops/conv.py):
 the weight repack into the kernel's A-operand stages (``pack_index`` /
 ``pack_weight``) and the pitch-padded copy of a part TMA cannot address
-(``tma_part``).
+(``tma_part``); and those of the f32 CUDA-core conv: its weight repack
+(``pack_weight_f32``), its stages and its split of the Cin reduction
+(``f32_stages``, ``f32_chunks``).
 
 The kernel itself runs only on the card (chip_smoke.py, tests/test_torch_cuda.py).
 Here its decomposition is replayed in PyTorch on the CPU from the packed
@@ -10,16 +12,21 @@ zero, as TMA fills them) and per tap, a [64 x 16] weight block times the
 shifted input, summed in f32, then the epilogue. That replay is held to
 ``conv_fused_plain`` and, for one case, to the JAX package's Pallas
 ``conv3x3_chw`` in interpret mode: max abs <= 1e-5 (f32, summation order).
+The f32 kernel's decomposition is replayed likewise (``_replay_f32``: stage
+by stage, the weight read through the strides the wrapper passes, chunk
+partials added in chunk order, then the epilogue).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from savsr_tpu.ops.pallas.chw_conv import chw_to_nhwc, conv3x3_chw, nhwc_to_chw, pack_w3
-from savsr_tpu_torch.ops.conv import (CI_STEP, CO_TILE, conv_fused_plain, pack_index,
-                                      pack_weight, tma_part)
+from savsr_tpu_torch.ops.conv import (CI_STEP, CO_TILE, F32_BLOCKS_PER_SM, F32_STAGE_CH,
+                                      F32_TILE, conv_fused_plain, f32_chunks, f32_stages,
+                                      pack_index, pack_weight, pack_weight_f32, tma_part)
 
 
 def _unpack(packed: torch.Tensor, cout: int, chans, k: int) -> torch.Tensor:
@@ -176,3 +183,147 @@ def test_pack_weight_cache_follows_the_weight():
     assert torch.equal(_unpack(pack_weight(w, [16, 3]), 24, [16, 3], 3)[0], w)
     per_sample = _t(rng, (2, 24, 19, 3, 3))
     assert pack_weight(per_sample, [19]) is not pack_weight(per_sample, [19])
+
+
+def _replay_f32(parts, wt, strides, cout, k, pad, plan, bias=None, pre_add=None,
+                out_scale=None, lrelu=None, residual=None) -> torch.Tensor:
+    """The f32 kernel's arithmetic (csrc/conv.cu conv_f32_kernel): per chunk
+    of ``plan`` = (chunks, stages per chunk), per stage of ``f32_stages``
+    (channels past a part's end zero) and tap, the weight element (b, tap,
+    ci, co) read at b * w_b + off + tap * s_tap + ci * s_ci + co * s_co of
+    the flat ``wt``, times the shifted zero-padded input; the chunks'
+    partials added in chunk order, then the epilogue."""
+    b, _, h, w = parts[0].shape
+    ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+    flat = wt.reshape(-1)
+    w_b, off, s_tap, s_ci, s_co = strides
+    chans = [p.shape[1] for p in parts]
+    cbase = np.cumsum([0] + chans)
+    step = F32_STAGE_CH[k]
+    stages = f32_stages(chans, k)
+    nchunks, per = plan
+    assert (nchunks - 1) * per < len(stages) <= nchunks * per
+    co = torch.arange(cout).view(1, 1, -1)
+    partials = []
+    for c in range(nchunks):
+        acc = torch.zeros(b, cout, ho, wo)
+        for p, c0 in stages[c * per:(c + 1) * per]:
+            xs = torch.zeros(b, step, h, w)
+            n = min(step, chans[p] - c0)
+            xs[:, :n] = parts[p][:, c0:c0 + n]
+            xs = F.pad(xs, (pad,) * 4)
+            ci = torch.arange(n).view(1, -1, 1) + int(cbase[p]) + c0
+            for tap in range(k * k):
+                dy, dx = divmod(tap, k)
+                idx = (torch.arange(b).view(-1, 1, 1) * w_b + off + tap * s_tap + ci * s_ci
+                       + co * s_co)
+                wtap = torch.zeros(b, step, cout)
+                wtap[:, :n] = flat[idx]
+                acc += torch.einsum("bihw,bio->bohw", xs[:, :, dy:dy + ho, dx:dx + wo], wtap)
+        partials.append(acc)
+    y = partials[0]
+    for part in partials[1:]:
+        y = y + part
+    if bias is not None:
+        y = y + bias.view(1, -1, 1, 1)
+    if pre_add is not None:
+        y = y + pre_add
+    if out_scale is not None:
+        y = y * out_scale.reshape(-1, cout, 1, 1)
+    if lrelu is not None:
+        y = lrelu[0] * y + lrelu[1] * y.abs()
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+@pytest.mark.parametrize("per_sample", [False, True], ids=["shared", "per-sample"])
+@pytest.mark.parametrize("k", [3, 1])
+def test_pack_weight_f32_layout(k, per_sample):
+    """[(B,) Cout, Cin, k, k] -> [(B,) k*k, Cin, Cout], contiguous; a shared
+    weight's packed copy is reused until the weight is written in place."""
+    rng = np.random.default_rng(k)
+    weight = _t(rng, ((3,) if per_sample else ()) + (24, 10, k, k))
+    packed = pack_weight_f32(weight)
+    assert packed.is_contiguous()
+    want = weight.flatten(-2).movedim(-1, -3).transpose(-1, -2).clone()
+    assert torch.equal(packed, want)
+    if not per_sample:
+        assert pack_weight_f32(weight) is packed
+        weight.mul_(2)
+        assert torch.equal(pack_weight_f32(weight), 2 * want)
+
+
+# (k, parts' channels, Cout, per-sample weights, b, h, w, plan): stages that
+# end a part short of the channel step, Cout off the 64-channel tile, and the
+# Cin reduction whole, split as the wrapper plans it for a small card, and
+# split into as many chunks as stages
+F32_CASES = [(3, [5, 11], 16, True, 2, 6, 9, None), (3, [3, 3], 64, False, 1, 5, 7, (2, 1)),
+             (3, [64, 24], 72, False, 2, 4, 5, "plan"), (1, [16, 3], 24, True, 2, 5, 6, (1, 3)),
+             (1, [40], 72, False, 1, 3, 4, (3, 1)), (3, [8] * 8, 8, True, 1, 3, 3, (4, 2))]
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=str)
+def test_replayed_f32_kernel_matches_plain(case):
+    """The f32 kernel's decomposition on the repacked weight, with every
+    epilogue term, against ``conv_fused_plain`` (the einsum on the packed
+    layout is the kernel's product)."""
+    k, chans, cout, per_sample, b, h, w, plan = case
+    rng = np.random.default_rng(sum(chans) + cout + h)
+    parts = [_t(rng, (b, c, h, w)) for c in chans]
+    cin = sum(chans)
+    weight = _t(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), (cin * k * k) ** -0.5)
+    epi = dict(bias=_t(rng, (cout,), 0.1), pre_add=_t(rng, (b, cout, h, w)),
+               out_scale=torch.from_numpy(rng.uniform(0.5, 1.5, (b, cout)).astype(np.float32)),
+               lrelu=(0.6, 0.4), residual=_t(rng, (b, cout, h, w)))
+    nst = len(f32_stages(chans, k))
+    if plan is None:
+        plan = (1, nst)
+    elif plan == "plan":
+        plan = f32_chunks(b, chans, cout, h, w, k, sms=4)
+        assert plan[0] > 1
+    strides = (k * k * cin * cout if per_sample else 0, 0, cin * cout, cout, 1)
+    got = _replay_f32(parts, pack_weight_f32(weight), strides, cout, k, k // 2, plan, **epi)
+    want = conv_fused_plain(parts, weight, **epi)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_f32_stages_cover_every_channel_once():
+    """Each part's channels fall in its own stages, each stage of at most
+    the step, in order, and every chunk of a plan takes whole stages."""
+    for k in (3, 1):
+        for chans in ([3], [64], [64, 3], [5, 11, 16], [64] * 5, [67, 6]):
+            stages = f32_stages(chans, k)
+            seen = [(p, c0 + j) for p, c0 in stages for j in range(F32_STAGE_CH[k])
+                    if c0 + j < chans[p]]
+            assert seen == [(p, c) for p, n in enumerate(chans) for c in range(n)]
+            for sms in (1, 4, 132):
+                n, per = f32_chunks(8, chans, 64, 60, 60, k, sms)
+                covered = [t for c in range(n) for t in range(c * per, min((c + 1) * per,
+                                                                          len(stages)))]
+                assert covered == list(range(len(stages)))
+                assert n == 1 or per >= 2
+
+
+# every f32 conv of the serving path at its shape (8 windows of 180x320),
+# which must not split; and the OSConv's training shapes (8 x 60x60), which
+# must: (k, parts' channels, Cout)
+SERVING_F32 = [(3, [3], 64), (3, [3, 3], 64), (3, [64], 64), (3, [64, 64], 64), (3, [64] * 3, 64),
+               (3, [64] * 5, 64), (3, [64] * 5, 128), (1, [64] * 3, 64), (1, [64, 64], 64)]
+
+
+@pytest.mark.parametrize("case", SERVING_F32, ids=str)
+def test_f32_chunks_no_split_at_the_serving_shape(case):
+    k, chans, cout = case
+    assert f32_chunks(8, chans, cout, 180, 320, k, 132) == (1, len(f32_stages(chans, k)))
+
+
+@pytest.mark.parametrize("cin", [192, 320, 64])
+def test_f32_chunks_fill_one_wave_at_the_training_shape(cin):
+    """The OSConv forward at 8 x 60x60 (120 output tiles): the split puts a
+    block on every one of 132 SMs and all of them in one wave of two blocks
+    a SM."""
+    n, _ = f32_chunks(8, [cin], 64, 60, 60, 3, 132)
+    co, rows, cols = F32_TILE
+    blocks = 8 * -(-64 // co) * -(-60 // rows) * -(-60 // cols) * n
+    assert n > 1 and 132 <= blocks <= F32_BLOCKS_PER_SM * 132

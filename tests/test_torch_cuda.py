@@ -117,6 +117,93 @@ def test_conv_kernel_matches_plain(dev, case, dtype):
     assert torch.equal(got, again)
 
 
+def _conv_f32_case(dev, k, chans, cout, per_sample, epi, b, h, w, seed, frames=False):
+    """Inputs of one f32 conv; ``epi``: the epilogue terms to switch on."""
+    rng = np.random.default_rng(seed)
+    cin = sum(chans)
+    if frames:
+        clip = _rand(rng, (b, len(chans), chans[0], h, w), torch.float32, dev)
+        parts = [clip[:, i] for i in range(len(chans))]
+    else:
+        parts = [_rand(rng, (b, c, h, w), torch.float32, dev) for c in chans]
+    weight = _rand(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), torch.float32, dev,
+                   (cin * k * k) ** -0.5)
+    terms = dict(
+        bias=_rand(rng, (cout,), torch.float32, dev, 0.1),
+        pre_add=_rand(rng, (b, cout, h, w), torch.float32, dev),
+        out_scale=torch.from_numpy(rng.uniform(0.5, 1.5, (b, cout)).astype(np.float32)).to(dev),
+        shared_scale=torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(dev),
+        lrelu=(0.6, 0.4), residual=_rand(rng, (b, cout, h, w), torch.float32, dev))
+    if "shared_scale" in epi:
+        terms["out_scale"] = terms["shared_scale"]
+    kw = {t: terms[t] for t in ("bias", "pre_add", "out_scale", "lrelu", "residual")
+          if t in epi or (t == "out_scale" and "shared_scale" in epi)}
+    return parts, weight, kw
+
+
+ALL_TERMS = ("bias", "pre_add", "out_scale", "lrelu", "residual")
+# the f32 kernel (csrc/conv.cu conv_f32_kernel: 64-channel x 4-row x 64-column
+# tiles, 8- or 16-channel stages, 4-byte copies off 16-byte alignment): (k,
+# parts' channels, Cout, per-sample weights, epilogue terms, b, h, w). Widths
+# 1, 7, 33, 61 and 321 (off a multiple of 4: the 4-byte path) and 64 (the
+# 16-byte path of the 1x1), heights 1, 5 and 181, Cin 3, 6 and 67, 1 to 8
+# parts, Cout 64, 128 and 96, batch 1 and 8; small outputs split the Cin
+# reduction (the second pass runs the epilogue)
+CONV_F32 = [
+    (3, [64], 64, False, ALL_TERMS, 1, 1, 1),
+    (3, [3], 64, False, ("bias", "lrelu"), 8, 5, 7),
+    (3, [6], 96, True, ALL_TERMS, 1, 181, 33),
+    (3, [67], 128, False, ALL_TERMS, 1, 5, 61),
+    (3, [64, 3], 64, True, (), 8, 5, 321),
+    (3, [8] * 8, 64, False, ALL_TERMS, 1, 5, 33),
+    (3, [64, 64], 96, True, ("lrelu", "residual"), 8, 12, 64),
+    (1, [67], 96, False, ALL_TERMS, 8, 5, 61),
+    (1, [3, 6], 64, True, ALL_TERMS, 1, 181, 7),
+    (1, [16] * 8, 128, True, ("bias", "lrelu"), 1, 1, 321),
+    (1, [64] * 3, 64, False, ("bias", "lrelu"), 8, 9, 64),
+    (1, [3], 64, False, ALL_TERMS, 8, 5, 1),
+]
+
+
+@pytest.mark.parametrize("case", CONV_F32, ids=[
+    f"k{c[0]}-{'+'.join(map(str, c[1]))}to{c[2]}-b{c[5]}-{c[6]}x{c[7]}" for c in CONV_F32])
+def test_conv_f32_kernel_matches_plain(dev, case):
+    """The f32 kernel against the plain version at f32's tolerance, and a
+    second launch bit for bit (split partials added in chunk order)."""
+    k, chans, cout, per_sample, epi, b, h, w = case
+    parts, weight, kw = _conv_f32_case(dev, k, chans, cout, per_sample, epi, b, h, w,
+                                       sum(chans) + cout + h + w)
+    got = _agree(lambda: conv_fused(parts, weight, **kw),
+                 lambda: conv_fused_plain(parts, weight, kw.get("bias"), kw.get("pre_add"),
+                                          kw.get("out_scale"), kw.get("lrelu"),
+                                          kw.get("residual")),
+                 torch.float32, "conv3x3" if k == 3 else "conv1x1")
+    with torch.no_grad():
+        assert torch.equal(got, conv_fused(parts, weight, **kw))
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("term", ALL_TERMS + ("shared_scale",))
+@pytest.mark.parametrize("b,h,w", [(8, 20, 70), (1, 5, 33)], ids=["whole", "split"])
+def test_conv_f32_epilogue_terms(dev, k, term, b, h, w):
+    """Each epilogue term on its own, in the kernel's own epilogue (8 x 20x70:
+    one chunk) and in the split's second pass (1 x 5x33)."""
+    parts, weight, kw = _conv_f32_case(dev, k, [40, 24], 64, False, (term,), b, h, w, 7)
+    _agree(lambda: conv_fused(parts, weight, **kw),
+           lambda: conv_fused_plain(parts, weight, kw.get("bias"), kw.get("pre_add"),
+                                    kw.get("out_scale"), kw.get("lrelu"), kw.get("residual")),
+           torch.float32, "conv3x3" if k == 3 else "conv1x1")
+
+
+def test_conv_f32_frames_view_parts(dev):
+    """Parts that are frame views of one clip (batch stride T*C*h*w)."""
+    parts, weight, kw = _conv_f32_case(dev, 3, [64] * 3, 64, True, ("lrelu",), 2, 9, 45, 3,
+                                       frames=True)
+    _agree(lambda: conv_fused(parts, weight, **kw),
+           lambda: conv_fused_plain(parts, weight, None, None, None, kw["lrelu"]),
+           torch.float32, "conv3x3")
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("c,h,w", [(16, 5, 7), (32, 9, 18), (64, 6, 33)])
 def test_sta_kernel_matches_plain(dev, c, h, w, dtype):
@@ -382,3 +469,38 @@ def test_osconv_agg_train_gradients_on_card_bf16(dev, shape):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         err = float((got.float() - want.float()).abs().max())
         assert err <= TOL[torch.bfloat16] * float(want.float().abs().max()), err
+
+
+# the f32 OSConv on the f32 conv kernel (B, Cin, H, W, Cout, k, padding): the
+# training shape 192 -> 64 at 8 x 60x60 (a split Cin reduction), k = 3 at
+# padding 0 (16-byte copies: W 60), 1 and 2, k = 1, and ragged sizes
+OSCONV_F32 = [(8, 192, 60, 60, 64, 3, 1), (2, 40, 60, 60, 64, 3, 0), (3, 40, 9, 37, 72, 3, 2),
+              (2, 24, 7, 33, 16, 1, 0), (1, 67, 60, 60, 96, 1, 0), (2, 100, 13, 61, 64, 3, 1)]
+
+
+@pytest.mark.parametrize("dx", [False, True], ids=["fwd", "dx"])
+@pytest.mark.parametrize("shape", OSCONV_F32, ids=str)
+def test_osconv_agg_f32_kernel(dev, shape, dx):
+    """Forward and the dx call (agg read flipped and channel-swapped through
+    strides) against the plain version, and a second launch bit for bit."""
+    from savsr_tpu_torch.ops.osconv import osconv_agg, osconv_agg_dx, osconv_agg_plain
+
+    x, agg, g, k, pad = _osconv_inputs(shape, torch.float32, dev)
+    if dx:
+        flipped = agg.flip(1, 2).transpose(3, 4)
+        fn, plain = (lambda: osconv_agg_dx(g, agg, pad),
+                     lambda: osconv_agg_plain(g, flipped, k - 1 - pad))
+    else:
+        fn, plain = lambda: osconv_agg(x, agg, pad), lambda: osconv_agg_plain(x, agg, pad)
+    got = _agree(fn, plain, torch.float32, "osconv_agg")
+    with torch.no_grad():
+        assert torch.equal(got, fn())
+
+
+def test_osconv_agg_f32_training_shape_splits(dev):
+    """At the training shape the wrapper splits the Cin reduction (one wave
+    of two blocks a SM)."""
+    from savsr_tpu_torch.ops import sm_count
+    from savsr_tpu_torch.ops.conv import f32_chunks
+
+    assert f32_chunks(8, [192], 64, 60, 60, 3, sm_count(dev))[0] > 1

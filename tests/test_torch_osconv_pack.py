@@ -35,7 +35,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from savsr_tpu.ops.pallas.osconv_kernel import osconv_pallas_agg, osconv_pallas_dagg
 from savsr_tpu_torch.ops.conv import CI_STEP, CO_TILE, pack_weight, tma_part
-from savsr_tpu_torch.ops.osconv import (DAGG_SEG, dagg_chunks, dagg_tc_chunks, osconv_agg_dx,
+from savsr_tpu_torch.ops.osconv import (DAGG_SEG, dagg_chunks, dagg_tc_chunks, f32_agg_strides,
+                                        osconv_agg_dx,
                                         osconv_agg_plain, osconv_agg_train, osconv_dagg_plain,
                                         pack_agg, tensor_cores)
 
@@ -291,3 +292,22 @@ def test_agg_dx_wrapper_is_the_backward_dx():
     assert float((osconv_agg_dx(g, agg, 1) - xr.grad).abs().max()) <= 1e-6
     with pytest.raises(ValueError, match="output channels"):
         osconv_agg_dx(x, agg, 1)
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "dx"])
+@pytest.mark.parametrize("k", [3, 1])
+def test_f32_agg_strides_read_the_conv_weight(k, transpose):
+    """The f32 conv kernel reads weight element (b, tap, ci, co) at b * w_b +
+    off + tap * s_tap + ci * s_ci + co * s_co of agg as it lies: that is agg
+    itself for the forward, and for the dx call agg with its taps flipped
+    and its channel axes swapped, which the wrapper therefore never copies."""
+    rng = np.random.default_rng(k + transpose)
+    b, cin, cout = 3, 5, 7
+    agg = _t(rng, (b, k, k, cin, cout))
+    w_b, off, s_tap, s_ci, s_co = f32_agg_strides(agg.shape, transpose)
+    conv = agg.flip(1, 2).transpose(3, 4) if transpose else agg
+    ci, co = conv.shape[3], conv.shape[4]
+    idx = (torch.arange(b).view(-1, 1, 1, 1) * w_b + off
+           + torch.arange(k * k).view(1, -1, 1, 1) * s_tap
+           + torch.arange(ci).view(1, 1, -1, 1) * s_ci + torch.arange(co).view(1, 1, 1, -1) * s_co)
+    assert torch.equal(agg.reshape(-1)[idx], conv.reshape(b, k * k, ci, co))
