@@ -23,9 +23,10 @@ Phases (each prints its lines; any failure exits non-zero):
             form, to the f32 CUDA-core rate). The serving kernels at the
             serving path's shapes (8 windows of 180x320 per launch, x4,
             flagship widths); the
-            bf16 STAU kernel on the window plan of the serving statics (the
-            plan's count of tiles gathered from device memory is printed for
-            each serving scale); the two OSConv kernels at the training
+            STAU kernels on the window plans of the serving statics, each at
+            its kernel's tile and capacity (each plan's count of tiles
+            gathered from device memory is printed for each serving scale);
+            the two OSConv kernels at the training
             path's (8 samples of 60x60, Cin
             192/320/64 -> 64, forward, dx and weight gradient), whose host
             launch cost exceeds their device time, so they (and their library
@@ -96,8 +97,8 @@ from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
 from savsr_tpu_torch.ops.osconv import (osconv_agg, osconv_agg_dx, osconv_agg_plain,
                                         osconv_agg_train, osconv_dagg, osconv_dagg_plain)
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
-from savsr_tpu_torch.ops.stau import (STAGE_CAP, stau_upsample_fused,
-                                      stau_upsample_fused_plain)
+from savsr_tpu_torch.ops.stau import (plan_geometry, stau_upsample_fused,
+                                      stau_upsample_fused_plain, stau_window_plan)
 from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
 from savsr_tpu_torch.utils.convert import load_into
 
@@ -123,10 +124,10 @@ SOURCES = {
     "conv3x3": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:386"),
     "conv1x1": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:531"),
     # bf16 (the timed headline) runs the tensor-core sta_mma_kernel; f32 the
-    # CUDA-core sta_kernel
+    # CUDA-core sta_f32_kernel
     "sta": ("savsr_tpu_torch/csrc/sta.cu", "savsr_tpu/ops/pallas/sta_kernel.py:84"),
     # bf16 (the timed headline) runs the tensor-core kernels stau_mma_kernel
-    # and tail_mma_kernel; f32 the CUDA-core stau_kernel and tail_kernel
+    # and tail_mma_kernel; f32 the CUDA-core stau_f32_kernel and tail_kernel
     "stau": ("savsr_tpu_torch/csrc/stau.cu", "savsr_tpu/ops/pallas/stau_kernel.py:183"),
     "tail": ("savsr_tpu_torch/csrc/tail.cu", "savsr_tpu/ops/pallas/tail_kernel.py:89"),
     # bf16 (the training path, the timed headline) runs the bf16 conv's
@@ -463,7 +464,9 @@ def stau_case(rng, model, statics, dtype, device, b=WINDOWS):
     wts = [t.to(dtype) for t in (up.weight_compress, up.weight_expand, up.fusion.weight)]
     bias = up.fusion.bias
     args = (x, sta, pix, *wts, bias)
-    plan = statics["stau_plan"]  # the serving path's: planned once per shape and scale
+    # the serving path's plan (planned once per shape and scale), at the tile
+    # and capacity of the kernel that runs ``dtype``
+    plan = stau_window_plan(pix, h, w, *plan_geometry(dtype))
     cout = wts[2].shape[0]
     # 2 bilinear gathers (4 taps, C channels), compress + expand (n*C/8 x C
     # each), routing mixes, and the 2C -> Cout fusion, per HR pixel
@@ -499,12 +502,15 @@ def phase_kernels(model, device) -> list:
     rows = []
     with float32_precision(True):
         for scale in ((4.0, 4.0), (1.5, 3.5), (3.05, 3.05)):
-            plan = model.stau_statics(LR_HW, scale, device=device)["stau_plan"]
-            sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
-            log(f"[kernels] stau window plan x{scale[0]}x{scale[1]} {LR_HW[0]}x{LR_HW[1]}: "
-                f"{plan.shape[0]} tiles, {int((plan[:, 4] == 0).sum())} gathered from device "
-                f"memory, staged box slots max {int(sizes.max())} mean "
-                f"{float(sizes.float().mean()):.1f} of {STAGE_CAP}")
+            pix = model.stau_statics(LR_HW, scale, device=device)["pix"]
+            for dtype in (torch.bfloat16, torch.float32):
+                tile_r, tile_c, cap, align = plan_geometry(dtype)
+                plan = stau_window_plan(pix, *LR_HW, tile_r, tile_c, cap, align)
+                sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
+                log(f"[kernels] stau {DT_NAME[dtype]} window plan x{scale[0]}x{scale[1]} "
+                    f"{LR_HW[0]}x{LR_HW[1]} ({tile_r}x{tile_c} HR tiles): {plan.shape[0]} tiles, "
+                    f"{int((plan[:, 4] == 0).sum())} gathered from device memory, staged box "
+                    f"slots max {int(sizes.max())} mean {float(sizes.float().mean()):.1f} of {cap}")
         statics = model.stau_statics(LR_HW, SCALE, dtype=torch.float32, device=device)
         for dtype in (torch.float32, torch.bfloat16):
             for case in CONV_CASES:
@@ -681,8 +687,8 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
     for name, ms, count in rows[:12]:
         log(f"[profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} {name[:90]}")
     port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
-        "conv_f32", "conv_f32_reduce", "conv_wgmma", "sta", "sta_mma", "stau", "stau_mma", "tail",
-        "tail_mma"))]
+        "conv_f32", "conv_f32_reduce", "conv_wgmma", "sta_f32", "sta_mma", "stau_f32", "stau_mma",
+        "tail", "tail_mma"))]
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
         f"everything else {total - port_ms:.2f} ms in {sum(r[2] for r in rows) - sum(r[2] for r in port)} "
@@ -1082,15 +1088,17 @@ def main(argv=None) -> int:
                 **{k: head[k] for k in ("graph_ms", "library_graph_ms") if k in head}}
 
     # the bf16 rows: launches on the main paths (serving, training); the f32
-    # conv kernel's rows (csrc/conv.cu conv_f32_kernel, the strict tier and
-    # every f32 OSConv): launches on the strict parity forwards and the f32
+    # rows (the strict tier's kernels: csrc/conv.cu conv_f32_kernel, which
+    # also runs every f32 OSConv, sta_f32_kernel, stau_f32_kernel,
+    # tail_kernel): launches on the strict parity forwards and the f32
     # train-parity step
     kernels = [entry(name, "bf16", source, replaces,
                      (training if name in TRAINING_KERNELS else serving)["launches"][name])
                for name, (source, replaces) in SOURCES.items()]
-    kernels += [entry(name, "f32", "savsr_tpu_torch/csrc/conv.cu", SOURCES[name][1],
+    kernels += [entry(name, "f32", SOURCES[name][0] if name in ("sta", "stau", "tail")
+                      else "savsr_tpu_torch/csrc/conv.cu", SOURCES[name][1],
                       (train_parity if name in TRAINING_KERNELS else parity)[name])
-                for name in ("conv3x3", "conv1x1", "osconv_agg")]
+                for name in ("conv3x3", "conv1x1", "sta", "stau", "tail", "osconv_agg")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

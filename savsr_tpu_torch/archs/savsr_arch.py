@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.sta import sta_conv_fused
-from ..ops.stau import stau_upsample_fused, stau_window_plan
+from ..ops.stau import plan_geometry, stau_upsample_fused, stau_window_plan
 from ..ops.tail import tail_fused
 from .arch_util import (
     _bilinear_matrix,
@@ -519,10 +519,10 @@ class SAVSR(nn.Module):
     @torch.no_grad()
     def stau_statics(self, lq_hw, scale, dtype=torch.float32, device=None):
         """Frame-invariant operands for (LR shape, scale): the STAU
-        coordinate-head outputs, the sampler planes, the bf16 STAU kernel's
-        window plan and the tail's resize rows/columns. ``dtype`` must be the
-        forward's feature dtype for the result to equal the inline path
-        exactly."""
+        coordinate-head outputs, the sampler planes, the window plan of the
+        STAU kernel that runs ``dtype`` and the tail's resize rows/columns.
+        ``dtype`` must be the forward's feature dtype for the result to equal
+        the inline path exactly (and for the plan to fit its kernel)."""
         h, w = int(lq_hw[0]), int(lq_hw[1])
         scale = normalize_scale(scale)
         device = self.gamma.device if device is None else device
@@ -530,7 +530,7 @@ class SAVSR(nn.Module):
         with float32_precision(self.cfg.matmul_precision == "float32"):
             st = _stau_head(self.upsample, h, w, scale, dtype, device)
             st["pix"] = stau_sampler_planes(st, scale, h, w)
-            st["stau_plan"] = stau_window_plan(st["pix"], h, w)
+            st["stau_plan"] = stau_window_plan(st["pix"], h, w, *plan_geometry(dtype))
         st.update(tail_operands(h, w, H, W, device))
         return st
 

@@ -15,14 +15,40 @@
 // matrix form and runs at the 67 TFLOP/s CUDA-core rate; f32 runs all of it
 // on the CUDA cores. Two kernels:
 //
-// * sta_kernel<T> (CUDA cores; f32, and bf16 at channel counts the
-//   tensor-core kernel does not take): a block takes a 4x16 pixel tile. It
-//   stages st[C][64 px] and the tile's replicate-padded 8x20 neighbourhood
-//   of x in shared memory, then walks the 25 taps: per tap it stages
-//   Wk_t[C x C] in shared memory, computes K_t for its 64 channels x 64
-//   pixels (each thread 4 channels x 4 pixels, f32 FMA), applies the
-//   LeakyReLU and rounds to the I/O type, and multiply-accumulates the tap's
-//   shifted x into 16 output accumulators held in registers for all 25 taps.
+// * sta_f32_kernel<CP, ROUND> (CUDA cores; f32, true f32 for the strict
+//   tier, and bf16 at channel counts the tensor-core kernel does not take,
+//   which the wrapper widens to f32 and runs with ROUND: K rounded to bf16,
+//   the output rounded once by the wrapper). Per pixel the K product is
+//   2*25*C*C FLOPs and the filter 2*25*C, so at C = 64 the FMA pipe bounds
+//   it (104K FMAs a pixel, 1.43 ms at 8 x 180x320 at 67 TFLOP/s); the design
+//   aims to keep that pipe issuing. Persistent blocks, one per SM (256
+//   threads, up to 255 registers each), walk tiles of 8 x 32 pixels. A
+//   tile's st (its 256 pixels) and x's replicate-padded 12 x 36
+//   neighbourhood are staged in shared memory by 4-byte cp.async with
+//   clamped source coordinates (the replicate padding costs nothing) and
+//   prefetched into L2 during the previous tile. Per tap the K product is
+//   a shared-memory GEMM, C output channels x 256 pixels x C input channels,
+//   in which each thread keeps an 8 x 8 register tile (channels cg + 8i,
+//   pixels in rows pr, pr + 4 and columns g + 8j) and loads per input
+//   channel two float4 of weights and two float4 of st: 64 FMAs for 4
+//   16-byte loads. Its epilogue adds the bias, applies the LeakyReLU and
+//   multiply-adds x of the tap's shifted pixel into the 8 x 8 output sums,
+//   which stay in registers for all 25 taps (128 live accumulators: the
+//   reason for one block per SM). The weights are packed once on the host
+//   (ops/sta.py pack_sta_weights_f32: [tap][ci][column], column 8 cg + i
+//   holding channel cg + 8i, so a thread's 8 channels are two float4 and the
+//   x loads of a warp's 4 channel groups x 8 columns fall in 32 distinct
+//   banks at the 440-float plane stride) and streamed a tap at a time by
+//   16-byte cp.async into a double buffer while the previous tap computes:
+//   one barrier a tap, 16 KB per tap per 256 pixels (0.72 GB from L2 a
+//   launch at 8 x 180x320, where the 4x16-pixel tiles of PR 1 read 2.95 GB).
+//   The bias (tap-major, packed alike) is staged once per block. C is padded
+//   to 16, 32 or 64 (zero weights). What the variants showed
+//   (scripts/torch_kernel_variants.py --kernels sta_f32, H100, 8 x 180x320,
+//   C = 64): the K product is ~1.8 of its 2.25 ms (~78% of the FMA rate);
+//   the weight stream is hidden under it, the tile staging costs ~0.1 ms and
+//   the epilogue's x loads ~0.06; the L2 prefetch saves ~0.03. The K loop is
+//   unrolled by 8 input channels (4 and 2 are 3% and 9% slower).
 //
 // * sta_mma_kernel<C> (bf16, C = 16, 32, 64; tensor cores): per tap the K
 //   product of a tile of 64 pixels is one GEMM, M = the pixels, N = the C
@@ -68,128 +94,220 @@
 
 namespace {
 
-constexpr int CMAX = 64;     // channels per block (C <= 64, C % 4 == 0)
-constexpr int TR = 4;        // tile rows
-constexpr int TC = 16;       // tile columns
-constexpr int NP = TR * TC;  // pixels per tile
 constexpr int KS = 5, PAD = 2, TAPS = KS * KS;
-constexpr int XR = TR + 2 * PAD, XC = TC + 2 * PAD;
-constexpr int WSTR = CMAX + 4;  // shared row stride of Wk_t (16-byte rows)
-constexpr int THREADS = 256;    // 16 channel groups x 16 pixel groups
 
-__device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sta_kernel(const T* __restrict__ x, const T* __restrict__ stf, const T* __restrict__ wk,
-           const T* __restrict__ bias, T* __restrict__ out, int C, int H, int W) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_st = smem;                  // [CMAX][NP]
-  float* s_w = s_st + CMAX * NP;       // [CMAX (ci)][WSTR] : Wk_t transposed
-  float* s_x = s_w + CMAX * WSTR;      // [CMAX][XR][XC]
+using namespace hopper;
 
-  const int tid = threadIdx.x;
-  const int tc = tid / 16, tp = tid % 16;  // channels 4*tc.., pixels 4*tp..
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TR, x0 = blockIdx.x * TC;
+constexpr int F_ROWS = 8;                 // tile rows
+constexpr int F_COLS = 32;                // tile columns
+constexpr int F_NP = F_ROWS * F_COLS;     // 256 pixels
+constexpr int F_HR = F_ROWS + 2 * PAD;    // 12 neighbourhood rows
+constexpr int F_HC = F_COLS + 2 * PAD;    // 36 neighbourhood columns
+constexpr int F_CS = 440;                 // x plane stride (floats): >= 12 x 36, 24 mod 32
+constexpr int F_THREADS = 256;            // 8 channel groups x 32 pixel groups
+
+template <int CP>  // channels padded to 16, 32 or 64
+struct StaF32Cfg {
+  static constexpr int CB = CP / 8;                     // channels per thread
+  static constexpr int W_TAP = CP * CP;                 // floats of one tap's weights
+  static constexpr int OFF_BIAS = 2 * W_TAP;            // after two tap buffers: [25][CP]
+  static constexpr int OFF_ST = OFF_BIAS + TAPS * CP;   // [CP][256 slots]
+  static constexpr int OFF_X = OFF_ST + CP * F_NP;      // [CP][F_CS]
+  static constexpr int SMEM = (OFF_X + CP * F_CS) * 4;
+  static_assert(OFF_ST % 4 == 0 && SMEM <= 232448, "shared memory");
+};
+static_assert(F_HR * F_HC <= F_CS && F_CS % 32 == 24, "x plane stride");
+
+// the tile's operands by 4-byte cp.async: st's 256 pixels (thread tid keeps
+// pixel (tid / 32, tid % 32) for every channel, at slot 128 (row / 4) +
+// 4 (8 (row % 4) + col % 8) + col / 8, channels past C zero) and x's
+// 12 x 36 neighbourhood (replicate padding by clamped source coordinates)
+template <int CP>
+__device__ __forceinline__ void sta_f32_stage(float* s_st, float* s_x, const float* x,
+                                              const float* st, int b, int y0, int x0, int C,
+                                              int H, int W) {
   const long long HW = (long long)H * W;
-  const T* xb = x + b * C * HW;
-  const T* sb = stf + b * C * HW;
-
-  for (int e = tid; e < C * NP; e += THREADS) {
-    const int c = e / NP, p = e % NP;
-    const int gy = min(y0 + p / TC, H - 1), gx = min(x0 + p % TC, W - 1);
-    s_st[c * NP + p] = ld(sb, c * HW + (long long)gy * W + gx);
+  const int tid = threadIdx.x;
+  {
+    const int r = tid / F_COLS, q = tid % F_COLS;
+    const int slot = (r >> 2) * 128 + 4 * (8 * (r & 3) + (q & 7)) + (q >> 3);
+    const float* p = st + (long long)b * C * HW + (long long)min(y0 + r, H - 1) * W +
+                     min(x0 + q, W - 1);
+#pragma unroll 8
+    for (int c = 0; c < CP; ++c) cp_async4_zfill(s_st + c * F_NP + slot, p + (c < C ? c : 0) * HW, c < C);
   }
-  for (int e = tid; e < C * XR * XC; e += THREADS) {
-    const int c = e / (XR * XC), r = (e / XC) % XR, q = e % XC;
-    const int gy = min(max(y0 + r - PAD, 0), H - 1);
-    const int gx = min(max(x0 + q - PAD, 0), W - 1);
-    s_x[e] = ld(xb, c * HW + (long long)gy * W + gx);
+  for (int q = tid; q < F_HR * F_HC; q += F_THREADS) {
+    const int r = q / F_HC, cc = q % F_HC;
+    const float* p = x + (long long)b * C * HW +
+                     (long long)min(max(y0 + r - PAD, 0), H - 1) * W + min(max(x0 + cc - PAD, 0), W - 1);
+    float* d = s_x + r * F_HC + cc;
+    for (int c = 0; c < C; ++c) cp_async4(d + c * F_CS, p + c * HW);
   }
+}
 
-  const bool active = 4 * tc < C;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// L2 hints for a tile's rows (st: 8, x: 12 rows of two 128-byte lines), so
+// that its staging at the next tile's start reads L2
+__device__ __forceinline__ void sta_f32_prefetch(const float* x, const float* st, int b, int y0,
+                                                 int x0, int C, int H, int W) {
+  constexpr int N = F_ROWS + 2 * F_HR;
+  for (int e = threadIdx.x; e < C * N; e += F_THREADS) {
+    const int c = e / N, r = e % N;
+    const long long plane = ((long long)b * C + c) * H;
+    const float* p;
+    if (r < F_ROWS) {
+      p = st + (plane + min(y0 + r, H - 1)) * W + x0;
+    } else {
+      const int rr = (r - F_ROWS) / 2, half = (r - F_ROWS) % 2;
+      p = x + (plane + min(max(y0 + rr - PAD, 0), H - 1)) * W +
+          min(max(x0 - PAD + 32 * half, 0), W - 1);
+    }
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+  }
+}
 
-  for (int t = 0; t < TAPS; ++t) {
+template <int CB>
+__device__ __forceinline__ void load_cb(float (&w)[CB], const float* p) {
+  if constexpr (CB == 8) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w, w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+  } else if constexpr (CB == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    w[0] = a.x, w[1] = a.y;
+  }
+}
+
+// one tap's packed weights [CP][CP] into a buffer, 16-byte cp.async
+template <int CP>
+__device__ __forceinline__ void sta_f32_issue_tap(float* dst, const float* wpk, int tap) {
+  const float* src = wpk + tap * StaF32Cfg<CP>::W_TAP;
+  for (int e = threadIdx.x; e < StaF32Cfg<CP>::W_TAP / 4; e += F_THREADS)
+    cp_async16(dst + 4 * e, src + 4 * e);
+}
+
+// Persistent: block i takes tiles i, i + gridDim.x, ... (tile: column
+// fastest, then row, then sample). Thread (warp w, lane l): channel group
+// cg = 4 (w % 2) + l / 8 (channels cg + 8i), pixel rows pr = w / 2 and
+// pr + 4, columns g + 8j with g = l % 8.
+template <int CP, bool ROUND>
+__global__ void __launch_bounds__(F_THREADS, 1)
+sta_f32_kernel(const float* __restrict__ x, const float* __restrict__ st,
+               const float* __restrict__ wpk, const float* __restrict__ bias_p,
+               float* __restrict__ out, int B, int C, int H, int W) {
+  using Cfg = StaF32Cfg<CP>;
+  constexpr int CB = Cfg::CB;
+  extern __shared__ __align__(16) float fsm[];
+  float* s_bias = fsm + Cfg::OFF_BIAS;
+  float* s_st = fsm + Cfg::OFF_ST;
+  float* s_x = fsm + Cfg::OFF_X;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = 4 * (warp & 1) + (lane >> 3), g = lane & 7, pr = warp >> 1;
+  const int pg = 8 * pr + g;
+  const int tiles_x = (W + F_COLS - 1) / F_COLS, tiles_y = (H + F_ROWS - 1) / F_ROWS;
+  const int ntiles = B * tiles_x * tiles_y;
+
+  for (int e = tid; e < TAPS * CP / 4; e += F_THREADS) cp_async16(s_bias + 4 * e, bias_p + 4 * e);
+  sta_f32_issue_tap<CP>(fsm, wpk, 0);
+  int step = 0;  // taps run so far: tap weights alternate between the buffers
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int tx = tile % tiles_x, rest = tile / tiles_x;
+    const int b = rest / tiles_y, y0 = (rest % tiles_y) * F_ROWS, x0 = tx * F_COLS;
+    sta_f32_stage<CP>(s_st, s_x, x, st, b, y0, x0, C, H, W);
+    cp_async_wait_all();
     __syncthreads();
-    // Wk_t[c][ci] = wk[(c*25 + t)*C + ci], staged as s_w[ci][c]
-    for (int e = tid; e < C * C; e += THREADS) {
-      const int c = e / C, ci = e % C;
-      s_w[ci * WSTR + c] = ld(wk, ((long long)c * TAPS + t) * C + ci);
+    if (tile + gridDim.x < ntiles) {
+      const int nt = tile + gridDim.x, ntx = nt % tiles_x, nr = nt / tiles_x;
+      sta_f32_prefetch(x, st, nr / tiles_y, (nr % tiles_y) * F_ROWS, ntx * F_COLS, C, H, W);
     }
-    __syncthreads();
-    if (!active) continue;
-    float k[4][4];
+    float o[CB][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < CB; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) k[i][j] = 0.f;
-    for (int ci = 0; ci < C; ++ci) {
-      const float4 wv = *reinterpret_cast<const float4*>(&s_w[ci * WSTR + 4 * tc]);
-      const float4 sv = *reinterpret_cast<const float4*>(&s_st[ci * NP + 4 * tp]);
-      const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
-      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+      for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
+#pragma unroll 1
+    for (int t = 0; t < TAPS; ++t, ++step) {
+      // the next tap's weights land in the other buffer under this tap
+      sta_f32_issue_tap<CP>(fsm + ((step + 1) & 1) * Cfg::W_TAP, wpk, t + 1 < TAPS ? t + 1 : 0);
+      const float* wt = fsm + (step & 1) * Cfg::W_TAP + CB * cg;
+      const float* sp = s_st + 4 * pg;
+      float k[CB][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < CB; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) k[i][j] = fmaf(wa[i], sa[j], k[i][j]);
+        for (int j = 0; j < 8; ++j) k[i][j] = 0.f;
+#pragma unroll 8
+      for (int ci = 0; ci < CP; ++ci) {
+        float wv[CB];
+        load_cb<CB>(wv, wt + ci * CP);
+        const float4 a0 = *reinterpret_cast<const float4*>(sp + ci * F_NP);
+        const float4 a1 = *reinterpret_cast<const float4*>(sp + ci * F_NP + 128);
+        const float sv[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int i = 0; i < CB; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) k[i][j] = fmaf(wv[i], sv[j], k[i][j]);
+      }
+      // K = lrelu(k + bias) (rounded to bf16 with ROUND), times x at the
+      // pixel shifted by the tap, added to the output sums in tap order
+      const int dy = t / KS, dx = t % KS;
+      const float* xb = s_x + cg * F_CS + (pr + dy) * F_HC + g + dx;
+      const float* bt = s_bias + t * CP + CB * cg;
+#pragma unroll
+      for (int i = 0; i < CB; ++i) {
+        const float bv = bt[i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v = k[i][j] + bv;
+          v = 0.55f * v + 0.45f * fabsf(v);
+          if constexpr (ROUND) v = __bfloat162float(__float2bfloat16_rn(v));
+          o[i][j] = fmaf(v, xb[8 * i * F_CS + (j >> 2) * 4 * F_HC + 8 * (j & 3)], o[i][j]);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();  // the next tap's weights landed; everyone is done with this tap's
     }
-    const int dy = t / KS, dx = t % KS;
+    const long long HW = (long long)H * W;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = 4 * tc + i;
-      const float bv = ld(bias, (long long)c * TAPS + t);
+    for (int i = 0; i < CB; ++i) {
+      const int c = cg + 8 * i;
+      if (c >= C) continue;
+      float* oc = out + ((long long)b * C + c) * HW;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = 4 * tp + j, r = p / TC, q = p % TC;
-        float v = k[i][j] + bv;
-        v = round_to(0.55f * v + 0.45f * fabsf(v), x);
-        acc[i][j] = fmaf(v, s_x[(c * XR + r + dy) * XC + q + dx], acc[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        const int y = y0 + pr + 4 * (j >> 2), xx = x0 + g + 8 * (j & 3);
+        if (y < H && xx < W) oc[(long long)y * W + xx] = o[i][j];
       }
     }
   }
-  if (!active) return;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int p = 4 * tp + j, gy = y0 + p / TC, gx = x0 + p % TC;
-    if (gy >= H || gx >= W) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      st(out + b * C * HW, (4 * tc + i) * HW + (long long)gy * W + gx, acc[i][j]);
-  }
+  cp_async_wait_all();  // the last tap's prefetch of tap 0
 }
 
-constexpr size_t SMEM_BYTES = sizeof(float) * (CMAX * NP + CMAX * WSTR + CMAX * XR * XC);
-
-template <typename T>
-cudaError_t launch(const void* x, const void* st, const void* wk, const void* bias, void* out,
-                   int B, int C, int H, int W, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(sta_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  dim3 grid((W + TC - 1) / TC, (H + TR - 1) / TR, B);
-  sta_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(st), static_cast<const T*>(wk),
-      static_cast<const T*>(bias), static_cast<T*>(out), C, H, W);
+template <int CP, bool ROUND>
+cudaError_t launch_f32(const void* x, const void* st, const void* wpk, const void* bias_p,
+                       void* out, int B, int C, int H, int W, int sms, cudaStream_t stream) {
+  using Cfg = StaF32Cfg<CP>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(sta_f32_kernel<CP, ROUND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  const long long ntiles =
+      (long long)B * ((H + F_ROWS - 1) / F_ROWS) * ((W + F_COLS - 1) / F_COLS);
+  const int grid = (int)(ntiles < sms ? ntiles : sms);
+  sta_f32_kernel<CP, ROUND><<<grid, F_THREADS, Cfg::SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(st), static_cast<const float*>(wpk),
+      static_cast<const float*>(bias_p), static_cast<float*>(out), B, C, H, W);
   return cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -486,16 +604,28 @@ extern "C" const char* savsr_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// x, st, out: [B, C, H, W]; wk: [25C, C] (kernel_conv.0 weight, rows c*25+t);
-// bias: [25C]. dtype: 0 = float32, 1 = bfloat16.
-extern "C" int savsr_sta_fused(int dtype, const void* x, const void* st, const void* wk,
-                               const void* bias, void* out, int B, int C, int H, int W,
-                               void* stream) {
-  if (C < 4 || C > CMAX || C % 4 != 0 || dtype < 0 || dtype > 1)
+// The CUDA-core kernel: x, st, out [B, C, H, W] f32 (1 <= C <= 64); wpk:
+// the weights packed by ops/sta.py sta_f32_pack_index (25 * CP * CP f32, CP
+// = C padded to 16, 32 or 64, 16-byte aligned); bias_p: f32 [25][CP] packed
+// alike; round_k: K rounded to bf16 (the widened bf16 route); sms: the
+// card's SM count (one persistent block per SM).
+extern "C" int savsr_sta_f32(const void* x, const void* st, const void* wpk, const void* bias_p,
+                             void* out, int B, int C, int H, int W, int round_k, int sms,
+                             void* stream) {
+  if (C < 1 || C > 64 || B < 1 || H < 1 || W < 1 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 0 ? launch<float>(x, st, wk, bias, out, B, C, H, W, s)
-                                     : launch<__nv_bfloat16>(x, st, wk, bias, out, B, C, H, W, s));
+  cudaError_t e;
+  if (C <= 16)
+    e = round_k ? launch_f32<16, true>(x, st, wpk, bias_p, out, B, C, H, W, sms, s)
+                : launch_f32<16, false>(x, st, wpk, bias_p, out, B, C, H, W, sms, s);
+  else if (C <= 32)
+    e = round_k ? launch_f32<32, true>(x, st, wpk, bias_p, out, B, C, H, W, sms, s)
+                : launch_f32<32, false>(x, st, wpk, bias_p, out, B, C, H, W, sms, s);
+  else
+    e = round_k ? launch_f32<64, true>(x, st, wpk, bias_p, out, B, C, H, W, sms, s)
+                : launch_f32<64, false>(x, st, wpk, bias_p, out, B, C, H, W, sms, s);
+  return static_cast<int>(e);
 }
 
 // The tensor-core kernel (bf16): x, st, out [B, C, H, W] bf16 with C 16, 32

@@ -15,17 +15,58 @@
 // rows per group of HR rows (band starts j0/g0 precomputed on the host).
 // Here each HR pixel gathers its 4 taps.
 //
-// Bound on the H100: ~12.3K multiply-adds per HR pixel at C=64 against
+// Bound on the H100: ~12.9K multiply-adds per HR pixel at C=64 against
 // ~(Cout + 8) values moved per HR pixel (the LR inputs are small): ~190
 // FLOP per byte in f32, bound by operations at the 67 TFLOP/s CUDA-core
 // rate; in bf16, against the 989 TFLOP/s tensor-core rate, bound by bytes
-// (the output write). Two kernels, one per type:
+// (the output write). Two kernels, one per type: f32 at any C % 8 == 0 up
+// to 64 (Cout % 4 == 0 up to 64) runs stau_f32_kernel, bf16 at C 16, 32 or
+// 64 with Cout = C stau_mma_kernel (ops/stau.py; other shapes raise):
 //
-// * f32 (stau_kernel, CUDA cores): persistent blocks (2 per SM) keep all
-//   expert and fusion weights in shared memory and walk 64-pixel row
-//   segments. Per segment the block gathers f0 and sa from device memory
-//   into shared memory, then runs the three small products as shared-memory
-//   GEMMs (f32 FMA, 4x4 register tiles).
+// * f32 (stau_f32_kernel, CUDA cores, true f32): the work is ~12.9K FMAs per
+//   HR pixel at C = 64 (gathers 512, compress 2048, expand 2048, fusion
+//   8192), 2.83 ms at 8 x 720x1280 at 67 TFLOP/s, against 0.56 ms for the
+//   1.89 GB output: bound by operations. Persistent blocks, one per SM (256
+//   threads, up to 255 registers), walk tiles of 2 HR rows x 64 HR columns
+//   (tile t: spatial tile t / B of sample t % B). The wrapper plans, once
+//   per (shape, scale), the LR box each tile reads (stau_window_plan at the
+//   f32 tile, exact boxes, a capacity of 320 slots per channel). While a
+//   tile's products run, cp.async brings the next tile's two boxes into the
+//   staging buffer with channel quads innermost (4-byte copies: a warp reads
+//   4 channel rows of 8 pixels and writes 128 contiguous bytes) and its
+//   sampler and routing planes into the other half of a double buffer, so
+//   the gathers read shared memory only and a tap of 4 channels is one
+//   16-byte load. Per tile: (1) the gathers (a thread per pixel and sampler,
+//   all channels) write sa and f0 ([2C][128 px]); (2) the compress Z = Wc F0
+//   (a thread's 4 experts x 8 pixels of one output in registers), the
+//   routing on them (fc = sum_n r_n z_n, stk_n = r_n fc), stk to shared
+//   memory; (3) the fusion out = Wfus_sa sa + Wfus_fea f0 + (Wfus_fea We)
+//   stk + bias: the expand folded into the fusion on the host (ops/stau.py
+//   pack_stau_weights_f32; f32 has no rounding point between them), so it
+//   is one GEMM of 2C + 4 C/8 input rows. Threads 0-127 and 128-255 split
+//   its rows: the second half sums the sa rows while the first runs the
+//   compress, then the stk rows while the first sums the f0 rows; each
+//   half then stores half the outputs from its registers as 16-byte stores
+//   along W, adding the other half's sums from shared memory. Each GEMM gives a thread
+//   an 8 x 8 register tile (8 rows x pixels 4 pg + j and 64 + 4 pg + j) and
+//   per input row loads two 16-byte pieces of weights (one address per
+//   quarter warp) and two of pixels (8 pieces, the same in every quarter
+//   warp), the next row's before this row's FMAs, unrolled by 8 rows (a
+//   full unroll thrashes the instruction cache). What sets the pace: the FMA
+//   pipe in the products and the rate of shared-memory load instructions
+//   (scripts/smem_probe.py: ~1.4 SM cycles per warp load however the lanes
+//   share addresses, 4 when 32 lanes read 32 distinct 16-byte pieces), which
+//   is why a tap is one 16-byte load of a channel quad rather than four
+//   4-byte loads. The variants (scripts/torch_kernel_variants.py --kernels
+//   stau_f32; H100, 8 x 180x320 -> 720x1280, C = 64; ms saved with the part
+//   off, of 5.48): the fusion 2.1 (86% of the FMA rate), the compress and
+//   folded expand rows 1.3, the box copies 0.35, the tap loads 0.24, the
+//   stores 0.08; 4-byte taps from channel rows cost 0.84, products unrolled
+//   by 4 rows instead of 8 took ~5% longer, and one half storing all the
+//   outputs ~3% longer.
+//   Tiles without a box (large offsets, non-finite coordinates) gather from
+//   device memory with the same arithmetic. C is padded to 16, 32 or 64, the
+//   experts to 4 and the outputs to 64 (zero weights).
 //
 // * bf16 (stau_mma_kernel, tensor cores): the sampling positions depend
 //   only on the static coordinate embedding, so the wrapper plans, once per
@@ -64,20 +105,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int CMAX = 64;    // feature channels (C % 8 == 0, C <= 64)
-constexpr int KMAX = 32;    // n_experts * C/8
-constexpr int OMAX = 64;    // output channels
-constexpr int NP = 64;      // HR pixels per segment
-constexpr int NPLANE = 8;   // fy_f, fx_f, fy_s, fx_s, r_0..r_3
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
-
 // bilinear sample of one [h, w] plane, zeros outside the image
-template <typename T>
-__device__ __forceinline__ float bilinear(const T* plane, int h, int w, float fy, float fx) {
+__device__ __forceinline__ float bilinear(const float* plane, int h, int w, float fy, float fx) {
   const float yf = floorf(fy), xf = floorf(fx);
   const float wy1 = fy - yf, wx1 = fx - xf;
   const float wy0 = 1.f - wy1, wx0 = 1.f - wx1;
@@ -87,151 +116,11 @@ __device__ __forceinline__ float bilinear(const T* plane, int h, int w, float fy
   const bool xa = xf >= 0.f && xf <= w - 1, xb = xf + 1.f >= 0.f && xf + 1.f <= w - 1;
   const int y = (int)fmaxf(fminf(yf, (float)h), -1.f);
   const int x = (int)fmaxf(fminf(xf, (float)w), -1.f);
-  if (ya && xa) v += (wy0 * wx0) * ld(plane, (long long)y * w + x);
-  if (ya && xb) v += (wy0 * wx1) * ld(plane, (long long)y * w + x + 1);
-  if (yb && xa) v += (wy1 * wx0) * ld(plane, (long long)(y + 1) * w + x);
-  if (yb && xb) v += (wy1 * wx1) * ld(plane, (long long)(y + 1) * w + x + 1);
+  if (ya && xa) v += (wy0 * wx0) * plane[(long long)y * w + x];
+  if (ya && xb) v += (wy0 * wx1) * plane[(long long)y * w + x + 1];
+  if (yb && xa) v += (wy1 * wx0) * plane[(long long)(y + 1) * w + x];
+  if (yb && xb) v += (wy1 * wx1) * plane[(long long)(y + 1) * w + x + 1];
   return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-stau_kernel(const T* __restrict__ x, const T* __restrict__ sta, const float* __restrict__ pix,
-            const T* __restrict__ wc, const T* __restrict__ we, const T* __restrict__ wfus,
-            const float* __restrict__ bias, T* __restrict__ out, int B, int C, int NE, int Cout,
-            int h, int w, int H, int W) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_wc = smem;                       // [KMAX][CMAX]        Wc rows
-  float* s_weT = s_wc + KMAX * CMAX;        // [KMAX][CMAX]        We transposed: [k][c]
-  float* s_wfT = s_weT + KMAX * CMAX;       // [2*CMAX][OMAX]      Wfus transposed: [k][o]
-  float* s_bias = s_wfT + 2 * CMAX * OMAX;  // [OMAX]
-  float* s_pix = s_bias + OMAX;             // [NPLANE][NP]
-  float* s_f0 = s_pix + NPLANE * NP;        // [CMAX][NP]
-  float* s_cat = s_f0 + CMAX * NP;          // [2*CMAX][NP]: sa rows then fea rows
-  float* s_stk = s_cat + 2 * CMAX * NP;     // [KMAX][NP]
-
-  const int tid = threadIdx.x;
-  const int E = C / 8, K = NE * E;
-  for (int e = tid; e < K * C; e += THREADS) s_wc[(e / C) * CMAX + e % C] = ld(wc, e);
-  for (int e = tid; e < C * K; e += THREADS) {  // we: [C][K]
-    const int c = e / K, k = e % K;
-    s_weT[k * CMAX + c] = ld(we, e);
-  }
-  for (int e = tid; e < Cout * 2 * C; e += THREADS) {  // wfus: [Cout][2C]
-    const int o = e / (2 * C), k = e % (2 * C);
-    s_wfT[k * OMAX + o] = ld(wfus, e);
-  }
-  for (int e = tid; e < Cout; e += THREADS) s_bias[e] = bias[e];
-
-  const int segs_per_row = (W + NP - 1) / NP;
-  const long long nseg = (long long)B * H * segs_per_row;
-  const long long HWo = (long long)H * W, hw = (long long)h * w;
-  const int tc = tid / 16, tp = tid % 16;  // 4x4 register tiles
-
-  for (long long sg = blockIdx.x; sg < nseg; sg += gridDim.x) {
-    const int b = (int)(sg / ((long long)H * segs_per_row));
-    const int rem = (int)(sg % ((long long)H * segs_per_row));
-    const int Y = rem / segs_per_row, X0 = (rem % segs_per_row) * NP;
-    __syncthreads();  // previous segment done with shared buffers (and weights staged)
-    for (int e = tid; e < (4 + NE) * NP; e += THREADS) {
-      const int q = e / NP, p = e % NP;
-      s_pix[q * NP + p] = X0 + p < W ? pix[q * HWo + (long long)Y * W + X0 + p] : 0.f;
-    }
-    __syncthreads();
-    // 1. gathers: f0 from x at (fy_f, fx_f), sa from sta at (fy_s, fx_s)
-    const T* xb = x + (long long)b * C * hw;
-    const T* sb = sta + (long long)b * C * hw;
-    for (int e = tid; e < C * NP; e += THREADS) {
-      const int c = e / NP, p = e % NP;
-      s_f0[c * NP + p] =
-          round_to(bilinear(xb + c * hw, h, w, s_pix[0 * NP + p], s_pix[1 * NP + p]), x);
-      s_cat[c * NP + p] =
-          round_to(bilinear(sb + c * hw, h, w, s_pix[2 * NP + p], s_pix[3 * NP + p]), x);
-    }
-    __syncthreads();
-    // 2. per (o, p): z_n = Wc_n[o] . f0, fc = sum_n r_n z_n, stk[n*E+o] = r_n fc
-    for (int e = tid; e < E * NP; e += THREADS) {
-      const int o = e / NP, p = e % NP;
-      float fc = 0.f;
-      for (int n = 0; n < NE; ++n) {
-        const float* wrow = s_wc + (n * E + o) * CMAX;
-        float z = 0.f;
-        for (int c = 0; c < C; ++c) z = fmaf(wrow[c], s_f0[c * NP + p], z);
-        fc = fmaf(s_pix[(4 + n) * NP + p], z, fc);
-      }
-      for (int n = 0; n < NE; ++n)
-        s_stk[(n * E + o) * NP + p] = round_to(s_pix[(4 + n) * NP + p] * fc, x);
-    }
-    __syncthreads();
-    // 3. fea[c] = f0[c] + sum_k We[c][k] stk[k]   (4 channels x 4 pixels per thread)
-    if (4 * tc < C) {
-      float a[4][4] = {};
-      for (int k = 0; k < K; ++k) {
-        const float4 wv = *reinterpret_cast<const float4*>(&s_weT[k * CMAX + 4 * tc]);
-        const float4 sv = *reinterpret_cast<const float4*>(&s_stk[k * NP + 4 * tp]);
-        const float wa[4] = {wv.x, wv.y, wv.z, wv.w}, sa[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a[i][j] = fmaf(wa[i], sa[j], a[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = 4 * tc + i, p = 4 * tp + j;
-          s_cat[(C + c) * NP + p] = round_to(a[i][j] + s_f0[c * NP + p], x);
-        }
-    }
-    __syncthreads();
-    // 4. out[o] = Wfus[o] . [sa; fea] + bias   (4 outputs x 4 pixels per thread)
-    if (4 * tc < Cout) {
-      float a[4][4] = {};
-      for (int k = 0; k < 2 * C; ++k) {
-        const float4 wv = *reinterpret_cast<const float4*>(&s_wfT[k * OMAX + 4 * tc]);
-        const float4 sv = *reinterpret_cast<const float4*>(&s_cat[k * NP + 4 * tp]);
-        const float wa[4] = {wv.x, wv.y, wv.z, wv.w}, sa[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a[i][j] = fmaf(wa[i], sa[j], a[i][j]);
-      }
-      T* ob = out + (long long)b * Cout * HWo + (long long)Y * W + X0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int o = 4 * tc + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = 4 * tp + j;
-          if (X0 + p < W) st(ob, o * HWo + p, a[i][j] + s_bias[o]);
-        }
-      }
-    }
-  }
-}
-
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * (2 * KMAX * CMAX + 2 * CMAX * OMAX + OMAX + NPLANE * NP + CMAX * NP +
-                     2 * CMAX * NP + KMAX * NP);
-
-template <typename T>
-cudaError_t launch(const void* x, const void* sta, const float* pix, const void* wc,
-                   const void* we, const void* wfus, const float* bias, void* out, int B, int C,
-                   int NE, int Cout, int h, int w, int H, int W, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(stau_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long nseg = (long long)B * H * ((W + NP - 1) / NP);
-  const int grid = (int)(nseg < 2LL * sms ? nseg : 2LL * sms);
-  stau_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sta), pix, static_cast<const T*>(wc),
-      static_cast<const T*>(we), static_cast<const T*>(wfus), bias, static_cast<T*>(out), B, C,
-      NE, Cout, h, w, H, W);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -708,23 +597,425 @@ int launch_mma(const void* x, const void* sta, const float* pix, const int* plan
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// f32: staged LR windows, register-tiled products on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int FS_ROWS = 2;                   // HR rows per tile (ops/stau.py F32_PLAN_ROWS)
+constexpr int FS_COLS = 64;                  // HR columns per tile (F32_PLAN_COLS)
+constexpr int FS_NP = FS_ROWS * FS_COLS;     // 128 pixels
+constexpr int FS_CAP = 320;                  // staged LR slots per channel, both boxes
+                                             // together (F32_STAGE_CAP)
+constexpr int FS_THREADS = 256;              // two halves of 4 warps
+constexpr int FS_OMAX = 64;                  // output channels (weights padded to 64)
+constexpr int FS_PLANES = 4 + NE_PAD;        // fy_f, fx_f, fy_s, fx_s, r_0..r_3
+static_assert(FS_NP == 128 && FS_COLS == 64, "thread layouts: 128 pixels, 64 a row");
+
+template <int CP>  // feature channels padded to 16, 32 or 64
+struct StauF32Cfg {
+  static constexpr int E = CP / 8;                 // compress outputs per expert
+  static constexpr int K = NE_PAD * E;             // stacked expert rows n E + o
+  // packed weights: compress [CP k][E o][4 n]; fusion [2CP + K][64]: the sa
+  // rows, the f0 rows, then the expand folded into the fea rows (Wfus_fea We)
+  static constexpr int WF_OFF = CP * E * NE_PAD;
+  static constexpr int W_FLOATS = WF_OFF + (2 * CP + K) * FS_OMAX;
+  static constexpr int OFF_BIAS = W_FLOATS;
+  static constexpr int OFF_ACT = OFF_BIAS + FS_OMAX;         // [2CP][128]: sa, then f0 -> fea
+  static constexpr int OFF_STK = OFF_ACT + 2 * CP * FS_NP;   // [K][128]
+  static constexpr int OFF_PIX = OFF_STK + K * FS_NP;        // [2][8 planes][128], by tile parity
+  static constexpr int OFF_STAGE = OFF_PIX + 2 * FS_PLANES * FS_NP;  // [CP][FS_CAP]
+  // the sums the halves exchange [64][128]: the sa rows of act when they
+  // are 64, else a region of their own
+  static constexpr int OFF_PART = CP >= FS_OMAX ? OFF_ACT : OFF_STAGE + CP * FS_CAP;
+  static constexpr int SMEM = (CP >= FS_OMAX ? OFF_STAGE + CP * FS_CAP
+                                             : OFF_PART + FS_OMAX * FS_NP) * 4;
+  static_assert(W_FLOATS % 4 == 0 && OFF_STAGE % 4 == 0 && SMEM <= 232448, "shared memory");
+};
+
+// one box of `src` (one sample, [C, h, w]) into the staging buffer, slot
+// `base` on: channel c of box pixel pos at ((c / 4) FS_CAP + base + pos) 4
+// + c % 4, so a bilinear tap of 4 channels is one 16-byte load. 4-byte
+// cp.async, columns past w zero-filled; warp v takes chunks of 8 box pixels
+// (chunks v, v + 8, ...), lane l pixel l / 4 of the chunk and channel l % 4
+// of each quad, so a warp's copies read 4 channel rows of 8 pixels and
+// write 128 contiguous bytes
+__device__ __forceinline__ void stau_f32_stage(float* stage, int base, const float* src, int h,
+                                               int w, int y0, int x0, int nr, int nc, int C) {
+  const long long hw = (long long)h * w;
+  const int lane = threadIdx.x % 32, npos = nr * nc;
+  for (int pos = 8 * (threadIdx.x / 32) + lane / 4; pos - lane / 4 < npos; pos += FS_THREADS / 4) {
+    if (pos >= npos) continue;
+    const int xs = x0 + pos % nc;
+    const bool ok = xs < w;
+    const float* g = src + (lane % 4) * hw + (long long)(y0 + pos / nc) * w + (ok ? xs : 0);
+    float* d = stage + (base + pos) * 4 + lane % 4;
+    for (int c = 0; c < C; c += 4, g += 4 * hw, d += 4 * FS_CAP) cp_async4_zfill(d, g, ok);
+  }
+}
+
+// a tile's sampler planes (and routing planes, zero past NE) into
+// [8][128] by 4-byte cp.async; pixels off the image are zero-filled
+__device__ __forceinline__ void stau_f32_stage_pix(float* dst, const float* pix, int NE, int H,
+                                                   int W, int Y0, int X0) {
+  const long long HW = (long long)H * W;
+  for (int e = threadIdx.x; e < FS_PLANES * FS_NP; e += FS_THREADS) {
+    const int q = e / FS_NP, r = (e / FS_COLS) % FS_ROWS, x = X0 + e % FS_COLS;
+    const bool ok = q < 4 + NE && Y0 + r < H && x < W;
+    cp_async4_zfill(dst + e, pix + (ok ? q * HW + (long long)(Y0 + r) * W + x : 0), ok);
+  }
+}
+
+// the bilinear taps of one HR pixel as (weight, offset into the staged box):
+// taps outside the image, and every tap of a pixel off the image, get
+// weight 0 at offset 0 (a slot of the box), so the channel loop has no
+// branch; in-image taps lie in the box by the plan's construction
+__device__ __forceinline__ void stau_f32_taps(float fy, float fx, int h, int w, bool live,
+                                              int y0, int x0, int nc, float (&wt)[4],
+                                              int (&off)[4]) {
+  const float yf = floorf(fy), xf = floorf(fx);
+  const float wy1 = fy - yf, wx1 = fx - xf;
+  const float wy0 = 1.f - wy1, wx0 = 1.f - wx1;
+  const bool ya = yf >= 0.f && yf <= h - 1, yb = yf + 1.f >= 0.f && yf + 1.f <= h - 1;
+  const bool xa = xf >= 0.f && xf <= w - 1, xb = xf + 1.f >= 0.f && xf + 1.f <= w - 1;
+  const int y = (int)fmaxf(fminf(yf, (float)h), -1.f) - y0;
+  const int x = (int)fmaxf(fminf(xf, (float)w), -1.f) - x0;
+  const bool ok[4] = {live && ya && xa, live && ya && xb, live && yb && xa, live && yb && xb};
+  const float ww[4] = {wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    wt[t] = ok[t] ? ww[t] : 0.f;
+    off[t] = ok[t] ? (y + t / 2) * nc + x + t % 2 : 0;
+  }
+}
+
+// acc[M][8] += w (x) a over rows k = 0 .. N - 1: w, M weights at wp + k ws
+// (M / 4 16-byte loads), a, 8 pixels as two 16-byte loads at ap + k as and
+// ap + k as + 64; the next row's operands are loaded before this row's FMAs.
+// Unrolled by 8 rows (4 is 5% slower; a full unroll thrashes the
+// instruction cache: 2.6x slower)
+template <int N, int M>
+__device__ __forceinline__ void gemm_rows(float (&acc)[M][8], const float* wp, int ws,
+                                          const float* ap, int as) {
+  float4 w[M / 4], a[2];
+#pragma unroll
+  for (int u = 0; u < M / 4; ++u) w[u] = *reinterpret_cast<const float4*>(wp + 4 * u);
+  a[0] = *reinterpret_cast<const float4*>(ap);
+  a[1] = *reinterpret_cast<const float4*>(ap + 64);
+#pragma unroll 8
+  for (int k = 0; k < N; ++k) {
+    float4 wn[M / 4], an[2];
+#pragma unroll
+    for (int u = 0; u < M / 4; ++u) wn[u] = w[u];
+    an[0] = a[0], an[1] = a[1];
+    if (k + 1 < N) {
+#pragma unroll
+      for (int u = 0; u < M / 4; ++u)
+        wn[u] = *reinterpret_cast<const float4*>(wp + (k + 1) * ws + 4 * u);
+      an[0] = *reinterpret_cast<const float4*>(ap + (k + 1) * as);
+      an[1] = *reinterpret_cast<const float4*>(ap + (k + 1) * as + 64);
+    }
+    float wv[M];
+#pragma unroll
+    for (int u = 0; u < M / 4; ++u)
+      wv[4 * u] = w[u].x, wv[4 * u + 1] = w[u].y, wv[4 * u + 2] = w[u].z, wv[4 * u + 3] = w[u].w;
+    const float av[8] = {a[0].x, a[0].y, a[0].z, a[0].w, a[1].x, a[1].y, a[1].z, a[1].w};
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
+#pragma unroll
+    for (int u = 0; u < M / 4; ++u) w[u] = wn[u];
+    a[0] = an[0], a[1] = an[1];
+  }
+}
+
+template <int M>
+__device__ __forceinline__ void zero(float (&acc)[M][8]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// rows R .. R + 3 of a thread's 8 x 8 fusion tile into part (rows 8 og +
+// R + i, pixels 4 pg + j and 64 + 4 pg + j), for the other half to add
+template <int R>
+__device__ __forceinline__ void put_rows(float* part, const float (&acc)[8][8], int og, int pg) {
+#pragma unroll
+  for (int i = R; i < R + 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float4*>(part + (8 * og + i) * FS_NP + 64 * hh + 4 * pg) =
+          make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2], acc[i][4 * hh + 3]);
+}
+
+// where a half stores its rows of the fusion output
+struct FusionOut {
+  float* out;           // this sample's [Cout, H, W]
+  const float* part;    // the other half's sums
+  const float* bias;
+  int Cout, H, W, Y0, X, og, pg, vec_out;
+};
+
+// out rows R .. R + 3 of the thread's tile: the other half's sums (part) +
+// this half's (acc) + bias, as 16-byte stores along W where W % 4 == 0
+template <int R>
+__device__ __forceinline__ void store_rows(const FusionOut& f, const float (&acc)[8][8]) {
+  const long long HW = (long long)f.H * f.W;
+#pragma unroll
+  for (int i = R; i < R + 4; ++i) {
+    const int o = 8 * f.og + i;
+    if (o >= f.Cout) continue;
+    const float bv = f.bias[o];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int Y = f.Y0 + hh;
+      if (Y >= f.H || f.X >= f.W) continue;
+      const float4 th = *reinterpret_cast<const float4*>(f.part + o * FS_NP + 64 * hh + 4 * f.pg);
+      float* dst = f.out + o * HW + (long long)Y * f.W + f.X;
+      const float v[4] = {th.x + acc[i][4 * hh] + bv, th.y + acc[i][4 * hh + 1] + bv,
+                          th.z + acc[i][4 * hh + 2] + bv, th.w + acc[i][4 * hh + 3] + bv};
+      if (f.vec_out && f.X + 4 <= f.W) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int j = 0; j < 4 && f.X + j < f.W; ++j) dst[j] = v[j];
+      }
+    }
+  }
+}
+
+// Persistent: block i takes tiles i, i + gridDim.x, ...; tile t is spatial
+// tile t / B (HR rows 2 (t / B / ncs) and + 1, 64-column segment
+// t / B % ncs) of sample t % B. Threads 0-127 (half 0) and 128-255 (half 1)
+// split the fusion's input rows: half 1 sums the sa rows while half 0 runs
+// the compress, then the folded expand rows on stk while half 0 sums the f0
+// rows; each half stores half the outputs, adding the other's sums from
+// shared memory.
+template <int CP>
+__global__ void __launch_bounds__(FS_THREADS, 1)
+stau_f32_kernel(const float* __restrict__ x, const float* __restrict__ sta,
+                const float* __restrict__ pix, const int4* __restrict__ plan,
+                const float* __restrict__ wpk, const float* __restrict__ bias,
+                float* __restrict__ out, int B, int C, int NE, int Cout, int h, int w, int H,
+                int W, int ncs, int ntiles, int vec_out) {
+  using Cfg = StauF32Cfg<CP>;
+  constexpr int E = Cfg::E, K = Cfg::K, NP = FS_NP;
+  extern __shared__ __align__(16) float fsm[];
+  float* s_bias = fsm + Cfg::OFF_BIAS;
+  float* act = fsm + Cfg::OFF_ACT;
+  float* stk = fsm + Cfg::OFF_STK;
+  float* stage = fsm + Cfg::OFF_STAGE;
+  float* part = fsm + Cfg::OFF_PART;
+  const int tid = threadIdx.x, lane = tid % 32;
+  // the half through a shuffle, so that ptxas sees it uniform
+  const int half = __shfl_sync(0xffffffffu, tid / 128, 0), lt = tid % 128, warp = lt / 32;
+  for (int i = tid; i < Cfg::W_FLOATS / 4; i += FS_THREADS) cp_async16(fsm + 4 * i, wpk + 4 * i);
+  for (int i = tid; i < FS_OMAX; i += FS_THREADS) s_bias[i] = i < Cout ? bias[i] : 0.f;
+  // staged channels past C: no box copy writes them, so zero them once
+  for (int i = tid; i < (CP - C) * FS_CAP; i += FS_THREADS) stage[C * FS_CAP + i] = 0.f;
+  const long long chw = (long long)C * h * w, hw = (long long)h * w;
+
+  // the boxes and sampler planes of tile t (sampler planes by tile parity)
+  auto issue = [&](int t, const Plan& p, int parity) {
+    const int sp = t / B;
+    stau_f32_stage_pix(fsm + Cfg::OFF_PIX + parity * FS_PLANES * NP, pix, NE, H, W,
+                       (sp / ncs) * FS_ROWS, (sp % ncs) * FS_COLS);
+    if (p.nrf == 0) return;
+    const long long off = (t % B) * chw;
+    stau_f32_stage(stage, 0, x + off, h, w, p.yf, p.xf, p.nrf, p.ncf, C);
+    stau_f32_stage(stage, p.nrf * p.ncf, sta + off, h, w, p.ys, p.xs, p.nrs, p.ncs, C);
+  };
+
+  int t = blockIdx.x, parity = 0;
+  Plan p = load_plan(plan, t / B);
+  issue(t, p, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  // the 8 x 8 products' layout in a half: warp (2 row groups x 2 pixel
+  // groups), lane (4 row groups x 8 pixel groups): rows 8 og .. + 7, pixels
+  // 4 pg + j and 64 + 4 pg + j (j < 4); the 8 lanes of a quarter warp read
+  // one weight piece and 8 consecutive pixel pieces
+  const int og = 4 * (warp % 2) + lane / 8, pg = 8 * (warp / 2) + lane % 8;
+  float acc[8][8];
+  while (t < ntiles) {
+    const int b = t % B, sp = t / B;
+    const int Y0 = (sp / ncs) * FS_ROWS, X0 = (sp % ncs) * FS_COLS;
+    const float* tp = fsm + Cfg::OFF_PIX + parity * FS_PLANES * NP;  // this tile's planes
+    // 1. gathers: half 0 f0 (rows CP.. of act), half 1 sa (rows 0..CP-1);
+    //    one pixel a thread
+    {
+      const int s = half, px = lt;
+      const bool live = Y0 + px / FS_COLS < H && X0 + px % FS_COLS < W;
+      const float fy = tp[(2 * s) * NP + px], fx = tp[(2 * s + 1) * NP + px];
+      float* arow = act + (s == 0 ? CP : 0) * NP + px;
+      if (p.nrf != 0) {
+        float wt[4];
+        int off[4];
+        stau_f32_taps(fy, fx, h, w, live, s ? p.ys : p.yf, s ? p.xs : p.xf, s ? p.ncs : p.ncf,
+                      wt, off);
+        const float* src = stage + 4 * (s ? p.nrf * p.ncf : 0);
+        const float* s0 = src + 4 * off[0];
+        const float* s1 = src + 4 * off[1];
+        const float* s2 = src + 4 * off[2];
+        const float* s3 = src + 4 * off[3];
+#pragma unroll 4
+        for (int c = 0; c < CP; c += 4) {
+          const float4 v0 = *reinterpret_cast<const float4*>(s0 + c * FS_CAP);
+          const float4 v1 = *reinterpret_cast<const float4*>(s1 + c * FS_CAP);
+          const float4 v2 = *reinterpret_cast<const float4*>(s2 + c * FS_CAP);
+          const float4 v3 = *reinterpret_cast<const float4*>(s3 + c * FS_CAP);
+          const float a0[4] = {v0.x, v0.y, v0.z, v0.w}, a1[4] = {v1.x, v1.y, v1.z, v1.w};
+          const float a2[4] = {v2.x, v2.y, v2.z, v2.w}, a3[4] = {v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float v = 0.f;
+            v = fmaf(wt[0], a0[i], v);
+            v = fmaf(wt[1], a1[i], v);
+            v = fmaf(wt[2], a2[i], v);
+            v = fmaf(wt[3], a3[i], v);
+            arow[(c + i) * NP] = v;
+          }
+        }
+      } else {
+        const float* plane = (s ? sta : x) + b * chw;
+        for (int c = 0; c < CP; ++c)
+          arow[c * NP] = live && c < C ? bilinear(plane + c * hw, h, w, fy, fx) : 0.f;
+      }
+    }
+    __syncthreads();
+    // the next tile's boxes and planes land under this tile's products
+    const int tn = t + gridDim.x;
+    Plan pn{};
+    if (tn < ntiles) {
+      pn = load_plan(plan, tn / B);
+      issue(tn, pn, parity ^ 1);
+    }
+    if (half == 0) {
+      // 2. compress and routing: thread (output o, pixels 4 q + j and
+      //    64 + 4 q + j) keeps z of the 4 experts, then fc = sum_n r_n z_n
+      //    and stk_n = r_n fc
+      if (lt < E * 16) {
+        const int o = lt % E, q = lt / E;
+        float z[NE_PAD][8];
+        zero(z);
+        gemm_rows<CP>(z, fsm + 4 * o, 4 * E, act + CP * NP + 4 * q, NP);
+        float r[NE_PAD][8];
+#pragma unroll
+        for (int n = 0; n < NE_PAD; ++n)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float4 rv = *reinterpret_cast<const float4*>(tp + (4 + n) * NP + 64 * hh + 4 * q);
+            r[n][4 * hh] = rv.x, r[n][4 * hh + 1] = rv.y, r[n][4 * hh + 2] = rv.z,
+                      r[n][4 * hh + 3] = rv.w;
+          }
+        float fc[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          fc[j] = r[0][j] * z[0][j];
+#pragma unroll
+          for (int n = 1; n < NE_PAD; ++n) fc[j] = fmaf(r[n][j], z[n][j], fc[j]);
+        }
+#pragma unroll
+        for (int n = 0; n < NE_PAD; ++n)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float4*>(stk + (n * E + o) * NP + 64 * hh + 4 * q) =
+                make_float4(r[n][4 * hh] * fc[4 * hh], r[n][4 * hh + 1] * fc[4 * hh + 1],
+                            r[n][4 * hh + 2] * fc[4 * hh + 2], r[n][4 * hh + 3] * fc[4 * hh + 3]);
+      }
+    } else {
+      // the fusion's sa rows
+      zero(acc);
+      gemm_rows<CP>(acc, fsm + Cfg::WF_OFF + 8 * og, FS_OMAX, act + 4 * pg, NP);
+    }
+    __syncthreads();
+    // 3. the fusion's f0 rows (half 0), and its folded expand rows on stk
+    //    (half 1). Each half then leaves the sums of the outputs the other
+    //    stores in part (the sa rows of act at C = 64), at its tile's places:
+    //    half 1 those of rows 8 og .. + 3, half 0 those of + 4 .. + 7
+    if (half == 0) {
+      zero(acc);
+      gemm_rows<CP>(acc, fsm + Cfg::WF_OFF + CP * FS_OMAX + 8 * og, FS_OMAX,
+                    act + CP * NP + 4 * pg, NP);
+    } else {
+      gemm_rows<K>(acc, fsm + Cfg::WF_OFF + 2 * CP * FS_OMAX + 8 * og, FS_OMAX, stk + 4 * pg,
+                   NP);
+    }
+    // (row offsets stay compile-time: a runtime index would put acc in
+    // local memory)
+    if (half == 0)
+      put_rows<4>(part, acc, og, pg);
+    else
+      put_rows<0>(part, acc, og, pg);
+    __syncthreads();
+    // 4. out = the two halves' sums + bias: half 0 rows 8 og .. + 3, half 1
+    //    rows + 4 .. + 7
+    const FusionOut fo{out + (long long)b * Cout * H * W, part, s_bias, Cout, H, W, Y0,
+                       X0 + 4 * pg, og, pg, vec_out};
+    if (half == 0)
+      store_rows<0>(fo, acc);
+    else
+      store_rows<4>(fo, acc);
+    cp_async_wait_all();
+    __syncthreads();  // the next boxes and planes landed; everyone is done with act
+    t = tn;
+    p = pn;
+    parity ^= 1;
+  }
+}
+
+template <int CP>
+int launch_f32(const void* x, const void* sta, const float* pix, const int* plan,
+               const void* wpk, const float* bias, void* out, int B, int C, int NE, int Cout,
+               int h, int w, int H, int W, int vec_out, cudaStream_t stream) {
+  using Cfg = StauF32Cfg<CP>;
+  static int sms = 0;
+  if (!sms) {
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(stau_f32_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Cfg::SMEM);
+    if (e != cudaSuccess) {
+      sms = 0;
+      return static_cast<int>(e);
+    }
+  }
+  const int ncs = (W + FS_COLS - 1) / FS_COLS;
+  const int ntiles = B * ncs * ((H + FS_ROWS - 1) / FS_ROWS);
+  const int grid = ntiles < sms ? ntiles : sms;
+  stau_f32_kernel<CP><<<grid, FS_THREADS, Cfg::SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(sta), pix,
+      reinterpret_cast<const int4*>(plan), static_cast<const float*>(wpk), bias,
+      static_cast<float*>(out), B, C, NE, Cout, h, w, H, W, ncs, ntiles, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* savsr_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// f32: x, sta: [B, C, h, w]; pix: [4 + NE, H, W] f32; wc: [NE*C/8, C];
-// we: [C, NE*C/8]; wfus: [Cout, 2C]; bias: [Cout] f32; out: [B, Cout, H, W].
-extern "C" int savsr_stau_fused(const void* x, const void* sta, const float* pix,
-                                const void* wc, const void* we, const void* wfus,
-                                const float* bias, void* out, int B, int C, int NE, int Cout,
-                                int h, int w, int H, int W, void* stream) {
-  if (C < 8 || C > CMAX || C % 8 != 0 || NE < 1 || NE * (C / 8) > KMAX || NE + 4 > NPLANE ||
-      Cout < 4 || Cout > OMAX || Cout % 4 != 0)
+// f32: x, sta: [B, C, h, w] (C % 8 == 0, C <= 64); pix: [4 + NE, H, W] f32
+// (NE <= 4); plan: [ceil(H/2) * ceil(W/64), 8] int32 (stau_window_plan at
+// the f32 tile, sizes within FS_CAP); wpk: the packed weights
+// (pack_stau_weights_f32); bias: [Cout] f32 (Cout % 4 == 0, <= 64); out:
+// [B, Cout, H, W]. vec_out: W % 4 == 0 and out 16-byte aligned.
+extern "C" int savsr_stau_f32(const void* x, const void* sta, const float* pix, const int* plan,
+                              const void* wpk, const float* bias, void* out, int B, int C,
+                              int NE, int Cout, int h, int w, int H, int W, int vec_out,
+                              void* stream) {
+  if (C < 8 || C > 64 || C % 8 != 0 || NE < 1 || NE > NE_PAD || Cout < 4 || Cout > FS_OMAX ||
+      Cout % 4 != 0 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<float>(x, sta, pix, wc, we, wfus, bias, out, B, C, NE, Cout,
-                                        h, w, H, W, static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 16)
+    return launch_f32<16>(x, sta, pix, plan, wpk, bias, out, B, C, NE, Cout, h, w, H, W, vec_out, s);
+  if (C <= 32)
+    return launch_f32<32>(x, sta, pix, plan, wpk, bias, out, B, C, NE, Cout, h, w, H, W, vec_out, s);
+  return launch_f32<64>(x, sta, pix, plan, wpk, bias, out, B, C, NE, Cout, h, w, H, W, vec_out, s);
 }
 
 // bf16: x, sta: [B, C, h, w] (C in 16, 32, 64); pix as above; plan:

@@ -65,6 +65,12 @@ def check_rc(lib, rc: int, what: str) -> None:
                            f"{lib.savsr_error_string(rc).decode()}")
 
 
+def f32_channels(c: int) -> int:
+    """The CUDA-core f32 STA and STAU kernels' channel count: C padded to 16,
+    32 or 64 (``CP`` in csrc/sta.cu and csrc/stau.cu)."""
+    return 16 if c <= 16 else 32 if c <= 32 else 64
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)

@@ -20,7 +20,15 @@ Which kernel runs on a CUDA tensor is chosen by dtype and channel count:
   kept on the weight tensor (``pack_sta_weights``) while the weight's and
   the bias's storages and version counters stay the same.
 - f32 (the strict tier, true f32), and bf16 at any other C: the CUDA-core
-  ``sta_kernel``.
+  ``sta_f32_kernel`` (persistent 8 x 32-pixel tiles, the K product of each
+  tap as a register-tiled shared-memory GEMM, the taps' weights streamed
+  into a double buffer). Its weights are repacked once into [tap][input
+  channel][column] order with C padded to 16, 32 or 64 (``sta_f32_pack_index``:
+  column 8 cg + i holds channel cg + 8i, the channels of thread group cg),
+  the bias alike, both kept on the weight (``pack_sta_weights_f32``, apart
+  from the bf16 packing). bf16 at other C is widened to f32 here, runs
+  with K rounded to bf16 in the kernel (the TPU kernel's rounding point),
+  and its f32 output is rounded once to bf16.
 
 A failed build or launch raises; nothing falls back to another kernel.
 """
@@ -34,8 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import (check_rc, count_plain, dtype_code, launches, ptr, require, sm_count,
-               stream_ptr)
+from . import (check_rc, count_plain, dtype_code, f32_channels, launches, ptr, require,
+               sm_count, stream_ptr)
 
 KSIZE = 5
 TAPS = KSIZE * KSIZE
@@ -90,13 +98,50 @@ def pack_sta_weights(weight: torch.Tensor, bias: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
+def sta_f32_pack_index(c: int):
+    """Where each element of the CUDA-core kernel's packed weights and bias
+    comes from: int64 indices into the flat kernel_conv weight [25C, C] (row
+    c*25 + t, column ci) and into the bias [25C], the value one past the end
+    standing for a zero. Packed order: weights [tap][ci < CP][column < CP],
+    bias [tap][column]; column 8 cg + i (cg < 8, i < CP/8) holds output
+    channel cg + 8i, and rows or columns past C are zero."""
+    cp = f32_channels(c)
+    t, ci, col = np.meshgrid(np.arange(TAPS), np.arange(cp), np.arange(cp), indexing="ij")
+    ch = col // (cp // 8) + 8 * (col % (cp // 8))
+    w_idx = np.where((ci < c) & (ch < c), (ch * TAPS + t) * c + ci, TAPS * c * c)
+    t, col = np.meshgrid(np.arange(TAPS), np.arange(cp), indexing="ij")
+    ch = col // (cp // 8) + 8 * (col % (cp // 8))
+    b_idx = np.where(ch < c, ch * TAPS + t, TAPS * c)
+    return (torch.from_numpy(w_idx.reshape(-1).astype(np.int64)),
+            torch.from_numpy(b_idx.reshape(-1).astype(np.int64)))
+
+
+def pack_sta_weights_f32(weight: torch.Tensor, bias: torch.Tensor):
+    """(packed weights, packed bias) of the CUDA-core kernel, both f32
+    (``sta_f32_pack_index``), kept on ``weight`` as ``_savsr_sta_packed_f32``
+    while the weight's and the bias's storages and version counters stay the
+    same."""
+    key = (weight.data_ptr(), weight._version, bias.data_ptr(), bias._version)
+    hit = getattr(weight, "_savsr_sta_packed_f32", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    c = weight.shape[1]
+    w_idx, b_idx = sta_f32_pack_index(c)
+    packed = tuple(torch.cat([t.detach().reshape(-1).float(), t.new_zeros(1, dtype=torch.float32)])
+                   [idx.to(t.device)] for t, idx in ((weight, w_idx), (bias, b_idx)))
+    weight._savsr_sta_packed_f32 = (key, packed)
+    return packed
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from ..csrc.build import load
 
     lib = load("sta")
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.savsr_sta_fused.restype = i
-    lib.savsr_sta_fused.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
+    lib.savsr_sta_f32.restype = i
+    lib.savsr_sta_f32.argtypes = [p, p, p, p, p,          # x, st, wpack, bias_p, out
+                                  i, i, i, i, i, i, p]    # B, C, H, W, round_k, sms, stream
     lib.savsr_sta_mma.restype = i
     lib.savsr_sta_mma.argtypes = [p, p, p, p, p,          # x, st, wpack, bias_t, out
                                   i, i, i, i, i, p]       # B, C, H, W, sms, stream
@@ -107,7 +152,8 @@ def sta_conv_fused(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """lrelu_0.1(kernel_conv(st)) applied as per-pixel 5x5 filters to x.
     CPU tensors take the plain version; CUDA tensors launch a kernel: bf16
-    at C 16/32/64 the tensor-core kernel, otherwise the CUDA-core one."""
+    at C 16/32/64 the tensor-core kernel, f32 (and bf16 at other C, widened)
+    the CUDA-core one."""
     if not x.is_cuda:
         return sta_conv_fused_plain(x, st, weight, bias)
     b, c, h, w = x.shape
@@ -125,8 +171,15 @@ def sta_conv_fused(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
         rc = lib.savsr_sta_mma(ptr(x), ptr(st), ptr(packed), ptr(bias_t), ptr(out), b, c, h, w,
                                sm_count(x.device), stream_ptr(x))
     else:
-        rc = lib.savsr_sta_fused(dtype_code(x), ptr(x), ptr(st), ptr(weight), ptr(bias),
-                                 ptr(out), b, c, h, w, stream_ptr(x))
+        dtype_code(x)
+        require(c <= 64, f"sta: the CUDA-core kernel takes C <= 64, got {c}")
+        packed, bias_p = pack_sta_weights_f32(weight, bias)
+        xf, stf = x.float(), st.float()
+        out_f = out if dt == torch.float32 else torch.empty_like(xf)
+        rc = lib.savsr_sta_f32(ptr(xf), ptr(stf), ptr(packed), ptr(bias_p), ptr(out_f), b, c, h, w,
+                               int(dt != torch.float32), sm_count(x.device), stream_ptr(x))
     check_rc(lib, rc, "sta_conv_fused")
     launches["sta"] += 1
+    if dt != torch.float32 and c not in MMA_CHANNELS:
+        out.copy_(out_f)  # the widened route's one rounding of the output to bf16
     return out

@@ -11,13 +11,17 @@ r_n*fc and fea are rounded to the I/O dtype). The TPU kernel's hat-matrix
 sampling over precomputed LR row bands (j0/g0) becomes a 4-tap gather in
 the CUDA kernels (csrc/stau.cu).
 
-The bf16 kernel (tensor cores) has two layout steps in Python, both
-replayed on the CPU by the tests: ``stau_window_plan``, the LR box each
-tile of 8 HR rows x 64 HR columns reads (the sampling positions depend only
-on the static coordinate embedding, so ``SAVSR.stau_statics`` plans once
-per shape and scale), and ``pack_stau_weights``, the three weights as the
-kernel's mma B fragments (cached on the fusion weight). f32 runs the
-CUDA-core kernel on the weights as they are.
+Both kernels have two layout steps in Python, replayed on the CPU by the
+tests: ``stau_window_plan``, the LR box each tile reads (the sampling
+positions depend only on the static coordinate embedding, so
+``SAVSR.stau_statics`` plans once per shape, scale and dtype), at each
+kernel's tile, staging capacity and column alignment (``plan_geometry``:
+bf16 8 HR rows x 64 HR columns, 600 slots of both boxes, boxes on 8-column
+boundaries; f32 2 x 64, 320 slots per channel, exact boxes);
+and the packed weights, cached on the fusion weight: ``pack_stau_weights``,
+the bf16 kernel's mma B fragments, and ``pack_stau_weights_f32``, the f32
+kernel's row order with C padded to 16, 32 or 64 and the expand folded into
+the fusion (f32 only: no rounding point lies between them).
 
 ``pix`` is [4 + n, H, W] f32: planes fy_f, fx_f, fy_s, fx_s, r_0..r_{n-1}
 (savsr_arch.stau_sampler_planes). Weights keep the torch layouts:
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import check_rc, count_plain, dtype_code, launches, ptr, require, stream_ptr
+from . import (check_rc, count_plain, dtype_code, f32_channels, launches, ptr, require,
+               stream_ptr)
 
 
 def bilinear_gather(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
@@ -77,26 +82,40 @@ def stau_upsample_fused_plain(x, sta, pix, wc, we, wfus, bias) -> torch.Tensor:
 # the bf16 kernel's tile (HR rows x HR columns) and staging capacity (LR
 # pixel slots of both samplers' boxes together), as in csrc/stau.cu
 PLAN_ROWS, PLAN_COLS, STAGE_CAP = 8, 64, 600
+# the f32 kernel's (FS_ROWS, FS_COLS, FS_CAP in csrc/stau.cu; slots per
+# channel); its 4-byte copies need no column alignment
+F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP = 2, 64, 320
 # its padded expert count (each expert's C/8 compress outputs pad to 8)
 NE_PAD = 4
 
 
-def stau_window_plan(pix: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """The LR windows of the bf16 kernel's tiles: int32 [ceil(H/8) *
-    ceil(W/64), 8], per tile (row group major) the box of each sampler
+def plan_geometry(dtype: torch.dtype) -> tuple:
+    """(tile rows, tile columns, staging capacity, column alignment) of the
+    kernel that runs ``dtype``: the f32 kernel's for float32, the bf16
+    kernel's otherwise."""
+    if dtype == torch.float32:
+        return F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP, 1
+    return PLAN_ROWS, PLAN_COLS, STAGE_CAP, 8
+
+
+def stau_window_plan(pix: torch.Tensor, h: int, w: int, rows: int = PLAN_ROWS,
+                     cols: int = PLAN_COLS, cap: int = STAGE_CAP, align: int = 8) -> torch.Tensor:
+    """The LR windows of a kernel's tiles of ``rows`` HR rows x ``cols`` HR
+    columns (the bf16 kernel's by default): int32 [ceil(H/rows) *
+    ceil(W/cols), 8], per tile (row group major) the box of each sampler
     (f: planes 0-1 of ``pix``, s: planes 2-3) as (y_f, x_f, y_s, x_s, rows_f,
     cols_f, rows_s, cols_s). A box spans every in-image row and column that
     the tile's bilinear taps (floor and floor + 1, clipped to the image)
-    touch; its first column sits on an 8-pixel boundary and its width is a
-    multiple of 8 (16-byte copies). Tiles whose two boxes exceed
-    ``STAGE_CAP`` slots, or whose coordinates are not finite, get zero
-    sizes: the kernel gathers them from device memory."""
+    touch; its first column sits on an ``align``-pixel boundary and its
+    width is a multiple of ``align`` (8: the bf16 kernel's 16-byte copies).
+    Tiles whose two boxes exceed ``cap`` slots, or whose coordinates are not
+    finite, get zero sizes: the kernel gathers them from device memory."""
     H, W = pix.shape[1:]
-    nrg, ncs = -(-H // PLAN_ROWS), -(-W // PLAN_COLS)
-    pad = (0, ncs * PLAN_COLS - W, 0, nrg * PLAN_ROWS - H)
+    nrg, ncs = -(-H // rows), -(-W // cols)
+    pad = (0, ncs * cols - W, 0, nrg * rows - H)
 
     def per_tile(t, fill, reduce):
-        t = F.pad(t, pad, value=fill).view(nrg, PLAN_ROWS, ncs, PLAN_COLS)
+        t = F.pad(t, pad, value=fill).view(nrg, rows, ncs, cols)
         return reduce(reduce(t, 3), 1)
 
     bad = torch.zeros((nrg, ncs), dtype=torch.bool, device=pix.device)
@@ -109,11 +128,11 @@ def stau_window_plan(pix: torch.Tensor, h: int, w: int) -> torch.Tensor:
             ext.append((per_tile(f0.clamp(0, n - 1), float(n), torch.amin),
                         per_tile((f0 + 1).clamp(0, n - 1), -1.0, torch.amax)))
         (ylo, yhi), (xlo, xhi) = ext
-        x0 = torch.div(xlo, 8, rounding_mode="floor") * 8
-        fields.append((ylo, x0, yhi - ylo + 1, torch.ceil((xhi + 1 - x0) / 8) * 8))
+        x0 = torch.div(xlo, align, rounding_mode="floor") * align
+        fields.append((ylo, x0, yhi - ylo + 1, torch.ceil((xhi + 1 - x0) / align) * align))
     (yf, xf, nrf, ncf), (ys, xs, nrs, ncs_) = fields
     plan = torch.stack([yf, xf, ys, xs, nrf, ncf, nrs, ncs_], -1).to(torch.int32)
-    direct = bad | (nrf * ncf + nrs * ncs_ > STAGE_CAP)
+    direct = bad | (nrf * ncf + nrs * ncs_ > cap)
     plan[..., 4:] = plan[..., 4:].masked_fill(direct[..., None], 0)
     return plan.reshape(-1, 8).contiguous()
 
@@ -176,12 +195,61 @@ def pack_stau_weights(wc: torch.Tensor, we: torch.Tensor, wfus: torch.Tensor) ->
 
 
 @functools.lru_cache(maxsize=None)
+def stau_f32_pack_index(n: int, c: int, cout: int) -> torch.Tensor:
+    """Where the gathered part of the packed f32 weights comes from: an int64
+    index into ``cat(wc.flatten(), wfus.flatten(), [0])`` (the last slot, a
+    zero, pads). With CP = ``f32_channels(c)`` and E = CP/8: compress
+    [CP k][E o][4 e] = wc[e, o, k]; then the fusion's first 2 CP rows of 64
+    outputs, [2 CP k][64 o] = wfus[o, k] for k < CP (the sa rows) and
+    wfus[o, C + k - CP] after (the f0 rows). Experts past ``n``, compress
+    outputs past C/8, channels past C and outputs past ``cout`` are zero."""
+    cp, e_n = f32_channels(c), c // 8
+    ep = cp // 8
+    n_wc = n * e_n * c
+    zero = n_wc + cout * 2 * c
+    k, o, e = np.meshgrid(np.arange(cp), np.arange(ep), np.arange(NE_PAD), indexing="ij")
+    wc_idx = np.where((k < c) & (o < e_n) & (e < n), (e * e_n + o) * c + k, zero)
+    k, o = np.meshgrid(np.arange(2 * cp), np.arange(64), indexing="ij")
+    ch, col = np.where(k < cp, k, k - cp), np.where(k < cp, k, c + k - cp)
+    wf_idx = np.where((ch < c) & (o < cout), n_wc + o * 2 * c + col, zero)
+    idx = np.concatenate([wc_idx.reshape(-1), wf_idx.reshape(-1)])
+    return torch.from_numpy(idx.astype(np.int64))
+
+
+def pack_stau_weights_f32(wc: torch.Tensor, we: torch.Tensor, wfus: torch.Tensor) -> torch.Tensor:
+    """The f32 kernel's packed weights, kept on ``wfus`` as
+    ``_savsr_stau_packed_f32`` while the three weights' storages and version
+    counters stay the same: ``stau_f32_pack_index``'s compress block and
+    fusion rows, then the expand folded into the fusion, [4 E (row e E + o)]
+    [64 outputs] = sum_c wfus[out, C + c] we[e, c, o] (in float64, rounded
+    once to f32; zero past ``n`` experts, C/8 outputs and Cout). The kernel
+    computes Wfus_sa sa + Wfus_fea f0 + (Wfus_fea We) stk, which is
+    Wfus [sa; f0 + We stk] in f32, where the fea rounding point of the TPU
+    kernel is a no-op."""
+    key = tuple((t.data_ptr(), t._version) for t in (wc, we, wfus))
+    hit = getattr(wfus, "_savsr_stau_packed_f32", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    n, c, cout = wc.shape[0], wc.shape[2], wfus.shape[0]
+    ep = f32_channels(c) // 8
+    flat = torch.cat([t.detach().reshape(-1).float() for t in (wc, wfus)]
+                     + [wc.new_zeros(1, dtype=torch.float32)])
+    fold = torch.zeros((NE_PAD, ep, 64), dtype=torch.float64, device=wc.device)
+    fold[:n, :c // 8, :cout] = torch.einsum("oc,nce->neo", wfus.detach()[:, c:, 0, 0].double(),
+                                            we.detach()[..., 0, 0].double())
+    packed = torch.cat([flat[stau_f32_pack_index(n, c, cout).to(flat.device)],
+                        fold.float().reshape(-1)])
+    wfus._savsr_stau_packed_f32 = (key, packed)
+    return packed
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from ..csrc.build import load
 
     lib = load("stau")
-    lib.savsr_stau_fused.restype = ctypes.c_int
-    lib.savsr_stau_fused.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.savsr_stau_f32.restype = ctypes.c_int
+    lib.savsr_stau_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.savsr_stau_mma.restype = ctypes.c_int
     lib.savsr_stau_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return lib
@@ -191,10 +259,11 @@ def stau_upsample_fused(x: torch.Tensor, sta: torch.Tensor, pix: torch.Tensor,
                         wc: torch.Tensor, we: torch.Tensor, wfus: torch.Tensor,
                         bias: torch.Tensor, plan: torch.Tensor = None) -> torch.Tensor:
     """x, sta: [B, C, h, w] -> [B, Cout, H, W] (H, W from ``pix``). CPU
-    tensors take the plain version; CUDA tensors launch a kernel: f32 the
-    CUDA-core kernel, bf16 the tensor-core kernel (C in 16, 32, 64, Cout =
-    C, at most 4 experts) on ``plan`` (``stau_window_plan`` of ``pix``, made
-    here when not given)."""
+    tensors take the plain version; CUDA tensors launch a kernel on ``plan``
+    (``stau_window_plan`` of ``pix`` at the dtype's ``plan_geometry``, made
+    here when not given): f32 the CUDA-core kernel (C % 8 == 0, C <= 64,
+    Cout % 4 == 0, Cout <= 64, at most 4 experts), bf16 the tensor-core
+    kernel (C in 16, 32, 64, Cout = C, at most 4 experts)."""
     if not x.is_cuda:
         return stau_upsample_fused_plain(x, sta, pix, wc, we, wfus, bias)
     b, c, h, w = x.shape
@@ -214,24 +283,25 @@ def stau_upsample_fused(x: torch.Tensor, sta: torch.Tensor, pix: torch.Tensor,
     bias_f = bias.float().contiguous()
     xk, sk = x.contiguous(), sta.contiguous()
     out = torch.empty((b, cout, H, W), dtype=dt, device=x.device)
+    rows, cols, cap, align = plan_geometry(dt)
+    nst = -(-H // rows) * -(-W // cols)
+    if plan is None:
+        plan = stau_window_plan(pix, h, w, rows, cols, cap, align)
+    require(plan.is_cuda and plan.dtype == torch.int32 and plan.is_contiguous()
+            and tuple(plan.shape) == (nst, 8), f"stau: plan must be int32 [{nst}, 8]")
     lib = _lib()
     if dt == torch.float32:
-        # kernel layouts: wc rows n*C/8 + o; we [C, n*C/8]; wfus [Cout, 2C]
-        wc_k = wc.reshape(n * (c // 8), c).contiguous()
-        we_k = we[..., 0, 0].permute(1, 0, 2).reshape(c, n * (c // 8)).contiguous()
-        wf_k = wfus.reshape(cout, 2 * c).contiguous()
-        rc = lib.savsr_stau_fused(ptr(xk), ptr(sk), ptr(pix), ptr(wc_k), ptr(we_k), ptr(wf_k),
-                                  ptr(bias_f), ptr(out), b, c, n, cout, h, w, H, W,
-                                  stream_ptr(x))
+        require(c % 8 == 0 and c <= 64 and cout % 4 == 0 and cout <= 64 and n <= NE_PAD,
+                f"stau: f32 takes C % 8 == 0 up to 64, Cout % 4 == 0 up to 64 and at most "
+                f"{NE_PAD} experts, got C={c}, Cout={cout}, {n} experts")
+        wpk = pack_stau_weights_f32(wc, we, wfus)
+        rc = lib.savsr_stau_f32(ptr(xk), ptr(sk), ptr(pix), ptr(plan), ptr(wpk), ptr(bias_f),
+                                ptr(out), b, c, n, cout, h, w, H, W, int(W % 4 == 0),
+                                stream_ptr(x))
     else:
         require(c in (16, 32, 64) and cout == c and n <= NE_PAD,
                 f"stau: bf16 takes C in 16, 32, 64, Cout = C and at most {NE_PAD} experts, "
                 f"got C={c}, Cout={cout}, {n} experts")
-        nst = -(-H // PLAN_ROWS) * -(-W // PLAN_COLS)
-        if plan is None:
-            plan = stau_window_plan(pix, h, w)
-        require(plan.is_cuda and plan.dtype == torch.int32 and plan.is_contiguous()
-                and tuple(plan.shape) == (nst, 8), f"stau: plan must be int32 [{nst}, 8]")
         wpk = pack_stau_weights(wc, we, wfus)
         vec_in = w % 8 == 0 and xk.data_ptr() % 16 == 0 and sk.data_ptr() % 16 == 0
         rc = lib.savsr_stau_mma(ptr(xk), ptr(sk), ptr(pix), ptr(plan), ptr(wpk), ptr(bias_f),

@@ -12,7 +12,9 @@ package's wrapper, back-to-back between CUDA events as ``chip_smoke.py``
 times every kernel; a variant may instead (or also) set a module attribute
 of the wrapper for its call (a launch plan, a tile width). Shapes: STAU and
 the tail at 8 windows of 180x320 LR, x4, C = 64 (STAU with the flagship
-weights' window plan), bf16; STA at 8 windows of 180x320, C = 64, bf16; the
+weights' window plan), bf16, and STAU in f32 (``stau_f32``: the CUDA-core
+kernel on the f32 plan); STA at 8 windows of 180x320, C = 64, bf16, and in
+f32 (``sta_f32``: the CUDA-core kernel); the
 f32 OSConv weight gradient at 8 x 60x60, 192 -> 64, k = 3, padding 1; the
 f32 conv (csrc/conv.cu conv_f32_kernel) at 8 windows of 180x320, 3x3 64 ->
 64 and 1x1 3x64 -> 64. The
@@ -67,8 +69,10 @@ VARIANTS = {
     "stau": {
         "full": [],
         "no bilinear taps": [("    if (!ok[t]) continue;", "    if (true) continue;")],
-        "no staging copies": [("    if (p.nrf == 0) return;\n    const long long off",
-                               "    if (true) return;\n    const long long off")],
+        "no staging copies": [("    if (p.nrf == 0) return;\n    const long long off = (t % B) * chw;\n"
+                               "    stage_issue<CB>",
+                               "    if (true) return;\n    const long long off = (t % B) * chw;\n"
+                               "    stage_issue<CB>")],
         "no mma.sync": [NO_MMA],
         "no pix loads": [
             ("    fy[i] = live[i] ? pix[2 * HW + pbase + px[i]] : 0.f;\n"
@@ -106,6 +110,43 @@ VARIANTS = {
         "no L2 prefetch of the next tile": [("    if (tile + gridDim.x < ntiles)\n      sta_prefetch",
                                              "    if (tile < 0)\n      sta_prefetch")],
     },
+    "stau_f32": {
+        "full": [],
+        "no staging copies": [("    for (int c = 0; c < C; c += 4, g += 4 * hw, d += 4 * FS_CAP) "
+                               "cp_async4_zfill(d, g, ok);",
+                               "    for (int c = 0; c < C && h < 0; c += 4, g += 4 * hw, d += 4 * FS_CAP) "
+                               "cp_async4_zfill(d, g, ok);")],
+        "no bilinear tap loads": [
+            ("          const float4 v0 = *reinterpret_cast<const float4*>(s0 + c * FS_CAP);\n"
+             "          const float4 v1 = *reinterpret_cast<const float4*>(s1 + c * FS_CAP);\n"
+             "          const float4 v2 = *reinterpret_cast<const float4*>(s2 + c * FS_CAP);\n"
+             "          const float4 v3 = *reinterpret_cast<const float4*>(s3 + c * FS_CAP);",
+             "          const float4 v0 = make_float4(wt[0], c, 1.f, 2.f), v1 = v0, v2 = v0, v3 = v0;")],
+        "no expert products": [("      if (lt < E * 16) {", "      if (lt < 0) {"),
+                               ("      gemm_rows<K>(acc,", "      gemm_rows<1>(acc,")],
+        "no fusion product": [("      gemm_rows<CP>(acc, fsm + Cfg::WF_OFF + 8 * og",
+                               "      gemm_rows<1>(acc, fsm + Cfg::WF_OFF + 8 * og"),
+                              ("      gemm_rows<CP>(acc, fsm + Cfg::WF_OFF + CP * FS_OMAX",
+                               "      gemm_rows<1>(acc, fsm + Cfg::WF_OFF + CP * FS_OMAX")],
+        "no output stores": [("      if (f.vec_out && f.X + 4 <= f.W) {",
+                              "      if (v[0] != 12345.f) continue;\n"
+                              "      if (f.vec_out && f.X + 4 <= f.W) {")],
+    },
+    "sta_f32": {
+        "full": [],
+        "no weight streaming": [("    cp_async16(dst + 4 * e, src + 4 * e);",
+                                 "    if (e < 0) cp_async16(dst + 4 * e, src + 4 * e);")],
+        "no tile staging": [("    sta_f32_stage<CP>(s_st, s_x, x, st, b, y0, x0, C, H, W);",
+                             "    if (tile < 0) sta_f32_stage<CP>(s_st, s_x, x, st, b, y0, x0, C, H, W);")],
+        "no K product": [("      for (int ci = 0; ci < CP; ++ci) {", "      for (int ci = 0; ci < 1; ++ci) {")],
+        "no x loads in the epilogue": [
+            ("          o[i][j] = fmaf(v, xb[8 * i * F_CS + (j >> 2) * 4 * F_HC + 8 * (j & 3)], o[i][j]);",
+             "          o[i][j] = fmaf(v, 0.5f, o[i][j]);")],
+        "no L2 prefetch of the next tile": [("    if (tile + gridDim.x < ntiles) {\n      const int nt",
+                                             "    if (tile < 0) {\n      const int nt")],
+        "3 of 25 taps": [("    for (int t = 0; t < TAPS; ++t, ++step) {",
+                          "    for (int t = 0; t < 3; ++t, ++step) {")],
+    },
     "osconv_dagg": {
         "full": [],
         "no staging copies": [
@@ -128,7 +169,8 @@ VARIANTS = {
 }
 
 
-SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv"}
+SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv", "stau_f32": "stau",
+          "sta_f32": "sta"}
 
 
 def _edits(variant):
@@ -201,15 +243,22 @@ def main(argv=None) -> int:
                       np.load(os.path.join(cs.GOLDENS, "savsr_state_dict.npz")).items()})
     model.to(device)
     with cs.float32_precision(True):
-        st = model.stau_statics(cs.LR_HW, cs.SCALE, device=device)
-    up, bf = model.upsample, torch.bfloat16
+        st = model.stau_statics(cs.LR_HW, cs.SCALE, device=device)  # the f32 plan
+    up, bf, f32 = model.upsample, torch.bfloat16, torch.float32
     kc = up.kernel_conv[0]
     tb, th, tw = cs.TRAIN_B, *cs.TRAIN_HW
     calls = {
         "stau": (stau, "stau_upsample_fused", (
             cs._rand(rng, (b, c, h, w), bf, device), cs._rand(rng, (b, c, h, w), bf, device),
             st["pix"], up.weight_compress.to(bf), up.weight_expand.to(bf), up.fusion.weight.to(bf),
-            up.fusion.bias), {"plan": st["stau_plan"]}),
+            up.fusion.bias), {"plan": stau.stau_window_plan(st["pix"], h, w)}),
+        "stau_f32": (stau, "stau_upsample_fused", (
+            cs._rand(rng, (b, c, h, w), f32, device), cs._rand(rng, (b, c, h, w), f32, device),
+            st["pix"], up.weight_compress, up.weight_expand, up.fusion.weight, up.fusion.bias),
+            {"plan": st["stau_plan"]}),
+        "sta_f32": (sta, "sta_conv_fused", (
+            cs._rand(rng, (b, c, h, w), f32, device), cs._rand(rng, (b, c, h, w), f32, device),
+            kc.weight, kc.bias), {}),
         "tail": (tail, "tail_fused", (
             cs._rand(rng, (b, c, H, W), bf, device),
             torch.from_numpy(rng.random((b, 3, h, w)).astype(np.float32)).to(device, bf),

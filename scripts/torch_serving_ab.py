@@ -24,12 +24,14 @@ Per checkout:
   forward of 8 windows unprofiled (median of 3) and under torch.profiler,
   its device busy time and the device time of the STA, STAU and tail
   kernels;
-- with ``--strict``: every ``chip_smoke.CONV_CASES`` row in f32 (the
+- with ``--strict``: the f32 ``sta_case`` and ``stau_case`` rows (the
+  strict tier's CUDA-core STA and STAU kernels, STAU on the f32 statics'
+  sampler planes), every ``chip_smoke.CONV_CASES`` row in f32 (the
   checkout's own ``chip_smoke.conv_case``: kernel against plain version,
   back-to-back ms, ``F.conv2d`` with TF32 off, bound), and the same profile
   of one strict-tier (f32) forward of 8 windows, with the device time of
   the f32 conv kernels (``conv_f32_kernel`` and its reduce pass, or an older
-  checkout's ``conv_fused_kernel``).
+  checkout's ``conv_fused_kernel``) and of the STA, STAU and tail kernels.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def profile(cs, model, device, dtype) -> dict:
         model(x, cs.SCALE, stau_statics=statics)
         torch.cuda.synchronize()
     rows = cs.device_rows(prof)
-    kernels = {name: ms for name, ms, _ in rows
+    kernels = {cs.short_name(name): ms for name, ms, _ in rows
                if cs.short_name(name).startswith(("sta", "tail", "conv_f32", "conv_fused"))}
     f32 = [(ms, n) for name, ms, n in rows
            if cs.short_name(name).startswith(("conv_f32", "conv_fused"))]
@@ -100,6 +102,8 @@ def child(root: str, out_path: str, strict: bool) -> None:
                 cs.stau_case(rng, model, statics, torch.bfloat16, device),
                 cs.tail_case(rng, model, torch.bfloat16, device)]
         if strict:
+            rows += [cs.sta_case(rng, model, torch.float32, device),
+                     cs.stau_case(rng, model, statics, torch.float32, device)]
             rows += [cs.conv_case(rng, *case, torch.float32, device) for case in cs.CONV_CASES]
     del model
     profiles = {}
@@ -113,7 +117,7 @@ def child(root: str, out_path: str, strict: bool) -> None:
         log(f"serving forward {tier}, {cs.WINDOWS} windows {cs.LR_HW[0]}x{cs.LR_HW[1]} x4: "
             f"{prof['forward_ms']:.2f} ms unprofiled, device busy {prof['device_ms']:.2f} ms "
             f"(f32 conv {prof['f32_conv_ms']:.2f} ms in {prof['f32_conv_launches']} launches); "
-            + "; ".join(f"{cs.short_name(k)} {v:.4f} ms" for k, v in prof["kernels"].items()))
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in prof["kernels"].items()))
     with open(out_path, "w") as f:
         json.dump({"root": root, "cases": rows, "profile": profiles["bf16"],
                    "strict_profile": profiles.get("strict")}, f)
@@ -146,16 +150,23 @@ def main(argv=None) -> int:
             with open(path) as f:
                 results.append(json.load(f))
     for r in results:
-        by = {c["name"]: c for c in r["cases"]}
+        by = {c["name"]: c for c in r["cases"] if c["dtype"] == "bf16"}
         print(f"[ab] {r['root']}: sta {by['sta']['ms']:.4f} ms (bound {by['sta']['bound_ms']:.4f}), "
               f"stau {by['stau']['ms']:.4f} ms, tail {by['tail']['ms']:.4f} ms "
               f"(library {by['tail']['library_ms']:.4f}), device busy "
               f"{r['profile']['device_ms']:.2f} ms per forward", flush=True)
         if r["strict_profile"]:
-            f32 = [c for c in r["cases"] if c["dtype"] == "f32"]
-            print(f"[ab] {r['root']}: strict forward device busy "
-                  f"{r['strict_profile']['device_ms']:.2f} ms (f32 conv "
-                  f"{r['strict_profile']['f32_conv_ms']:.2f} ms); f32 conv rows ms (F.conv2d): "
+            f32 = [c for c in r["cases"] if c["dtype"] == "f32" and c["name"].startswith("conv")]
+            sp = r["strict_profile"]
+            print(f"[ab] {r['root']}: strict forward device busy {sp['device_ms']:.2f} ms "
+                  f"(f32 conv {sp['f32_conv_ms']:.2f} ms; "
+                  + "; ".join(f"{k} {v:.4f} ms" for k, v in sp["kernels"].items()
+                              if not k.startswith("conv"))
+                  + "); f32 sta / stau rows ms (bound): "
+                  + "; ".join(f"{c['name']} {c['ms']:.4f} ({c['bound_ms']:.4f})"
+                              for c in r["cases"] if c["dtype"] == "f32"
+                              and c["name"] in ("sta", "stau"))
+                  + "; f32 conv rows ms (F.conv2d): "
                   + "; ".join(f"{c['case']} {c['ms']:.4f} ({c['library_ms']:.4f})" for c in f32),
                   flush=True)
     if args.out:

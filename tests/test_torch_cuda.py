@@ -23,8 +23,8 @@ from savsr_tpu_torch.archs.savsr_arch import (SAVSR, STAUpsample, _stau_head, ge
                                               stau_sampler_planes, tail_operands)
 from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
-from savsr_tpu_torch.ops.stau import (stau_upsample_fused, stau_upsample_fused_plain,
-                                      stau_window_plan)
+from savsr_tpu_torch.ops.stau import (plan_geometry, stau_upsample_fused,
+                                      stau_upsample_fused_plain, stau_window_plan)
 from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
 
 pytestmark = pytest.mark.cuda
@@ -245,6 +245,121 @@ def test_sta_bf16_kernel_matches_plain(dev, case):
     tol = TOL[torch.bfloat16] * float(want.abs().max())
     for edge in (np.s_[..., :2, :], np.s_[..., -2:, :], np.s_[..., :, :2], np.s_[..., :, -2:]):
         assert float((got[edge] - want[edge]).abs().max()) <= tol
+
+
+# the f32 STA kernel (CUDA cores: persistent 8 x 32-pixel tiles, C padded to
+# 16, 32 or 64): C 16, 32 and 64, h and w off the tile (5x7, 9x37, 17x33,
+# 12x70), batch 1 and 8 (b, c, (h, w))
+STA_F32 = [(b, c, hw) for c in (16, 32, 64)
+           for b, hw in ((1, (5, 7)), (8, (9, 37)), (1, (17, 33)), (8, (12, 70)))]
+
+
+def _sta_f32_check(dev, dtype, b, c, h, w):
+    """Kernel against plain version with inputs of std 4 and weights of std
+    2/sqrt(C) (K spans many binades), each replicate-padded border (two rows
+    or columns at each edge) on its own, a second launch bit for bit, and
+    the f32 packing on the weight."""
+    rng = np.random.default_rng(c + h + w)
+    x, st = (_rand(rng, (b, c, h, w), dtype, dev, 4.0) for _ in range(2))
+    wk = _rand(rng, (25 * c, c, 1, 1), dtype, dev, 2 * c ** -0.5)
+    bk = _rand(rng, (25 * c,), dtype, dev, 0.5)
+    got = _agree(lambda: sta_conv_fused(x, st, wk, bk), lambda: sta_conv_fused_plain(x, st, wk, bk),
+                 dtype, "sta")
+    assert hasattr(wk, "_savsr_sta_packed_f32")
+    with torch.no_grad():
+        want = sta_conv_fused_plain(x, st, wk, bk).float()
+        again = sta_conv_fused(x, st, wk, bk).float()
+    assert torch.equal(got, again)
+    tol = TOL[dtype] * float(want.abs().max())
+    for edge in (np.s_[..., :2, :], np.s_[..., -2:, :], np.s_[..., :, :2], np.s_[..., :, -2:]):
+        assert float((got[edge] - want[edge]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("case", STA_F32, ids=[f"b{c[0]}-c{c[1]}-{c[2][0]}x{c[2][1]}"
+                                               for c in STA_F32])
+def test_sta_f32_kernel_matches_plain(dev, case):
+    b, c, (h, w) = case
+    _sta_f32_check(dev, torch.float32, b, c, h, w)
+
+
+@pytest.mark.parametrize("c", [24, 48])
+def test_sta_bf16_other_channels_kernel_matches_plain(dev, c):
+    """bf16 at a C the tensor cores do not take: the CUDA-core kernel on
+    inputs widened to f32, K rounded to bf16, the output rounded once."""
+    _sta_f32_check(dev, torch.bfloat16, 8, c, 9, 37)
+
+
+# the f32 STAU kernel (CUDA cores, tiles of 2 HR rows x 64 HR columns, staged
+# LR windows as channel rows): C 16, 32 and 64, the three serving scales, LR
+# widths off a multiple of 4 (4-byte copies), a multiple of 4 but not 8, and
+# a multiple of 8 (16-byte copies), every H and W off the tile, batch 1 and
+# 8 (b, c, (h, w), scale)
+STAU_F32 = [(b, c, hw, scale) for b, c, hw in ((1, 16, (13, 23)), (8, 64, (12, 40)),
+                                                (8, 32, (9, 20)), (1, 64, (17, 21)))
+            for scale in ((4.0, 4.0), (1.5, 3.5), (3.05, 3.05))]
+
+
+def _stau_f32_case(dev, b, c, hw, scale, seed, large=False):
+    """Seeded weights (std 0.3), the sampler planes of their coordinate head
+    (plus offsets of up to +-24 LR px on the upper left HR block with
+    ``large``), the f32 plan; kernel against plain version, and a second
+    launch bit for bit. Returns the plan."""
+    m = STAUpsample(c)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * 0.3))
+    m.to(dev)
+    h, w = hw
+    with torch.no_grad():
+        pix = stau_sampler_planes(_stau_head(m, h, w, scale, torch.float32, dev), scale, h, w)
+    if large:
+        off = torch.from_numpy(rng.uniform(-24, 24, (4, 16, 64)).astype(np.float32)).to(dev)
+        pix[:4, :16, :64] += off
+    plan = stau_window_plan(pix, h, w, *plan_geometry(torch.float32))
+    x, sta = _rand(rng, (b, c, h, w), torch.float32, dev), _rand(rng, (b, c, h, w),
+                                                                  torch.float32, dev)
+    args = (x, sta, pix, m.weight_compress, m.weight_expand, m.fusion.weight, m.fusion.bias)
+    got = _agree(lambda: stau_upsample_fused(*args, plan=plan),
+                 lambda: stau_upsample_fused_plain(*args), torch.float32, "stau")
+    with torch.no_grad():
+        assert torch.equal(got, stau_upsample_fused(*args, plan=plan).float())
+    return plan
+
+
+@pytest.mark.parametrize("case", STAU_F32, ids=[f"b{c[0]}-c{c[1]}-{c[2][0]}x{c[2][1]}-x{c[3][0]}"
+                                                for c in STAU_F32])
+def test_stau_f32_kernel_matches_plain(dev, case):
+    plan = _stau_f32_case(dev, *case, seed=sum(case[2]) + case[1])
+    assert bool((plan[:, 4] > 0).all())  # every tile staged
+
+
+@pytest.mark.parametrize("b,c", [(1, 64), (8, 32)])
+def test_stau_f32_kernel_direct_tiles(dev, b, c):
+    """Large offsets: the f32 plan marks tiles for the gather from device
+    memory, and those tiles agree as well."""
+    plan = _stau_f32_case(dev, b, c, (20, 40), (4.0, 4.0), seed=c, large=True)
+    assert 0 < int((plan[:, 4] == 0).sum()) < plan.shape[0]
+
+
+def test_stau_f32_kernel_other_widths(dev):
+    """C = 24 (padded to 32), 12 outputs, 3 experts, and no plan given (the
+    wrapper plans)."""
+    m = STAUpsample(24, num_experts=3)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * 0.3))
+    m.to(dev)
+    h, w, scale = 11, 19, (2.5, 1.7)
+    with torch.no_grad():
+        pix = stau_sampler_planes(_stau_head(m, h, w, scale, torch.float32, dev), scale, h, w)
+    x, sta = (_rand(rng, (2, 24, h, w), torch.float32, dev) for _ in range(2))
+    args = (x, sta, pix, m.weight_compress, m.weight_expand,
+            _rand(rng, (12, 48, 1, 1), torch.float32, dev, 0.3),
+            _rand(rng, (12,), torch.float32, dev, 0.3))
+    _agree(lambda: stau_upsample_fused(*args), lambda: stau_upsample_fused_plain(*args),
+           torch.float32, "stau")
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

@@ -1,5 +1,7 @@
-"""The bf16 tensor-core STA kernel's host-side layout and its order of
-arithmetic, replayed on the CPU (csrc/sta.cu ``sta_mma_kernel``, ops/sta.py).
+"""The STA kernels' host-side layouts and their order of arithmetic,
+replayed on the CPU (csrc/sta.cu ``sta_mma_kernel`` and ``sta_f32_kernel``,
+ops/sta.py). The f32 kernel's packing (``sta_f32_pack_index``) is replayed
+by ``_replay_f32`` at the end of this file.
 
 The kernel reads its weights from ``sta_pack_index``'s packing and computes,
 per tap t: K_t = bf16-input product summed in f32 + bias (f32), the
@@ -26,8 +28,9 @@ import torch.nn.functional as F
 
 from savsr_tpu.archs.arch_util import Ctx
 from savsr_tpu.archs.savsr_arch import _stau_sta_rows
-from savsr_tpu_torch.ops.sta import (MMA_CHANNELS, TAPS, WG_TAPS, pack_sta_weights,
-                                     sta_conv_fused_plain, sta_pack_index)
+from savsr_tpu_torch.ops.sta import (MMA_CHANNELS, TAPS, WG_TAPS, f32_channels,
+                                     pack_sta_weights, pack_sta_weights_f32,
+                                     sta_conv_fused_plain, sta_f32_pack_index, sta_pack_index)
 
 ONE_STEP = 2.0 ** -8  # one bf16 step, relative to the largest output
 
@@ -119,3 +122,99 @@ def test_replay_matches_pallas():
     want = np.asarray(rows.astype(jnp.float32))[..., :w].transpose(0, 2, 1, 3)  # [B, C, h, w]
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= ONE_STEP * np.abs(want).max()
+
+
+# the f32 kernel (CUDA cores): C padded to 16, 32 or 64; each column of the
+# packed weights and bias is the channel the kernel's thread group reads
+F32_CHANNELS = [4, 16, 24, 40, 64]
+
+
+@pytest.mark.parametrize("c", F32_CHANNELS)
+def test_f32_pack_index_places_every_weight_once(c):
+    """Every weight and bias element lands in exactly one packed slot, at
+    [tap][ci][column] with column 8 cg + i holding channel cg + 8i; every
+    other slot (rows or columns past C) is the zero."""
+    cp = f32_channels(c)
+    w_idx, b_idx = sta_f32_pack_index(c)
+    assert w_idx.shape == (TAPS * cp * cp,) and b_idx.shape == (TAPS * cp,)
+    real = w_idx[w_idx < TAPS * c * c]
+    assert torch.equal(torch.sort(real).values, torch.arange(TAPS * c * c))
+    assert int((w_idx == TAPS * c * c).sum()) == TAPS * (cp * cp - c * c)
+    assert torch.equal(torch.sort(b_idx[b_idx < TAPS * c]).values, torch.arange(TAPS * c))
+    t, ci, col = 3, min(2, c - 1), 9 % cp  # column 9: channel cg + 8 i
+    ch = col // (cp // 8) + 8 * (col % (cp // 8))
+    if ch < c:
+        assert int(w_idx[(t * cp + ci) * cp + col]) == (ch * TAPS + t) * c + ci
+        assert int(b_idx[t * cp + col]) == ch * TAPS + t
+
+
+def _replay_f32(x, st, packed, bias_p, c, round_k=False):
+    """The f32 kernel's arithmetic from its packed weights: per tap t, K =
+    W_t^T st + bias in f32 for the padded channel columns, the abs-form
+    LeakyReLU (rounded to bf16 with ``round_k``), times x at the tap's
+    replicate-clamped pixel, summed over taps in order; columns mapped back
+    to channels."""
+    b, _, h, w = x.shape
+    cp = f32_channels(c)
+    wt = packed.reshape(TAPS, cp, cp)          # [tap][ci][column]
+    bt = bias_p.reshape(TAPS, cp)
+    col = torch.arange(cp)
+    ch = col // (cp // 8) + 8 * (col % (cp // 8))
+    stp = F.pad(st.float(), (0, 0, 0, 0, 0, cp - c))
+    xp = F.pad(F.pad(x.float(), (2, 2, 2, 2), mode="replicate"), (0, 0, 0, 0, 0, cp - c))
+    out = torch.zeros((b, cp, h, w))
+    for t in range(TAPS):
+        dy, dx = divmod(t, 5)
+        k = torch.einsum("ij,bihw->bjhw", wt[t], stp) + bt[t][None, :, None, None]
+        k = 0.55 * k + 0.45 * k.abs()
+        if round_k:
+            k = k.to(torch.bfloat16).float()
+        out = out + k * xp[:, ch, dy:dy + h, dx:dx + w]
+    back = torch.empty_like(out)
+    back[:, ch] = out
+    return back[:, :c]
+
+
+@pytest.mark.parametrize("c", F32_CHANNELS)
+def test_f32_pack_replays_plain(c):
+    """The replay from the packed weights against sta_conv_fused_plain in
+    f32: within 1e-5 of the output's largest magnitude (sums in another
+    order)."""
+    rng = np.random.default_rng(c)
+    f = lambda shape, s: torch.from_numpy(  # noqa: E731
+        (s * rng.standard_normal(shape)).astype(np.float32))
+    x, st = f((2, c, 7, 9), 2.0), f((2, c, 7, 9), 2.0)
+    wk, bk = f((TAPS * c, c, 1, 1), c ** -0.5), f((TAPS * c,), 0.3)
+    packed, bias_p = pack_sta_weights_f32(wk, bk)
+    got = _replay_f32(x, st, packed, bias_p, c)
+    want = sta_conv_fused_plain(x, st, wk, bk)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_f32_pack_with_rounded_k_replays_plain_bf16():
+    """bf16 at a C the tensor cores do not take (24): the kernel runs on the
+    widened inputs with K rounded to bf16 and the output rounded once; the
+    replay against the plain bf16 version within one bf16 step."""
+    x, st, wk, bk = _inputs(24, 2, 9, 11, seed=5, scale=4.0)
+    packed, bias_p = pack_sta_weights_f32(wk, bk)
+    got = _replay_f32(x, st, packed, bias_p, 24, round_k=True).to(torch.bfloat16).float()
+    want = sta_conv_fused_plain(x, st, wk, bk).float()
+    assert float((got - want).abs().max()) <= ONE_STEP * float(want.abs().max())
+
+
+def test_f32_pack_cache_is_apart_from_the_bf16_packing():
+    """The f32 packing is cached on the weight beside, not in place of, the
+    bf16 one, reused while weight and bias are unchanged, and made again
+    after an in-place write."""
+    c = 16
+    w = torch.randn(TAPS * c, c, 1, 1)
+    b = torch.randn(TAPS * c)
+    bf16_pack = pack_sta_weights(w, b)
+    first = pack_sta_weights_f32(w, b)
+    assert pack_sta_weights_f32(w, b)[0] is first[0]
+    assert pack_sta_weights(w, b)[0] is bf16_pack[0]
+    assert first[0].dtype == torch.float32 and first[0].shape == (TAPS * c * c,)
+    w.mul_(2.0)
+    again = pack_sta_weights_f32(w, b)
+    assert again[0] is not first[0]
+    assert torch.equal(again[0], 2.0 * first[0])

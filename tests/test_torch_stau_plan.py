@@ -1,8 +1,10 @@
-"""The layout steps of the bf16 STAU and tail kernels (savsr_tpu_torch/ops/
-stau.py, ops/tail.py), replayed on the CPU: the STAU window plan
-(``stau_window_plan``), the staged gather from the planned boxes with
-channels innermost, and the packed mma B fragments of both kernels
-(``pack_stau_weights``, ``pack_tail_weights``).
+"""The layout steps of the STAU and tail kernels (savsr_tpu_torch/ops/
+stau.py, ops/tail.py), replayed on the CPU: the STAU window plans
+(``stau_window_plan`` at the bf16 and the f32 kernel's tile and capacity),
+the bf16 kernel's staged gather from the planned boxes with channels
+innermost and the f32 kernel's from channel rows, the packed mma B
+fragments of the bf16 kernels (``pack_stau_weights``, ``pack_tail_weights``)
+and the f32 kernel's packed weights (``pack_stau_weights_f32``).
 
 The kernels run only on the card (chip_smoke.py, tests/test_torch_cuda.py);
 here their data movement is replayed in PyTorch and held to the plain
@@ -11,6 +13,7 @@ arithmetic on the same values), the products on the unpacked fragments to
 the plain versions within 1e-5 (f32, summation order).
 """
 
+import hashlib
 import os
 
 import numpy as np
@@ -19,9 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from savsr_tpu_torch.archs.savsr_arch import SAVSR, STAUpsample, get_hw, tail_operands
-from savsr_tpu_torch.ops.stau import (PLAN_COLS, PLAN_ROWS, STAGE_CAP, bilinear_gather,
-                                      pack_stau_weights, stau_upsample_fused_plain,
-                                      stau_window_plan)
+from savsr_tpu_torch.ops.stau import (F32_PLAN_COLS, F32_PLAN_ROWS, F32_STAGE_CAP, PLAN_COLS,
+                                      PLAN_ROWS, STAGE_CAP, bilinear_gather, f32_channels,
+                                      pack_stau_weights, pack_stau_weights_f32, plan_geometry,
+                                      stau_upsample_fused_plain, stau_window_plan)
 from savsr_tpu_torch.ops.tail import pack_tail_weights, tail_fused_plain
 from savsr_tpu_torch.utils.convert import load_into
 
@@ -95,7 +99,7 @@ def test_window_plan_covers_every_tap_and_staged_gather_is_exact(small_model, sc
     tile's box, every box fits the staging, and the staged gather equals
     bilinear_gather bit for bit."""
     h, w = LR
-    st = small_model.stau_statics(LR, scale)
+    st = small_model.stau_statics(LR, scale, dtype=torch.bfloat16)
     pix, plan = st["pix"], st["stau_plan"]
     H, W = get_hw(h, w, scale)
     assert tuple(plan.shape) == (-(-H // PLAN_ROWS) * -(-W // PLAN_COLS), 8)
@@ -223,3 +227,170 @@ def test_tail_weight_packing_replays_the_plain_conv(c):
     got = conv.permute(0, 3, 1, 2) + bias.view(1, 3, 1, 1) + skip
     want = tail_fused_plain(sr, xc, *args, weight, bias)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def _seeded_pix():
+    """Sampler planes on a 30x44 -> 117x171 grid with small seeded offsets,
+    offsets of up to +-20 LR px on one block of HR pixels and one non-finite
+    coordinate."""
+    h, w, H, W = 30, 44, 117, 171
+    rng = np.random.default_rng(11)
+    gy, gx = np.meshgrid((np.arange(H) + 0.5) * h / H - 0.5, (np.arange(W) + 0.5) * w / W - 0.5,
+                         indexing="ij")
+    off = rng.uniform(-0.6, 0.6, (4, H, W))
+    off[:, :40, 60:130] += rng.uniform(-20, 20, (4, 40, 70))
+    pix = np.concatenate([np.stack([gy, gx, gy, gx]) + off, rng.random((4, H, W))])
+    pix = pix.astype(np.float32)
+    pix[1, 100, 5] = np.nan
+    return torch.from_numpy(pix), h, w
+
+
+def test_bf16_window_plan_is_unchanged():
+    """The bf16 plan (the default geometry) is bit for bit the plan of the
+    kernel's first release on seeded coordinates (its digest), with the
+    oversize and non-finite tiles marked direct."""
+    pix, h, w = _seeded_pix()
+    plan = stau_window_plan(pix, h, w)
+    assert plan_geometry(torch.bfloat16) == (PLAN_ROWS, PLAN_COLS, STAGE_CAP, 8)
+    assert torch.equal(plan, stau_window_plan(pix, h, w, PLAN_ROWS, PLAN_COLS, STAGE_CAP, 8))
+    assert int((plan[:, 4] == 0).sum()) == 16
+    assert hashlib.sha256(plan.numpy().tobytes()).hexdigest() == (
+        "3870509b16c13c3d162b7e4fe9ef5cd01631d3213f4f086a7dcf097a4dadfbac")
+
+
+def staged_gather_rows(x, fy, fx, plan, sampler, rows, cols, cap):
+    """The f32 kernel's gather for one sampler: per tile, both planned boxes
+    staged with channel quads innermost, channel c of box pixel pos (the f
+    box from slot 0, the s box after it; columns past the image zero) at
+    [c // 4][slot][c % 4] of a [C/4][cap][4] buffer; every tap as (weight,
+    slot), weight 0 at the box's first slot for taps off the image, summed
+    in tap order. Tiles without boxes read ``x`` itself. Every in-image tap
+    of a staged tile must lie in its box."""
+    b, c, h, w = x.shape
+    H, W = fy.shape
+    ncs = -(-W // cols)
+    out = torch.zeros(b, c, H, W)
+    for t, p in enumerate(plan.tolist()):
+        Y0, X0 = (t // ncs) * rows, (t % ncs) * cols
+        ys, xs = slice(Y0, min(Y0 + rows, H)), slice(X0, min(X0 + cols, W))
+        ty, tx = fy[ys, xs], fx[ys, xs]
+        if p[4] == 0:
+            out[:, :, ys, xs] = bilinear_gather(x, ty, tx)
+            continue
+        stage = torch.full((b, c // 4, cap, 4), float("nan"))
+        base = 0
+        for s_ in (0, 1):
+            y0, x0, nr, nc = p[2 * s_], p[2 * s_ + 1], p[4 + 2 * s_], p[5 + 2 * s_]
+            box = F.pad(x.float(), (0, max(x0 + nc - w, 0)))[:, :, y0:y0 + nr, x0:x0 + nc]
+            quads = box.reshape(b, c // 4, 4, nr * nc).transpose(2, 3)
+            stage[:, :, base:base + nr * nc] = quads
+            if s_ == sampler:
+                y0s, x0s, ncs_, bases = y0, x0, nc, base
+            base += nr * nc
+        assert base <= cap
+        yf, xf = torch.floor(ty), torch.floor(tx)
+        acc = torch.zeros(b, c, *ty.shape)
+        for dy, wy in ((0, 1.0 - (ty - yf)), (1, ty - yf)):
+            for dx, wx in ((0, 1.0 - (tx - xf)), (1, tx - xf)):
+                yy, xx = yf + dy, xf + dx
+                ok = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+                ry, rx = (yy - y0s)[ok], (xx - x0s)[ok]
+                assert bool(((ry >= 0) & (rx >= 0) & (rx < ncs_)).all()), t
+                slot = torch.where(ok, bases + (yy - y0s) * ncs_ + (xx - x0s), bases).long()
+                assert bool((slot < base).all())
+                v = stage[:, :, slot.reshape(-1)].permute(0, 1, 3, 2).reshape(acc.shape)
+                acc = acc + torch.where(ok, wy * wx, 0.0) * v
+        out[:, :, ys, xs] = acc
+    return out
+
+
+@pytest.mark.parametrize("scale", SCALES, ids=str)
+def test_f32_window_plan_covers_every_tap_and_staged_gather_is_exact(small_model, scale):
+    """The f32 statics carry the f32 kernel's plan (2 x 64 HR tiles, 320
+    slots, exact boxes, no column alignment): on the small config every tile
+    is staged within the capacity, every box is the exact span of its taps,
+    and the kernel's gather from its staged boxes equals bilinear_gather bit
+    for bit."""
+    h, w = LR
+    st = small_model.stau_statics(LR, scale, dtype=torch.float32)
+    pix, plan = st["pix"], st["stau_plan"]
+    H, W = get_hw(h, w, scale)
+    assert plan_geometry(torch.float32) == (F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP, 1)
+    assert tuple(plan.shape) == (-(-H // F32_PLAN_ROWS) * -(-W // F32_PLAN_COLS), 8)
+    assert torch.equal(plan, stau_window_plan(pix, h, w, *plan_geometry(torch.float32)))
+    sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
+    assert bool((sizes > 0).all() & (sizes <= F32_STAGE_CAP).all())
+    aligned = stau_window_plan(pix, h, w, F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP)
+    assert bool((plan[:, 5] <= aligned[:, 5]).all() & (plan[:, 7] <= aligned[:, 7]).all())
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 16, h, w)).astype(np.float32))
+    for s in (0, 1):
+        got = staged_gather_rows(x, pix[2 * s], pix[2 * s + 1], plan, s, F32_PLAN_ROWS,
+                                 F32_PLAN_COLS, F32_STAGE_CAP)
+        assert torch.equal(got, bilinear_gather(x, pix[2 * s], pix[2 * s + 1]))
+
+
+def test_f32_window_plan_sends_oversize_and_nonfinite_tiles_direct():
+    """At the f32 geometry, the tiles whose boxes exceed 320 slots and the
+    tile with a non-finite coordinate get zero sizes, no other tile does,
+    and the replay on that plan (staged and direct tiles; the coordinates
+    made finite, as bilinear_gather needs) equals bilinear_gather."""
+    pix, h, w = _seeded_pix()
+    rows, cols, cap, align = plan_geometry(torch.float32)
+    plan = stau_window_plan(pix, h, w, rows, cols, cap, align)
+    unbounded = stau_window_plan(torch.nan_to_num(pix), h, w, rows, cols, 10 ** 9, align)
+    sizes = unbounded[:, 4] * unbounded[:, 5] + unbounded[:, 6] * unbounded[:, 7]
+    direct = plan[:, 4] == 0
+    bad = torch.zeros_like(direct)
+    bad[(100 // rows) * -(-pix.shape[2] // cols) + 5 // cols] = True
+    assert torch.equal(direct, (sizes > cap) | bad)
+    assert 1 < int(direct.sum()) < plan.shape[0]
+    assert bool((plan[direct, 4:] == 0).all())
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 8, h, w)).astype(np.float32))
+    pix = torch.nan_to_num(pix)
+    for s in (0, 1):
+        got = staged_gather_rows(x, pix[2 * s], pix[2 * s + 1], plan, s, rows, cols, cap)
+        assert torch.equal(got, bilinear_gather(x, pix[2 * s], pix[2 * s + 1]))
+
+
+@pytest.mark.parametrize("c,cout,n", [(8, 8, 4), (24, 12, 3), (64, 64, 4)])
+def test_stau_f32_weight_packing_replays_the_plain_products(c, cout, n):
+    """The f32 kernel's chain on its packed weights (C padded to 16, 32 or
+    64, 4 experts, 64 outputs; compress [CP][E][4], then the fusion rows
+    [2CP + 4E][64]: sa, f0 and the expand folded in), pixels as columns,
+    with the routing between, against stau_upsample_fused_plain in f32:
+    <= 1e-5; padded slots are zero and the folded rows are Wfus_fea We."""
+    rng = np.random.default_rng(c + n)
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        (0.2 * rng.standard_normal(shape)).astype(np.float32))
+    wc, we, wf, bias = f(n, c // 8, c, 1, 1), f(n, c, c // 8, 1, 1), f(cout, 2 * c, 1, 1), f(cout)
+    packed = pack_stau_weights_f32(wc, we, wf)
+    assert pack_stau_weights_f32(wc, we, wf) is packed  # cached
+    cp = f32_channels(c)
+    e = cp // 8
+    Wc = packed[:cp * e * 4].reshape(cp, e, 4)
+    Wf = packed[cp * e * 4:].reshape(2 * cp + 4 * e, 64)
+    assert not Wf[:, cout:].any() and not Wf[c:cp].any() and not Wf[cp + c:2 * cp].any()
+    assert not Wc[c:].any() and not Wc[:, c // 8:].any() and not Wc[..., n:].any()
+    fold = Wf[2 * cp:].reshape(4, e, 64)
+    want_fold = torch.einsum("oc,nce->neo", wf[:, c:, 0, 0].double(), we[..., 0, 0].double())
+    assert torch.equal(fold[:n, :c // 8, :cout], want_fold.float())
+    assert not fold[n:].any() and not fold[:, c // 8:].any()
+    h, w, H, W = 5, 6, 11, 13
+    x, sta = f(1, c, h, w) * 5, f(1, c, h, w) * 5
+    pix = torch.from_numpy(np.concatenate([rng.uniform(-1, h, (1, H, W)),
+                                           rng.uniform(-1, w, (1, H, W)),
+                                           rng.uniform(-1, h, (1, H, W)),
+                                           rng.uniform(-1, w, (1, H, W)),
+                                           rng.random((n, H, W))]).astype(np.float32))
+    act = torch.zeros(2 * cp + 4 * e, H * W)  # sa rows, f0 rows, stk rows
+    act[:c] = bilinear_gather(sta, pix[2], pix[3])[0].reshape(c, -1)
+    act[cp:cp + c] = bilinear_gather(x, pix[0], pix[1])[0].reshape(c, -1)
+    r = torch.zeros(4, H * W)
+    r[:n] = pix[4:].reshape(n, -1)
+    z = torch.einsum("koe,kp->eop", Wc, act[cp:2 * cp])               # [4][E][px]
+    fc = (r[:, None] * z).sum(0)
+    act[2 * cp:] = (r[:, None] * fc[None]).reshape(4 * e, -1)         # stk, rows e E + o
+    y = Wf.t()[:cout] @ act + bias[:, None]
+    want = stau_upsample_fused_plain(x, sta, pix, wc, we, wf, bias)
+    assert float((y.reshape(1, cout, H, W) - want).abs().max()) <= 1e-5
