@@ -127,7 +127,8 @@ SOURCES = {
     # CUDA-core sta_f32_kernel
     "sta": ("savsr_tpu_torch/csrc/sta.cu", "savsr_tpu/ops/pallas/sta_kernel.py:84"),
     # bf16 (the timed headline) runs the tensor-core kernels stau_mma_kernel
-    # and tail_mma_kernel; f32 the CUDA-core stau_f32_kernel and tail_kernel
+    # and tail_mma_kernel; f32 the CUDA-core stau_f32_kernel and
+    # tail_f32_kernel
     "stau": ("savsr_tpu_torch/csrc/stau.cu", "savsr_tpu/ops/pallas/stau_kernel.py:183"),
     "tail": ("savsr_tpu_torch/csrc/tail.cu", "savsr_tpu/ops/pallas/tail_kernel.py:89"),
     # bf16 (the training path, the timed headline) runs the bf16 conv's
@@ -138,6 +139,18 @@ SOURCES = {
                     "savsr_tpu/ops/pallas/osconv_kernel.py:303"),
 }
 SERVING_KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail")
+# the CUDA kernels behind each row of the JSON kernels line, by dtype (the
+# flagship widths: C = 64, 4 experts; W % 4 == 0)
+CUDA_KERNELS = {
+    ("conv3x3", "bf16"): "conv_wgmma_kernel<3>", ("conv3x3", "f32"): "conv_f32_kernel<3, 1>",
+    ("conv1x1", "bf16"): "conv_wgmma_kernel<1>", ("conv1x1", "f32"): "conv_f32_kernel<1, 0>",
+    ("sta", "bf16"): "sta_mma_kernel<64>", ("sta", "f32"): "sta_f32_kernel<64, false>",
+    ("stau", "bf16"): "stau_mma_kernel<4>", ("stau", "f32"): "stau_f32_kernel<64>",
+    ("tail", "bf16"): "tail_mma_kernel<4>", ("tail", "f32"): "tail_f32_kernel<false>",
+    ("osconv_agg", "bf16"): "conv_wgmma_kernel<3>",
+    ("osconv_agg", "f32"): "conv_f32_kernel<3, 1> + conv_f32_reduce_kernel",
+    ("osconv_dagg", "bf16"): "osconv_dagg_wgmma_kernel<3> + dagg_reduce_kernel",
+}
 TRAINING_KERNELS = ("osconv_agg", "osconv_dagg")
 # the training path's shapes: a micro-batch of 8 samples of 60x60 LR crops
 TRAIN_B, TRAIN_HW = 8, (60, 60)
@@ -688,7 +701,7 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
         log(f"[profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} {name[:90]}")
     port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
         "conv_f32", "conv_f32_reduce", "conv_wgmma", "sta_f32", "sta_mma", "stau_f32", "stau_mma",
-        "tail", "tail_mma"))]
+        "tail_f32", "tail_mma"))]
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
         f"everything else {total - port_ms:.2f} ms in {sum(r[2] for r in rows) - sum(r[2] for r in port)} "
@@ -1080,7 +1093,8 @@ def main(argv=None) -> int:
     def entry(name, dtype, source, replaces, launches):
         head = next(r for r in rows if r["name"] == name and r["dtype"] == dtype
                     and r["case"] == HEADLINE.get(name, r["case"]))
-        return {"name": name, "dtype": dtype, "route": "cuda", "source": source,
+        return {"name": name, "dtype": dtype, "kernel": CUDA_KERNELS[name, dtype],
+                "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": head["max_abs_err"], "ms": head["ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -1090,7 +1104,7 @@ def main(argv=None) -> int:
     # the bf16 rows: launches on the main paths (serving, training); the f32
     # rows (the strict tier's kernels: csrc/conv.cu conv_f32_kernel, which
     # also runs every f32 OSConv, sta_f32_kernel, stau_f32_kernel,
-    # tail_kernel): launches on the strict parity forwards and the f32
+    # tail_f32_kernel): launches on the strict parity forwards and the f32
     # train-parity step
     kernels = [entry(name, "bf16", source, replaces,
                      (training if name in TRAINING_KERNELS else serving)["launches"][name])

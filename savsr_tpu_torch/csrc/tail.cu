@@ -13,12 +13,34 @@
 // Bound on the H100: 2*27*C FLOPs per HR pixel against C values read and 3
 // written: ~13 FLOP per byte in f32 — near the ridge, so the time floor is
 // the read of sr; in bf16 (27 FLOP per byte, 989 TFLOP/s) bound by that
-// read. Two kernels, one per type:
+// read. Two kernels:
 //
-// * f32 (tail_kernel, CUDA cores): a block takes an 8x32 HR tile; 16
-//   channels at a time of sr (with its 1-pixel halo) stream through shared
-//   memory, all 27*C tail weights sit in shared memory, and each thread
-//   keeps its pixel's 3 sums in registers.
+// * f32 (tail_f32_kernel<ROUND>, CUDA cores, true f32; also bf16 at channel
+//   counts the tensor-core kernel does not take, widened to f32 by the
+//   wrapper, with ROUND: the row-mixed centre frame and the column weights
+//   rounded to bf16, the output rounded once by the wrapper). At C = 64 and 8
+//   x 720x1280 the read of sr (1.89 GB, 0.56 ms) and the 27 C FMAs a pixel
+//   (12.7 G, 0.38 ms at the FP32 rate) are close, so the design keeps both
+//   going at once. On the CUDA cores the rate of shared-memory load
+//   instructions paces a kernel (the kernel this one replaced made 36
+//   scalar loads for 27 FMAs), so each thread computes a register tile of 4
+//   rows x 8 columns x 3 outputs (96 sums): per staged channel it loads the
+//   channel's 27 weights as 7 16-byte broadcasts and, per one of its 6 input
+//   rows, two 16-byte pieces and one edge value, and shuffles for its
+//   neighbours' columns, for 864 FMAs (25 shared loads). Persistent blocks,
+//   one per SM (8 warps, a warp per 4 rows of a 32 x 256 tile), walk their
+//   tiles channel by channel; each stage (the channel's 34 x 264 window of
+//   the tile as two TMA boxes, zero filled outside the image, and its packed
+//   weights, ops/tail.py pack_tail_weights_f32, by one bulk copy) lands 2
+//   stages ahead of its use in a ring of 3, across tile boundaries, issued
+//   by one thread: per-thread cp.async copies of the same stages streamed
+//   sr at half the card's read rate. Tiles go row band first, so the blocks
+//   at work at one time hold neighbouring tiles and read a halo row from
+//   device memory once between them. C has no cap (the weights stream with
+//   the channels). At a tile's end the bias and the skip (from the centre
+//   frame, through L1/L2) are added to the sums, as the reference adds them
+//   (summed from zero, the taps keep the rounding of their own magnitude),
+//   and the outputs stored 16 bytes at a time.
 //
 // * bf16 (tail_mma_kernel, tensor cores): pixels as the MMA's M, on
 //   mma.sync m16n8k16 with f32 accumulators. Per tap row dy the kernel
@@ -51,81 +73,256 @@ namespace {
 
 using namespace hopper;
 
-constexpr int TW = 32, TH = 8, CI = 16, THREADS = TW * TH;
-constexpr int CMAX = 64;
-constexpr int IR = TH + 2, IC = TW + 2;
+constexpr int ERR_NO_ENCODER = -1;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_ENCODE = -2;      // the tensor map was refused
 
-__device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-tail_kernel(const T* __restrict__ sr, const T* __restrict__ xc, const T* __restrict__ wt,
-            const T* __restrict__ bias, const int* __restrict__ rj0,
-            const float* __restrict__ rwy, const int* __restrict__ cj0,
-            const float* __restrict__ cw, T* __restrict__ out, int C, int H, int W, int h0,
-            int w0) {
-  __shared__ float s_in[CI][IR][IC];
-  __shared__ float s_w[3][CMAX * 9];
-  const int tid = threadIdx.x, tx = tid % TW, ty = tid / TW;
-  const int b = blockIdx.z;
-  const int X0 = blockIdx.x * TW, Y0 = blockIdx.y * TH;
-  const int X = X0 + tx, Y = Y0 + ty;
-  const long long HW = (long long)H * W;
-  const T* srb = sr + (long long)b * C * HW;
+constexpr int TF_WARPS = 8, TF_THREADS = 32 * TF_WARPS;
+constexpr int TF_R = 4;                 // output rows of a thread (and of a warp)
+constexpr int TF_X = 8;                 // output columns of a thread: x0 + 4 lane + 0..3, + 128
+constexpr int TF_TH = TF_WARPS * TF_R;  // 32 tile rows
+constexpr int TF_TW = 256;              // tile columns
+constexpr int TF_SR = TF_TH + 2;        // staged rows: the tile's and two halo rows
+constexpr int TF_BW = TF_TW / 2 + 8;    // a box's columns: x0 - 4 .. x0 + 131 (A), x0 + 124 .. (B)
+constexpr int TF_BOX = TF_SR * TF_BW;   // floats of a box
+constexpr int TF_B_OFF = (TF_BOX + 31) / 32 * 32;  // box B, 128-byte aligned (TMA)
+constexpr int TF_W_OFF = TF_B_OFF + TF_BOX;        // the channel's weights
+constexpr int TF_WSLOTS = 28;           // a channel's 27 weights, padded to 7 x 16 bytes
+constexpr int TF_STAGE = (TF_W_OFF + TF_WSLOTS + 31) / 32 * 32;  // floats of a stage
+constexpr int TF_STAGES = 3;          // (4 and 6 were slower: less L1 left for the epilogue)
+constexpr int TF_SMEM = TF_STAGES * TF_STAGE * 4;
+constexpr uint32_t TF_TX = (2 * TF_BOX + TF_WSLOTS) * 4;  // bytes landing per stage
+static_assert(TF_W_OFF % 4 == 0 && (TF_BW * 4) % 16 == 0, "16-byte copies");
 
-  for (int e = tid; e < 3 * C * 9; e += THREADS) s_w[e / (C * 9)][e % (C * 9)] = ld(wt, e);
-  float acc[3] = {0.f, 0.f, 0.f};
-  for (int c0 = 0; c0 < C; c0 += CI) {
-    __syncthreads();
-    for (int e = tid; e < CI * IR * IC; e += THREADS) {
-      const int ci = e / (IR * IC), r = (e / IC) % IR, q = e % IC;
-      const int gy = Y0 + r - 1, gx = X0 + q - 1;
-      float v = 0.f;
-      if (c0 + ci < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = ld(srb, (c0 + ci) * HW + (long long)gy * W + gx);
-      s_in[ci][r][q] = v;
-    }
-    __syncthreads();
-    const int nc = min(CI, C - c0);
-    for (int ci = 0; ci < nc; ++ci) {
+// The products of one staged channel: warp w's output rows 4w .. 4w + 3 take
+// staged rows 4w .. 4w + 5. Per staged row a lane loads its two 4-column
+// pieces (box A column 4 lane + 4 and box B's: consecutive 16-byte pieces
+// across the lanes, no bank conflict) and the row's edge value (x0 - 1 for
+// lanes 0..15, x0 + 256 for 16..31: two addresses a warp), and takes its
+// neighbours' columns by shuffles: its two 6-value windows. They go, times
+// the row's taps, into the sums of the up to 3 output rows that read the
+// row; per output its sum takes the taps in (dy, dx) order.
+__device__ __forceinline__ void tf_channel(float (&acc)[TF_R][TF_X][3], const float* st, int warp,
+                                           int lane) {
+  float w[TF_WSLOTS];
+  const float4* wq = reinterpret_cast<const float4*>(st + TF_W_OFF);
 #pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const float v = s_in[ci][ty + t / 3][tx + t % 3];
-        const int wi = (c0 + ci) * 9 + t;
-        acc[0] = fmaf(s_w[0][wi], v, acc[0]);
-        acc[1] = fmaf(s_w[1][wi], v, acc[1]);
-        acc[2] = fmaf(s_w[2][wi], v, acc[2]);
-      }
-    }
+  for (int i = 0; i < TF_WSLOTS / 4; ++i) {
+    const float4 v = wq[i];
+    w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z, w[4 * i + 3] = v.w;
   }
-  if (X >= W || Y >= H) return;
-  const int j0 = rj0[Y], c0 = cj0[X];
-  const float wy0 = rwy[Y], wy1 = 1.f - wy0;
-  const float cw0 = round_to(cw[X], sr), cw1 = round_to(cw[W + X], sr);
-  const long long hw0 = (long long)h0 * w0;
+  const float* ra = st + TF_R * warp * TF_BW + 4 * lane + 4;
+  const float* rb = ra + TF_B_OFF;
+  const float* re = st + TF_R * warp * TF_BW + (lane < 16 ? 3 : TF_B_OFF + TF_BW - 4);
+  const int up = (lane + 31) & 31, down = (lane + 1) & 31;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const T* p = xc + ((long long)b * 3 + k) * hw0;
-    const float l0 = round_to(wy0 * ld(p, (long long)j0 * w0 + c0) +
-                                  wy1 * ld(p, (long long)(j0 + 1) * w0 + c0), sr);
-    const float l1 = round_to(wy0 * ld(p, (long long)j0 * w0 + c0 + 1) +
-                                  wy1 * ld(p, (long long)(j0 + 1) * w0 + c0 + 1), sr);
-    const float up = cw0 * l0 + cw1 * l1;
-    st(out, ((long long)b * 3 + k) * HW + (long long)Y * W + X, acc[k] + ld(bias, k) + up);
+  for (int r = 0; r < TF_R + 2; ++r) {
+    const float4 a = *reinterpret_cast<const float4*>(ra + r * TF_BW);
+    const float4 q = *reinterpret_cast<const float4*>(rb + r * TF_BW);
+    const float e = re[r * TF_BW];
+    const float al = __shfl_sync(~0u, a.w, up);
+    const float ar = __shfl_sync(~0u, lane == 0 ? q.x : a.x, down);
+    const float bl = __shfl_sync(~0u, lane == 31 ? a.w : q.w, up);
+    const float br = __shfl_sync(~0u, q.x, down);
+    const float v[2][6] = {{lane == 0 ? e : al, a.x, a.y, a.z, a.w, ar},
+                           {bl, q.x, q.y, q.z, q.w, lane == 31 ? e : br}};
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const int o = r - dy;
+      if (o < 0 || o >= TF_R) continue;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int j = 0; j < TF_X; ++j)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            acc[o][j][k] = fmaf(w[9 * dy + 3 * dx + k], v[j >> 2][(j & 3) + dx], acc[o][j][k]);
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* sr, const void* xc, const void* wt, const void* bias,
-                   const int* rj0, const float* rwy, const int* cj0, const float* cw, void* out,
-                   int B, int C, int H, int W, int h0, int w0, cudaStream_t stream) {
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  tail_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(sr), static_cast<const T*>(xc), static_cast<const T*>(wt),
-      static_cast<const T*>(bias), rj0, rwy, cj0, cw, static_cast<T*>(out), C, H, W, h0, w0);
-  return cudaGetLastError();
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 4 outputs of a row at columns x .. x + 3: one 16-byte store where the
+// rows are 16-byte aligned (W % 4 == 0) and all 4 are in the image, else
+// those in it one by one.
+__device__ __forceinline__ void tf_put4(float* dst, const float* v, int x, int W) {
+  if ((W & 3) == 0 && x + 4 <= W) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (x + j < W) dst[j] = v[j];
+  }
+}
+
+// At the tile's end: out = (the conv's sums + bias) + skip for the thread's
+// pixels in the image (the reference's order: the conv's taps summed from
+// zero keep the rounding of their own small magnitude). Column j of the
+// thread: xa + 128 (j / 4) + j % 4. ROUND (the bf16 tier on this kernel):
+// the row-mixed centre frame and the column weights rounded to bf16, as the
+// plain version does.
+template <bool ROUND>
+__device__ __forceinline__ void tf_epilogue(const float (&acc)[TF_R][TF_X][3],
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ xc,
+                                            const int* __restrict__ rj0,
+                                            const float* __restrict__ rwy,
+                                            const int* __restrict__ cj0,
+                                            const float* __restrict__ cw, float* __restrict__ out,
+                                            int b, int y, int xa, int H, int W, int h0, int w0) {
+  int c0[TF_X];
+  float cw0[TF_X], cw1[TF_X];
+#pragma unroll
+  for (int j = 0; j < TF_X; ++j) {
+    const int x = xa + 128 * (j >> 2) + (j & 3);
+    const bool in = x < W;
+    c0[j] = in ? cj0[x] : 0;
+    cw0[j] = in ? cw[x] : 0.f;
+    cw1[j] = in ? cw[W + x] : 0.f;
+    if constexpr (ROUND) cw0[j] = round_bf16(cw0[j]), cw1[j] = round_bf16(cw1[j]);
+  }
+  const float* xcb = xc + (long long)b * 3 * h0 * w0;
+#pragma unroll
+  for (int o = 0; o < TF_R; ++o) {
+    const int Y = y + o;
+    if (Y >= H) break;
+    const int j0 = rj0[Y];
+    const float wy0 = rwy[Y], wy1 = 1.f - wy0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float* p = xcb + ((long long)k * h0 + j0) * w0;
+      const float bk = bias[k];
+      float v[TF_X];
+#pragma unroll
+      for (int j = 0; j < TF_X; ++j) {
+        float l0 = wy0 * p[c0[j]] + wy1 * p[w0 + c0[j]];
+        float l1 = wy0 * p[c0[j] + 1] + wy1 * p[w0 + c0[j] + 1];
+        if constexpr (ROUND) l0 = round_bf16(l0), l1 = round_bf16(l1);
+        v[j] = (acc[o][j][k] + bk) + (cw0[j] * l0 + cw1[j] * l1);
+      }
+      float* dst = out + (((long long)b * 3 + k) * H + Y) * W + xa;
+      tf_put4(dst, v, xa, W);
+      tf_put4(dst + 128, v + 4, xa + 128, W);
+    }
+  }
+}
+
+// Persistent: block i takes tiles i, i + gridDim.x, ... (tile: row band
+// fastest, then column band, then sample, so the blocks at work at one time
+// hold neighbouring tiles and share their halo rows through L2). Its stages,
+// one per (tile, channel), run through a ring of TF_STAGES buffers, which
+// thread 0 fills TF_STAGES - 1 stages ahead, across tile boundaries: per
+// stage two TMA boxes of the channel (34 rows x 136 columns each, zero fill
+// outside the image: the conv's padding) and a bulk copy of its packed
+// weights, all completing on the slot's mbarrier. One barrier a stage.
+// Thread (warp w, lane i): output rows y0 + 4w .. + 3, columns x0 + 4i .. +
+// 3 and x0 + 128 + 4i .. + 3.
+template <bool ROUND>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+tail_f32_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ xc,
+                const float* __restrict__ wpk, const int* __restrict__ rj0,
+                const float* __restrict__ rwy, const int* __restrict__ cj0,
+                const float* __restrict__ cw, float* __restrict__ out, int B, int C, int H,
+                int W, int h0, int w0) {
+  extern __shared__ __align__(128) float tsm[];
+  __shared__ __align__(8) uint64_t full[TF_STAGES];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles_y = (H + TF_TH - 1) / TF_TH, tiles_x = (W + TF_TW - 1) / TF_TW;
+  const int ntiles = B * tiles_x * tiles_y;
+  const int mine = (int)blockIdx.x < ntiles ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+
+  // thread 0's next stage to issue: channel q[1] of the block's tile number
+  // q[0], which starts at sample q[2], row q[3], column q[4] (in shared
+  // memory: no thread keeps registers for it)
+  __shared__ int q[5];
+  auto issue = [&](int slot) {
+    int it_i = q[0], ic = q[1];
+    if (it_i >= mine) return;
+    if (ic == 0) {
+      const int tile = blockIdx.x + it_i * gridDim.x, rest = tile / tiles_y;
+      q[2] = rest / tiles_x, q[3] = (tile % tiles_y) * TF_TH, q[4] = (rest % tiles_x) * TF_TW;
+    }
+    const int pb = q[2], py0 = q[3], px0 = q[4];
+    float* st = tsm + slot * TF_STAGE;
+    mbar_arrive_expect_tx(&full[slot], TF_TX);
+    tma_load_4d(st, &map, &full[slot], px0 - 4, py0 - 1, ic, pb);
+    tma_load_4d(st + TF_B_OFF, &map, &full[slot], px0 + TF_TW / 2 - 4, py0 - 1, ic, pb);
+    bulk_load(st + TF_W_OFF, wpk + (long long)ic * TF_WSLOTS, TF_WSLOTS * 4, &full[slot]);
+    if (++ic == C) ic = 0, ++it_i;
+    q[0] = it_i, q[1] = ic;
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF_STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+    q[0] = 0, q[1] = 0;
+    for (int s = 0; s < TF_STAGES - 1; ++s) issue(s);
+  }
+
+  int slot = 0;
+  uint32_t phase = 0;  // stage n: slot n % TF_STAGES, parity (n / TF_STAGES) & 1
+  for (int it = 0; it < mine; ++it) {
+    const int tile = blockIdx.x + it * gridDim.x, rest = tile / tiles_y;
+    const int b = rest / tiles_x;
+    const int y = (tile % tiles_y) * TF_TH + TF_R * warp, xa = (rest % tiles_x) * TF_TW + 4 * lane;
+    const bool active = y < H;  // the warp has rows in the image
+    float acc[TF_R][TF_X][3];
+#pragma unroll
+    for (int o = 0; o < TF_R; ++o)
+#pragma unroll
+      for (int j = 0; j < TF_X; ++j)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) acc[o][j][k] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < C; ++c) {
+      __syncthreads();  // every warp is done with the previous stage's slot (and, first, the
+                        // barriers are initialised)
+      if (threadIdx.x == 0) issue(slot == 0 ? TF_STAGES - 1 : slot - 1);
+      mbar_wait(&full[slot], phase);
+      if (active) tf_channel(acc, tsm + slot * TF_STAGE, warp, lane);
+      if (++slot == TF_STAGES) slot = 0, phase ^= 1;
+    }
+    if (active)
+      tf_epilogue<ROUND>(acc, wpk + (long long)C * TF_WSLOTS, xc, rj0, rwy, cj0, cw, out, b, y, xa,
+                         H, W, h0, w0);
+  }
+}
+
+template <bool ROUND>
+int launch_f32(const void* sr, long long pitch, const void* xc, const void* wpk, const int* rj0,
+               const float* rwy, const int* cj0, const float* cw, void* out, int B, int C, int H,
+               int W, int h0, int w0, int sms, cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tail_f32_kernel<ROUND>, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  hopper::EncodeTiledFn encode = hopper::encode_tiled();
+  if (!encode) return ERR_NO_ENCODER;
+  // (W, H, C, B), so that a box of 34 rows of one channel lands as [34][TF_BW]
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)C, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)pitch * 4, (cuuint64_t)pitch * H * 4,
+                                 (cuuint64_t)pitch * H * C * 4};
+  const cuuint32_t box[4] = {TF_BW, TF_SR, 1, 1}, elem[4] = {1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(sr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_ENCODE;
+  const long long ntiles =
+      (long long)B * ((H + TF_TH - 1) / TF_TH) * ((W + TF_TW - 1) / TF_TW);
+  const int grid = (int)(ntiles < sms ? ntiles : sms);
+  tail_f32_kernel<ROUND><<<grid, TF_THREADS, TF_SMEM, stream>>>(
+      map, static_cast<const float*>(xc), static_cast<const float*>(wpk), rj0, rwy, cj0, cw,
+      static_cast<float*>(out), B, C, H, W, h0, w0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -349,9 +546,6 @@ tail_mma_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restrict_
   }
 }
 
-constexpr int ERR_NO_ENCODER = -1;  // cuTensorMapEncodeTiled not found
-constexpr int ERR_ENCODE = -2;      // the tensor map was refused
-
 template <int CB>
 int launch_mma(const void* sr, long long pitch, const void* xc, const void* wpk, const void* bias,
                const int* rj0, const float* rwy, const int* cj0, const float* cw, void* out,
@@ -405,16 +599,24 @@ extern "C" const char* savsr_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// f32: sr: [B, C, H, W]; xc: [B, 3, h0, w0]; wt: [3, C, 3, 3]; bias: [3];
+// f32 (and bf16 at other C, widened to f32 by the caller, with round_bf16):
+// sr: [B, C, H, W] with rows ``pitch`` elements apart (a multiple of 4,
+// 16-byte aligned base: TMA); xc: [B, 3, h0, w0]; wpk: [C][28] packed
+// weights (ops/tail.py pack_tail_weights_f32: slot 9 dy + 3 dx + k holds
+// weight[k, c, dy, dx], slot 27 zero) then the bias [3] and a zero;
 // rj0/rwy: [H] row starts / weights; cj0: [W]; cw: [2, W] column weights;
-// out: [B, 3, H, W].
-extern "C" int savsr_tail_fused(const void* sr, const void* xc, const void* wt, const void* bias,
-                                const int* rj0, const float* rwy, const int* cj0, const float* cw,
-                                void* out, int B, int C, int H, int W, int h0, int w0,
-                                void* stream) {
-  if (C < 1 || C > CMAX || h0 < 2 || w0 < 2) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<float>(sr, xc, wt, bias, rj0, rwy, cj0, cw, out, B, C, H, W, h0,
-                                        w0, static_cast<cudaStream_t>(stream)));
+// out: [B, 3, H, W] f32; sms: the grid (one block per SM).
+extern "C" int savsr_tail_f32(const void* sr, long long pitch, const void* xc, const void* wpk,
+                              const int* rj0, const float* rwy, const int* cj0, const float* cw,
+                              void* out, int B, int C, int H, int W, int h0, int w0,
+                              int round_bf16, int sms, void* stream) {
+  const long long ntiles = (long long)B * ((H + TF_TH - 1) / TF_TH) * ((W + TF_TW - 1) / TF_TW);
+  if (B < 1 || C < 1 || H < 1 || W < 1 || h0 < 2 || w0 < 2 || sms < 1 || pitch % 4 != 0 ||
+      pitch < W || ntiles >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = round_bf16 ? launch_f32<true> : launch_f32<false>;
+  return launch(sr, pitch, xc, wpk, rj0, rwy, cj0, cw, out, B, C, H, W, h0, w0, sms, s);
 }
 
 // bf16, the same operands with C in 16, 32, 48, 64, sr's rows ``pitch``

@@ -132,14 +132,17 @@ def _pack_index_on(cout: int, chans: Tuple[int, ...], k: int, device: str) -> to
     return pack_index(cout, chans, k).to(device)
 
 
-def _packed_once(weight: torch.Tensor, plan, pack) -> torch.Tensor:
+def packed_once(weight: torch.Tensor, plan, pack, bias: Optional[torch.Tensor] = None):
     """``pack()``; for a shared weight (a parameter) kept as its attribute
     ``_savsr_packed`` and reused while its storage, version counter (an
-    in-place write moves it) and ``plan`` stay the same. Per-sample weights
-    are built anew every forward and are packed at every call."""
+    in-place write moves it) and ``plan`` stay the same, and those of
+    ``bias`` where the packing holds it too. Per-sample weights are built
+    anew every forward and are packed at every call."""
     if weight.dim() != 4:
         return pack()
     key = (weight.data_ptr(), weight._version, plan)
+    if bias is not None:
+        key += (bias.data_ptr(), bias._version)
     hit = getattr(weight, "_savsr_packed", None)
     if hit is None or hit[0] != key:
         hit = weight._savsr_packed = (key, pack())
@@ -149,7 +152,7 @@ def _packed_once(weight: torch.Tensor, plan, pack) -> torch.Tensor:
 def pack_weight(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
     """The bf16 kernel's weight layout (``pack_index``): [L] for a shared
     [Cout, Cin, k, k] weight, [B, L] for per-sample [B, Cout, Cin, k, k];
-    a shared weight's is packed once (``_packed_once``)."""
+    a shared weight's is packed once (``packed_once``)."""
     def pack():
         shared = weight.dim() == 4
         cout, k = weight.shape[-4], weight.shape[-1]
@@ -158,19 +161,19 @@ def pack_weight(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
         packed = F.pad(flat, (0, 1)).index_select(1, idx)
         return packed[0] if shared else packed
 
-    return _packed_once(weight, tuple(chans), pack)
+    return packed_once(weight, tuple(chans), pack)
 
 
 def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
     """The f32 kernel's weight layout: [K*K, Cin, Cout] for a shared [Cout,
     Cin, K, K] weight, [B, K*K, Cin, Cout] per sample, contiguous in Cout (the
     OSConv's agg layout); a shared weight's is packed once
-    (``_packed_once``)."""
+    (``packed_once``)."""
     def pack():
         w = weight.detach().flatten(-2)  # [(B,) Cout, Cin, K*K]
         return (w.permute(2, 1, 0) if weight.dim() == 4 else w.permute(0, 3, 2, 1)).contiguous()
 
-    return _packed_once(weight, "f32", pack)
+    return packed_once(weight, "f32", pack)
 
 
 def f32_stages(chans: Sequence[int], k: int) -> List[Tuple[int, int]]:

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from . import (check_rc, count_plain, dtype_code, f32_channels, launches, ptr, require,
                sm_count, stream_ptr)
+from .conv import packed_once
 
 KSIZE = 5
 TAPS = KSIZE * KSIZE
@@ -118,19 +119,14 @@ def sta_f32_pack_index(c: int):
 
 def pack_sta_weights_f32(weight: torch.Tensor, bias: torch.Tensor):
     """(packed weights, packed bias) of the CUDA-core kernel, both f32
-    (``sta_f32_pack_index``), kept on ``weight`` as ``_savsr_sta_packed_f32``
-    while the weight's and the bias's storages and version counters stay the
-    same."""
-    key = (weight.data_ptr(), weight._version, bias.data_ptr(), bias._version)
-    hit = getattr(weight, "_savsr_sta_packed_f32", None)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    c = weight.shape[1]
-    w_idx, b_idx = sta_f32_pack_index(c)
-    packed = tuple(torch.cat([t.detach().reshape(-1).float(), t.new_zeros(1, dtype=torch.float32)])
-                   [idx.to(t.device)] for t, idx in ((weight, w_idx), (bias, b_idx)))
-    weight._savsr_sta_packed_f32 = (key, packed)
-    return packed
+    (``sta_f32_pack_index``), packed once for a shared weight and bias
+    (``ops/conv.py packed_once``)."""
+    def pack():
+        w_idx, b_idx = sta_f32_pack_index(weight.shape[1])
+        return tuple(F.pad(t.detach().reshape(-1).float(), (0, 1))[idx.to(t.device)]
+                     for t, idx in ((weight, w_idx), (bias, b_idx)))
+
+    return packed_once(weight, "sta_f32", pack, bias)
 
 
 @functools.lru_cache(maxsize=None)

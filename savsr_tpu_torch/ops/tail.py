@@ -7,9 +7,23 @@ through ``conv_tail`` (zero padding) and the bilinearly upsampled
 <=2 nonzeros per row and per column: rows mix ``wy*xc[j0] + (1-wy)*xc[j0+1]``
 (j0 clipped to h0-2, as ``_tail_row_mix``), columns ``cw[0]*lr[c0] +
 cw[1]*lr[c0+1]`` (c0 clipped to w0-2). The CUDA kernels (csrc/tail.cu) do
-both in one pass over the HR image: f32 on the CUDA cores, bf16 on the
-tensor cores with the weight packed as mma B fragments
-(``pack_tail_weights``, cached on the weight).
+both in one pass over the HR image. Which one runs on a CUDA tensor is
+chosen by dtype and channel count:
+
+- bf16 with C in 16, 32, 48, 64 (``MMA_CHANNELS``): the tensor cores,
+  ``tail_mma_kernel``, with the weight packed as mma B fragments
+  (``pack_tail_weights``, cached on the weight).
+- f32 (the strict tier, true f32), and bf16 at any other C: the CUDA-core
+  ``tail_f32_kernel`` (4 x 8-pixel register tiles, sr streamed by TMA a
+  channel at a time with that channel's weights; a width off a multiple of
+  8 is copied to a pitch-padded buffer first, ``ops/conv.py tma_part``).
+  Its weights and bias are packed once into [C][28] f32 (slot 9 dy + 3 dx
+  + k) followed by the bias, kept on the weight (``pack_tail_weights_f32``). bf16 at other C is widened to f32 here and
+  runs with the bf16 tier's rounding points in the kernel (the row-mixed
+  centre frame and the column weights rounded to bf16); its f32 output is
+  rounded once to bf16.
+
+A failed build or launch raises; nothing falls back to another kernel.
 """
 
 from __future__ import annotations
@@ -21,8 +35,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import check_rc, count_plain, dtype_code, launches, ptr, require, stream_ptr
-from .conv import tma_part
+from . import check_rc, count_plain, dtype_code, launches, ptr, require, sm_count, stream_ptr
+from .conv import packed_once, tma_part
+
+# the channel counts the tensor-core kernel takes in bf16
+MMA_CHANNELS = (16, 32, 48, 64)
+# f32 slots of a channel's packed weights: 27 taps x outputs and a zero
+F32_SLOTS = 28
 
 
 def tail_fused_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias):
@@ -79,14 +98,28 @@ def pack_tail_weights(weight: torch.Tensor) -> torch.Tensor:
     return packed
 
 
+def pack_tail_weights_f32(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The CUDA-core kernel's weights and bias, f32: [C][F32_SLOTS], slot
+    9 dy + 3 dx + k holding weight[k, c, dy, dx] and slot 27 zero, then
+    bias[0..2] and a zero; packed once for a shared weight and bias
+    (``ops/conv.py packed_once``)."""
+    def pack():
+        c = weight.shape[1]
+        rows = F.pad(weight.detach().float().permute(1, 2, 3, 0).reshape(c, 27), (0, 1))
+        return F.pad(torch.cat([rows.reshape(-1), bias.detach().float().reshape(-1)]), (0, 1))
+
+    return packed_once(weight, "tail_f32", pack, bias)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from ..csrc.build import load
 
     lib = load("tail")
-    for fn in (lib.savsr_tail_fused, lib.savsr_tail_mma):
+    for fn in (lib.savsr_tail_f32, lib.savsr_tail_mma):
         fn.restype = ctypes.c_int
-    lib.savsr_tail_fused.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.savsr_tail_f32.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.savsr_tail_mma.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 8
                                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return lib
@@ -94,8 +127,9 @@ def _lib():
 
 def tail_fused(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch.Tensor:
     """Tail conv + bilinear skip -> [B, 3, H, W]. CPU tensors take the plain
-    version; CUDA tensors launch a kernel: f32 the CUDA-core kernel, bf16
-    the tensor-core kernel (C a multiple of 16 up to 64)."""
+    version; CUDA tensors launch a kernel: bf16 at C in 16, 32, 48, 64 the
+    tensor-core kernel, f32 (and bf16 at other C, widened) the CUDA-core
+    one."""
     if not sr.is_cuda:
         return tail_fused_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias)
     b, c, H, W = sr.shape
@@ -112,17 +146,22 @@ def tail_fused(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch
                 f"tail: {name} must be a contiguous {tdt} {shape} CUDA tensor")
     out = torch.empty((b, 3, H, W), dtype=dt, device=sr.device)
     lib = _lib()
-    if dt == torch.float32:
-        rc = lib.savsr_tail_fused(ptr(sr), ptr(xc), ptr(weight), ptr(bias), ptr(rows_j0),
-                                  ptr(rows_wy), ptr(cols_c0), ptr(cols_w), ptr(out),
-                                  b, c, H, W, h0, w0, stream_ptr(sr))
-    else:
-        require(c % 16 == 0 and 16 <= c <= 64,
-                f"tail: bf16 takes C in 16, 32, 48, 64, got {c}")
+    tensor_cores = dt == torch.bfloat16 and c in MMA_CHANNELS
+    if tensor_cores:
         srk, pitch = tma_part(sr)  # TMA reads rows at a 16-byte pitch
         rc = lib.savsr_tail_mma(ptr(srk), pitch, ptr(xc), ptr(pack_tail_weights(weight)),
                                 ptr(bias), ptr(rows_j0), ptr(rows_wy), ptr(cols_c0), ptr(cols_w),
                                 ptr(out), b, c, H, W, h0, w0, stream_ptr(sr))
+    else:
+        srk, pitch = tma_part(sr.float())  # TMA reads rows at a padded pitch
+        xcf = xc.float()  # kept alive across the launch
+        out_f = out if dt == torch.float32 else torch.empty(out.shape, device=sr.device)
+        rc = lib.savsr_tail_f32(ptr(srk), pitch, ptr(xcf), ptr(pack_tail_weights_f32(weight, bias)),
+                                ptr(rows_j0), ptr(rows_wy), ptr(cols_c0), ptr(cols_w), ptr(out_f),
+                                b, c, H, W, h0, w0, int(dt != torch.float32),
+                                sm_count(sr.device), stream_ptr(sr))
     check_rc(lib, rc, "tail_fused")
     launches["tail"] += 1
+    if not tensor_cores and dt != torch.float32:
+        out.copy_(out_f)  # the widened route's one rounding of the output to bf16
     return out

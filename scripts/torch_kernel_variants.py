@@ -12,8 +12,9 @@ package's wrapper, back-to-back between CUDA events as ``chip_smoke.py``
 times every kernel; a variant may instead (or also) set a module attribute
 of the wrapper for its call (a launch plan, a tile width). Shapes: STAU and
 the tail at 8 windows of 180x320 LR, x4, C = 64 (STAU with the flagship
-weights' window plan), bf16, and STAU in f32 (``stau_f32``: the CUDA-core
-kernel on the f32 plan); STA at 8 windows of 180x320, C = 64, bf16, and in
+weights' window plan), bf16, STAU in f32 (``stau_f32``: the CUDA-core
+kernel on the f32 plan) and the tail in f32 (``tail_f32``: the CUDA-core
+``tail_f32_kernel``); STA at 8 windows of 180x320, C = 64, bf16, and in
 f32 (``sta_f32``: the CUDA-core kernel); the
 f32 OSConv weight gradient at 8 x 60x60, 192 -> 64, k = 3, padding 1; the
 f32 conv (csrc/conv.cu conv_f32_kernel) at 8 windows of 180x320, 3x3 64 ->
@@ -97,6 +98,39 @@ VARIANTS = {
             ("        out[((long long)b * 3 + k) * HW + (long long)(y + r) * W + x] =",
              "        if (v == 12345.f) out[((long long)b * 3 + k) * HW + (long long)(y + r) * W + x] =")],
     },
+    "tail_f32": {
+        "full": [],
+        # the loads stay (their values feed an empty asm), the products go
+        "no FFMAs": [("            acc[o][j][k] = fmaf(w[9 * dy + 3 * dx + k], v[j >> 2][(j & 3) + dx], acc[o][j][k]);",
+                      '            asm volatile("" ::"f"(w[9 * dy + 3 * dx + k]), "f"(v[j >> 2][(j & 3) + dx]));')],
+        "no shared loads in the FMAs": [
+            ("    const float4 v = wq[i];", "    const float4 v = make_float4(lane, i, 0.25f, 0.125f);"),
+            ("    const float4 a = *reinterpret_cast<const float4*>(ra + r * TF_BW);\n"
+             "    const float4 q = *reinterpret_cast<const float4*>(rb + r * TF_BW);\n"
+             "    const float e = re[r * TF_BW];",
+             "    const float4 a = make_float4(lane, r, 2.f, 3.f), q = make_float4(r, lane, 4.f, 5.f);\n"
+             "    const float e = 6.f;")],
+        "no shuffles": [("    const float al = __shfl_sync(~0u, a.w, up);\n"
+                         "    const float ar = __shfl_sync(~0u, lane == 0 ? q.x : a.x, down);\n"
+                         "    const float bl = __shfl_sync(~0u, lane == 31 ? a.w : q.w, up);\n"
+                         "    const float br = __shfl_sync(~0u, q.x, down);",
+                         "    const float al = a.w, ar = q.x, bl = q.w, br = a.x;")],
+        "no sr boxes (weights only)": [
+            ("    mbar_arrive_expect_tx(&full[slot], TF_TX);\n"
+             "    tma_load_4d(st, &map, &full[slot], px0 - 4, py0 - 1, ic, pb);\n"
+             "    tma_load_4d(st + TF_B_OFF, &map, &full[slot], px0 + TF_TW / 2 - 4, py0 - 1, ic, pb);",
+             "    mbar_arrive_expect_tx(&full[slot], TF_WSLOTS * 4);")],
+        "one channel plane (sr from L2)": [
+            ("    tma_load_4d(st, &map, &full[slot], px0 - 4, py0 - 1, ic, pb);\n"
+             "    tma_load_4d(st + TF_B_OFF, &map, &full[slot], px0 + TF_TW / 2 - 4, py0 - 1, ic, pb);",
+             "    tma_load_4d(st, &map, &full[slot], px0 - 4, py0 - 1, 0, pb);\n"
+             "    tma_load_4d(st + TF_B_OFF, &map, &full[slot], px0 + TF_TW / 2 - 4, py0 - 1, 0, pb);")],
+        "no skip": [("        v[j] = (acc[o][j][k] + bk) + (cw0[j] * l0 + cw1[j] * l1);",
+                     "        v[j] = acc[o][j][k] + bk;")],
+        "no epilogue": [("    if (active)\n      tf_epilogue<ROUND>(", "    if (active && acc[0][0][0] == 12345.f)\n      tf_epilogue<ROUND>(")],
+        "ring of 2": [("constexpr int TF_STAGES = 3;", "constexpr int TF_STAGES = 2;")],
+        "ring of 4": [("constexpr int TF_STAGES = 3;", "constexpr int TF_STAGES = 4;")],
+    },
     "sta": {
         "full": [],
         "no wgmma": [("    wgmma_m64nNk16_bf16_rs<C>(acc, a[kb], make_desc(w_tap + kb * C * 32, 128, 256, "
@@ -170,7 +204,7 @@ VARIANTS = {
 
 
 SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv", "stau_f32": "stau",
-          "sta_f32": "sta"}
+          "sta_f32": "sta", "tail_f32": "tail"}
 
 
 def _edits(variant):
@@ -240,7 +274,7 @@ def main(argv=None) -> int:
     H, W = cs.get_hw(h, w, cs.SCALE)
     model = SAVSR(**flagship_net_kwargs()).eval()
     load_into(model, {k: torch.from_numpy(v) for k, v in
-                      np.load(os.path.join(cs.GOLDENS, "savsr_state_dict.npz")).items()})
+                      np.load(os.path.join(REPO, "tests", "goldens", "savsr_state_dict.npz")).items()})
     model.to(device)
     with cs.float32_precision(True):
         st = model.stau_statics(cs.LR_HW, cs.SCALE, device=device)  # the f32 plan
@@ -266,6 +300,12 @@ def main(argv=None) -> int:
               for k in ("tail_j0", "tail_wy", "tail_c0", "tail_cw")),
             cs._rand(rng, (3, c, 3, 3), bf, device, 0.1), cs._rand(rng, (3,), bf, device, 0.1)),
             {}),
+        "tail_f32": (tail, "tail_fused", (
+            cs._rand(rng, (b, c, H, W), f32, device),
+            torch.from_numpy(rng.random((b, 3, h, w)).astype(np.float32)).to(device),
+            *(cs.tail_operands(h, w, H, W, device)[k]
+              for k in ("tail_j0", "tail_wy", "tail_c0", "tail_cw")),
+            model.tail.weight, model.tail.bias), {}),
         "sta": (sta, "sta_conv_fused", (
             cs._rand(rng, (b, c, h, w), bf, device), cs._rand(rng, (b, c, h, w), bf, device),
             kc.weight.to(bf), kc.bias.to(bf)), {}),
@@ -290,6 +330,10 @@ def main(argv=None) -> int:
             real = mod._lib()
             fn = getattr(mod, fn_name)
             want = getattr(mod, fn_name + "_plain")(*fn_args).float()
+            first = fn_args[0][0] if isinstance(fn_args[0], list) else fn_args[0]
+            print(f"[variants] {kern} reference: one read of its {tuple(first.shape)} "
+                  f"{str(first.dtype)[6:]} input (torch.Tensor.sum) ms "
+                  f"{cs.timed_ms(lambda: first.sum(), device):.4f}", flush=True)
             for name, variant in vs.items():
                 patch = variant if isinstance(variant, dict) else {}
                 if (kern, name) in libs:

@@ -24,9 +24,10 @@ Per checkout:
   forward of 8 windows unprofiled (median of 3) and under torch.profiler,
   its device busy time and the device time of the STA, STAU and tail
   kernels;
-- with ``--strict``: the f32 ``sta_case`` and ``stau_case`` rows (the
-  strict tier's CUDA-core STA and STAU kernels, STAU on the f32 statics'
-  sampler planes), every ``chip_smoke.CONV_CASES`` row in f32 (the
+- with ``--strict``: the f32 ``sta_case``, ``stau_case`` and ``tail_case``
+  rows (the strict tier's CUDA-core STA, STAU and tail kernels, STAU on the
+  f32 statics' sampler planes; the tail's library call with TF32 off),
+  every ``chip_smoke.CONV_CASES`` row in f32 (the
   checkout's own ``chip_smoke.conv_case``: kernel against plain version,
   back-to-back ms, ``F.conv2d`` with TF32 off, bound), and the same profile
   of one strict-tier (f32) forward of 8 windows, with the device time of
@@ -103,7 +104,8 @@ def child(root: str, out_path: str, strict: bool) -> None:
                 cs.tail_case(rng, model, torch.bfloat16, device)]
         if strict:
             rows += [cs.sta_case(rng, model, torch.float32, device),
-                     cs.stau_case(rng, model, statics, torch.float32, device)]
+                     cs.stau_case(rng, model, statics, torch.float32, device),
+                     cs.tail_case(rng, model, torch.float32, device)]
             rows += [cs.conv_case(rng, *case, torch.float32, device) for case in cs.CONV_CASES]
     del model
     profiles = {}
@@ -162,10 +164,10 @@ def main(argv=None) -> int:
                   f"(f32 conv {sp['f32_conv_ms']:.2f} ms; "
                   + "; ".join(f"{k} {v:.4f} ms" for k, v in sp["kernels"].items()
                               if not k.startswith("conv"))
-                  + "); f32 sta / stau rows ms (bound): "
+                  + "); f32 sta / stau / tail rows ms (bound): "
                   + "; ".join(f"{c['name']} {c['ms']:.4f} ({c['bound_ms']:.4f})"
                               for c in r["cases"] if c["dtype"] == "f32"
-                              and c["name"] in ("sta", "stau"))
+                              and c["name"] in ("sta", "stau", "tail"))
                   + "; f32 conv rows ms (F.conv2d): "
                   + "; ".join(f"{c['case']} {c['ms']:.4f} ({c['library_ms']:.4f})" for c in f32),
                   flush=True)

@@ -265,7 +265,7 @@ def _sta_f32_check(dev, dtype, b, c, h, w):
     bk = _rand(rng, (25 * c,), dtype, dev, 0.5)
     got = _agree(lambda: sta_conv_fused(x, st, wk, bk), lambda: sta_conv_fused_plain(x, st, wk, bk),
                  dtype, "sta")
-    assert hasattr(wk, "_savsr_sta_packed_f32")
+    assert hasattr(wk, "_savsr_packed")
     with torch.no_grad():
         want = sta_conv_fused_plain(x, st, wk, bk).float()
         again = sta_conv_fused(x, st, wk, bk).float()
@@ -463,6 +463,74 @@ def test_tail_bf16_kernel_matches_plain(dev, case):
             _rand(rng, (3, c, 3, 3), torch.bfloat16, dev, 0.1),
             _rand(rng, (3,), torch.bfloat16, dev, 0.1))
     _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), torch.bfloat16, "tail")
+
+
+def _tail_args(dev, b, c, H, W, h0, w0, dtype, seed):
+    rng = np.random.default_rng(seed)
+    sr = _rand(rng, (b, c, H, W), dtype, dev)
+    xc = torch.from_numpy(rng.random((b, 3, h0, w0)).astype(np.float32)).to(dev, dtype)
+    o = tail_operands(h0, w0, H, W, dev)
+    return (sr, xc, o["tail_j0"], o["tail_wy"], o["tail_c0"], o["tail_cw"],
+            _rand(rng, (3, c, 3, 3), dtype, dev, c ** -0.5 / 3),
+            _rand(rng, (3,), dtype, dev, 0.1))
+
+
+# the f32 tail kernel (CUDA cores, 32 x 256 tiles, a channel a stage): the
+# bf16 kernel's shapes in f32 (W under, over and off the 256-px tile, on and
+# off a multiple of 4 (16-byte or 4-byte staging), H short of a tile and
+# over several, batch 1 and 8), and a width off a multiple of 4 over two
+# tiles
+TAIL_F32 = TAIL_BF16 + [(2, 64, 40, 530, 10, 133)]
+
+
+@pytest.mark.parametrize("case", TAIL_F32, ids=[f"b{c[0]}-c{c[1]}-{c[2]}x{c[3]}"
+                                                for c in TAIL_F32])
+def test_tail_f32_kernel_matches_plain(dev, case):
+    args = _tail_args(dev, *case, torch.float32, seed=case[1] + case[2])
+    _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), torch.float32, "tail")
+
+
+@pytest.mark.parametrize("c", [3, 24, 64, 96])
+def test_tail_f32_kernel_channels(dev, c):
+    """Any C: the weights stream with the channels (96 is over the cap of
+    the kernel this one replaced)."""
+    args = _tail_args(dev, 2, c, 37, 300, 10, 75, torch.float32, seed=c)
+    _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), torch.float32, "tail")
+
+
+@pytest.mark.parametrize("border", ["top", "bottom", "left", "right"])
+def test_tail_f32_kernel_each_border(dev, border):
+    """sr nonzero only on one border row or column (and the skip zero), so
+    the output is that border's conv with the zero padding alone: 70 x 520
+    spans three row tiles and three column tiles."""
+    args = list(_tail_args(dev, 2, 16, 70, 520, 18, 130, torch.float32, seed=5))
+    sr = torch.zeros_like(args[0])
+    idx = {"top": (Ellipsis, 0, slice(None)), "bottom": (Ellipsis, -1, slice(None)),
+           "left": (Ellipsis, slice(None), 0), "right": (Ellipsis, slice(None), -1)}[border]
+    sr[idx] = args[0][idx]
+    args[0], args[1] = sr, torch.zeros_like(args[1])
+    got = _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), torch.float32, "tail")
+    assert float(got.abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("scale", [(4.0, 4.0), (1.5, 3.5), (3.05, 3.05)])
+def test_tail_f32_kernel_parity_outputs(dev, scale):
+    """The strict parity forward's tails: 45x80 -> 180x320, 68x280, 137x244;
+    a second launch gives the same bits."""
+    H, W = get_hw(45, 80, scale)
+    args = _tail_args(dev, 1, 64, H, W, 45, 80, torch.float32, seed=H)
+    got = _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), torch.float32, "tail")
+    assert torch.equal(got, tail_fused(*args))
+
+
+@pytest.mark.parametrize("c", [24, 80])
+def test_tail_bf16_other_channels(dev, c):
+    """bf16 at C the tensor-core kernel does not take: widened to f32 for the
+    CUDA-core kernel, with the bf16 tier's rounding points."""
+    args = _tail_args(dev, 2, c, 37, 300, 10, 75, torch.bfloat16, seed=c)
+    got = _agree(lambda: tail_fused(*args), lambda: tail_fused_plain(*args), torch.bfloat16,
+                 "tail")
+    assert tail_fused(*args).dtype == torch.bfloat16 and got.shape == (2, 3, 37, 300)
 
 
 @pytest.mark.parametrize("scale", [(2.0, 2.0), (1.5, 3.5)])
