@@ -57,14 +57,32 @@ Phases (each prints its lines; any failure exits non-zero):
 7. training savsr_tpu_torch.train.train_pipeline on 32 seeded 256x448
             septuplets with the flagship recipe (num_feat 64, B=16 = 2x8
             micro-batches of 60x60 LR crops, bf16, Charbonnier, Adam +
-            CosineAnnealingRestartLR, EMA 0.999), 6 iterations: losses
-            finite, checkpoint written and reloaded, the OSConv kernels'
-            launches per step as the architecture gives them, ms/step and
-            samples/s over the steps after the first two, peak memory. This
-            is the training main-path run for the two OSConv kernels.
+            CosineAnnealingRestartLR, EMA 0.999) and its val_x4 / val:
+            blocks (on a seeded 4-frame 576x720 clip), 6 iterations and the
+            final validation: losses finite, checkpoint written and
+            reloaded, the OSConv kernels' launches per step as the
+            architecture gives them, the validation's psnr_y and ssim_y
+            finite and the serving kernels launched by it, ms/step and
+            samples/s over the steps after the first two (validation
+            excluded), peak memory. This is the training main-path run for
+            the two OSConv kernels.
 8. train-profile  device time by kernel over one more training step of that
             model, against its unprofiled time, and the OSConv wrappers'
             share (their record_function ranges).
+9. eval     savsr_tpu_torch.test.test_pipeline on the shipped
+            options/test/SAVSR/test_SAVSR_Vid4_asBI.yml (dataroots, weights
+            and results root changed only): all 48 datasets (x1.1-x4.0, the
+            asymmetric ones, x6-x12) on a seeded 4-frame 576x720 clip with
+            the flagship weights, strict f32, batch 1, PNGs written. First
+            the f32 kernels against their plain versions at the sweep's
+            shapes (x4, x1.1, x(1.5,3.5), x(1.6,3.05), x8, x12: LR and HR
+            widths off a multiple of 4 and 8, STAU boxes over the staging
+            capacity); then the main-path run of the strict tier's kernels
+            (counts zeroed just before, read just after): every serving
+            kernel launched, no plain version on the card, finite psnr_y and
+            ssim_y for every dataset, per-dataset metrics, seconds per frame
+            by part, launches per frame; then frame 0 of x4.0, x1.1 and
+            x(1.5,3.5) as saved must equal array2img of a direct forward.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}};
@@ -331,8 +349,9 @@ DAGG_CASES = [("192->64 (WindowUnit_l1)", 192, 64), ("320->64 (WindowUnit_l2)", 
               ("64->64 (OSAdapt)", 64, 64)]
 
 
-def conv_case(rng, label, k, chans, cout, per_sample, epi, dtype, device, b=WINDOWS):
-    h, w = LR_HW
+def conv_case(rng, label, k, chans, cout, per_sample, epi, dtype, device, b=WINDOWS,
+              hw=LR_HW):
+    h, w = hw
     cin = sum(chans)
     parts = [_rand(rng, (b, c, h, w), dtype, device) for c in chans]
     wshape = ((b,) if per_sample else ()) + (cout, cin, k, k)
@@ -444,8 +463,8 @@ def osconv_function_check(rng, device, dtype=torch.float32, cin=192, b=TRAIN_B) 
                                  f"with autograd: {err} ({got.dtype})")
 
 
-def sta_case(rng, model, dtype, device, b=WINDOWS):
-    h, w = LR_HW
+def sta_case(rng, model, dtype, device, b=WINDOWS, hw=LR_HW):
+    h, w = hw
     c = model.cfg.num_feat
     kc = model.upsample.kernel_conv[0]
     x = _rand(rng, (b, c, h, w), dtype, device)
@@ -465,8 +484,8 @@ def sta_case(rng, model, dtype, device, b=WINDOWS):
                  dtype, device, ops_ms=ops_ms)
 
 
-def stau_case(rng, model, statics, dtype, device, b=WINDOWS):
-    h, w = LR_HW
+def stau_case(rng, model, statics, dtype, device, b=WINDOWS, hw=LR_HW):
+    h, w = hw
     up = model.upsample
     c = model.cfg.num_feat
     pix = statics["pix"]
@@ -489,9 +508,9 @@ def stau_case(rng, model, statics, dtype, device, b=WINDOWS):
                  lambda: stau_upsample_fused_plain(*args), None, flops, io, dtype, device)
 
 
-def tail_case(rng, model, dtype, device, b=WINDOWS):
-    h, w = LR_HW
-    H, W = get_hw(h, w, SCALE)
+def tail_case(rng, model, dtype, device, b=WINDOWS, hw=LR_HW, scale=SCALE):
+    h, w = hw
+    H, W = get_hw(h, w, scale)
     c = model.cfg.num_feat
     sr = _rand(rng, (b, c, H, W), dtype, device)
     xc = torch.from_numpy(rng.random((b, 3, h, w)).astype(np.float32)).to(device, dtype)
@@ -509,6 +528,19 @@ def tail_case(rng, model, dtype, device, b=WINDOWS):
                  lambda: tail_fused_plain(*args), library, flops, io, dtype, device)
 
 
+def log_stau_plan(phase: str, pix, hw, scale, dtype) -> None:
+    """The STAU window plan of ``dtype``'s kernel at (``hw``, ``scale``): its
+    tiles, those gathered from device memory (boxes over the capacity) and
+    the staged boxes' sizes."""
+    tile_r, tile_c, cap, align = plan_geometry(dtype)
+    plan = stau_window_plan(pix, *hw, tile_r, tile_c, cap, align)
+    sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
+    log(f"[{phase}] stau {DT_NAME[dtype]} window plan x{scale[0]}x{scale[1]} "
+        f"{hw[0]}x{hw[1]} ({tile_r}x{tile_c} HR tiles): {plan.shape[0]} tiles, "
+        f"{int((plan[:, 4] == 0).sum())} gathered from device memory, staged box "
+        f"slots max {int(sizes.max())} mean {float(sizes.float().mean()):.1f} of {cap}")
+
+
 def phase_kernels(model, device) -> list:
     """Every kernel against its plain version at its path's shapes."""
     rng = np.random.default_rng(0)
@@ -517,13 +549,7 @@ def phase_kernels(model, device) -> list:
         for scale in ((4.0, 4.0), (1.5, 3.5), (3.05, 3.05)):
             pix = model.stau_statics(LR_HW, scale, device=device)["pix"]
             for dtype in (torch.bfloat16, torch.float32):
-                tile_r, tile_c, cap, align = plan_geometry(dtype)
-                plan = stau_window_plan(pix, *LR_HW, tile_r, tile_c, cap, align)
-                sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
-                log(f"[kernels] stau {DT_NAME[dtype]} window plan x{scale[0]}x{scale[1]} "
-                    f"{LR_HW[0]}x{LR_HW[1]} ({tile_r}x{tile_c} HR tiles): {plan.shape[0]} tiles, "
-                    f"{int((plan[:, 4] == 0).sum())} gathered from device memory, staged box "
-                    f"slots max {int(sizes.max())} mean {float(sizes.float().mean()):.1f} of {cap}")
+                log_stau_plan("kernels", pix, LR_HW, scale, dtype)
         statics = model.stau_statics(LR_HW, SCALE, dtype=torch.float32, device=device)
         for dtype in (torch.float32, torch.bfloat16):
             for case in CONV_CASES:
@@ -584,11 +610,13 @@ def phase_parity(model, device) -> dict:
     return launches
 
 
-def write_clip(root: str, n: int, hw) -> str:
+def write_clip(root: str, n: int, hw, name: str = "clip") -> str:
+    """``n`` seeded frames (smooth texture + noise, shifted from frame to
+    frame) at ``hw`` as root/name/0000000i.png."""
     import cv2
 
     rng = np.random.default_rng(1)
-    d = os.path.join(root, "clip")
+    d = os.path.join(root, name)
     os.makedirs(d)
     base = (rng.random((hw[0] // 4, hw[1] // 4, 3)) * 255).astype(np.float32)
     base = cv2.resize(base, (hw[1], hw[0]), interpolation=cv2.INTER_CUBIC)
@@ -808,6 +836,20 @@ datasets:
     # loader restarts its workers at every epoch boundary)
     dataset_enlarge_ratio: 4
     prefetch_mode: device
+  val_x4:
+    name: Vid4_x4
+    type: ASVideoTestDataset
+    dataroot_gt: {root}/Vid4/GT
+    dataroot_lq: {root}/Vid4/GT
+    io_backend:
+      type: disk
+
+    cache_data: false
+    num_frame: 7
+    padding: reflection
+    use_arbitrary_scale_downsampling: true
+    downsampling_scale: !!python/tuple [4, 4]
+    downsampling_mode: torch
 network_g:
   type: SAVSR
   num_in_ch: 3
@@ -848,6 +890,19 @@ train:
     type: CharbonnierLoss
     loss_weight: 1.0
     reduction: mean
+val:
+  val_freq: !!float 5e3
+  save_img: false
+
+  metrics:
+    psnr_y:
+      type: calculate_psnr
+      crop_border: 0
+      test_y_channel: true
+    ssim_y:
+      type: calculate_ssim
+      crop_border: 0
+      test_y_channel: true
 logger:
   print_freq: 1
   save_checkpoint_freq: {iters}
@@ -904,6 +959,7 @@ def phase_training(device, n_seq: int = 32, iters: int = TRAIN_ITERS, yml: str =
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         write_septuplets(tmp, n_seq)
+        write_clip(os.path.join(tmp, "Vid4", "GT"), EVAL_FRAMES, EVAL_HW, name="calendar")
         cfg_path = os.path.join(tmp, "train_smoke.yml")
         with open(cfg_path, "w") as f:
             f.write(yml.format(root=tmp, iters=iters))
@@ -915,7 +971,11 @@ def phase_training(device, n_seq: int = 32, iters: int = TRAIN_ITERS, yml: str =
         model = train_pipeline(tmp, ["-opt", cfg_path, "--device", str(device)], stats=stats)
         if device.type == "cuda":
             torch.cuda.synchronize()
-            launches = require_kernels_ran("training", TRAINING_KERNELS)
+            # the final validation runs the serving kernels (its eval
+            # forward folds each OSConv into the conv kernel's per-sample
+            # weight, archs/chw_engine.py osconv_chw, so it adds no OSConv
+            # launch: the exact check below counts the training steps' own)
+            launches = require_kernels_ran("training", TRAINING_KERNELS + SERVING_KERNELS)
         else:
             launches = dict(ops.launches)
         peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
@@ -927,6 +987,9 @@ def phase_training(device, n_seq: int = 32, iters: int = TRAIN_ITERS, yml: str =
         losses = [log_vars["l_pix"] for _, _, log_vars in stats]
         if len(stats) != iters or not all(np.isfinite(losses)):
             raise AssertionError(f"training: {len(stats)} steps, losses {losses}")
+        val = getattr(model, "last_metric_results", None)
+        if val is None or not all(np.isfinite(val[m]) for m in ("psnr_y", "ssim_y")):
+            raise AssertionError(f"training: the final validation gave {val}")
         exp = os.path.join(tmp, "experiments", "smoke_SAVSR_Vimeo90K_asBI")
         ckpt = os.path.join(exp, "models", f"net_g_{iters}.npz")
         state_path = os.path.join(exp, "training_states", f"{iters}.state")
@@ -951,12 +1014,17 @@ def phase_training(device, n_seq: int = 32, iters: int = TRAIN_ITERS, yml: str =
     log(f"[training] steady (steps 3-{iters}): {ms_step:.2f} ms/step, "
         f"{batch / (ms_step / 1e3):.3f} samples/s; peak memory "
         f"{peak / 2 ** 30:.3f} GiB; checkpoint net_g_{iters}.npz + {iters}.state reloaded")
-    log(f"[training] OSConv kernel launches over the {iters} steps: {launches} "
+    log(f"[training] OSConv kernel launches over the {iters} steps: "
+        f"{ {k: launches[k] for k in TRAINING_KERNELS} } "
         f"(per step: {({k: launches[k] // iters for k in TRAINING_KERNELS})}, as the "
         f"architecture gives them)")
+    log(f"[training] the final validation ({model.opt['datasets']['val_x4']['name']}, "
+        f"{EVAL_FRAMES} frames {EVAL_HW[0]}x{EVAL_HW[1]}, f32 on the EMA weights): "
+        f"psnr_y {val['psnr_y']:.4f} dB, ssim_y {val['ssim_y']:.6f}; serving kernel launches "
+        f"{ {k: launches[k] for k in SERVING_KERNELS} }")
     phase_train_profile(model, device)
     return {"launches": launches, "ms_per_step": ms_step, "samples_per_s": batch / (ms_step / 1e3),
-            "peak_bytes": peak, "losses": losses}
+            "peak_bytes": peak, "losses": losses, "validation": val}
 
 
 def phase_train_profile(model, device) -> None:
@@ -1016,6 +1084,181 @@ def osconv_share(prof, rows, total: float) -> None:
         + "; ".join(f"{name[:48]} {ms:.2f} ms x{count}" for name, ms, count in port)
         + f"), the repack and pitch copies inside their ranges {added_ms:.2f} ms in "
         f"{sum(1 for name, _ in in_ranges if not is_port(name))} launches")
+
+
+EVAL_YML = os.path.join(REPO, "options", "test", "SAVSR", "test_SAVSR_Vid4_asBI.yml")
+# the frame size of Vid4's calendar clip; 4 frames stand in for its 41
+EVAL_HW, EVAL_FRAMES = (576, 720), 4
+EVAL_DATASETS = 48  # the shipped config's dataset blocks
+# the datasets whose frame 0 is held against a direct forward, and whose
+# per-frame times are printed
+EVAL_TIMED = ("Vid4_x4.0", "Vid4_x1.1", "Vid4_x1.5_x3.5")
+# the datasets at whose shapes the f32 kernels are held against their plain
+# versions first: the largest LR frame (x1.1: widths 650 and 715, neither a
+# multiple of 8 or 4), an HR width of 671 (x3.05), the extrapolated scales
+# whose STAU boxes overflow the staging capacity (x8, x12), and x4
+EVAL_SHAPES = ("Vid4_x4.0", "Vid4_x1.1", "Vid4_x1.5_x3.5", "Vid4_x1.6_x3.05", "Vid4_x8",
+               "Vid4_x12")
+EVAL_CONV_CASES = ("conv_c 3->64 lrelu", "conv2 64+64->64 lrelu+res",
+                   "osconv 5x64->64 per-sample lrelu", "conv1 3x64->64 lrelu")
+
+
+def eval_config(tmp: str, pth: str) -> str:
+    """The shipped Vid4 test config with its dataroots pointed at a seeded
+    clip under ``tmp``, its weights at ``pth`` and its results under
+    ``tmp``; nothing else changed. Returns the written config's path."""
+    import yaml
+
+    from savsr_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(EVAL_YML)
+    gt_root = os.path.join(tmp, "Vid4", "GT")
+    write_clip(gt_root, EVAL_FRAMES, EVAL_HW, name="calendar")
+    for ds in opt["datasets"].values():
+        ds["dataroot_gt"] = ds["dataroot_lq"] = gt_root
+    opt["path"]["pretrain_network_g"] = pth
+    opt["path"]["results_root"] = os.path.join(tmp, "results")
+    path = os.path.join(tmp, "test_vid4.yml")
+    with open(path, "w") as f:
+        yaml.dump(opt, f)  # tuples as !!python/tuple, as the shipped file writes them
+    return path
+
+
+def first_window(opt: dict, name: str):
+    """(the eval dataset ``name``'s first item, its scale) by the port's
+    dataset, as the pipeline reads it."""
+    from savsr_tpu_torch.data import build_dataset
+
+    block = next(b for b in opt["datasets"].values() if b["name"] == name)
+    return build_dataset(dict(block, phase="test"))[0], tuple(block["downsampling_scale"])
+
+
+def profile_forward(model, lq, scale, statics, device, label: str) -> dict:
+    """One eval forward (batch 1) under torch.profiler: device busy against
+    its unprofiled time (back-to-back forwards between CUDA events), and
+    the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd_ms = timed_ms(lambda: model(lq, scale, stau_statics=statics), device, reps=3, iters=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(lq, scale, stau_statics=statics)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    log(f"[eval-profile] {label} forward {tuple(lq.shape[-2:])} x{scale[0]}x{scale[1]}, batch 1: "
+        f"{fwd_ms:.2f} ms unprofiled, device busy {busy:.2f} ms ({100 * busy / fwd_ms:.1f}%) in "
+        f"{sum(r[2] for r in rows)} device events: "
+        + "; ".join(f"{short_name(k)} {ms:.2f} ms x{c}" for k, ms, c in rows[:5]))
+    return {"forward_ms": fwd_ms, "device_busy_ms": busy}
+
+
+def phase_eval(sd, device) -> dict:
+    """The eval pipeline (savsr_tpu_torch.test.test_pipeline) on the shipped
+    Vid4 config, all 48 datasets, strict f32, batch 1: first the f32 kernels
+    against their plain versions at the sweep's shapes, then the main-path
+    run (counts zeroed just before, read just after), then frame 0 of three
+    datasets against a direct forward of the same window."""
+    import cv2
+
+    from savsr_tpu_torch.test import test_pipeline
+    from savsr_tpu_torch.utils.img_util import array2img
+    from savsr_tpu_torch.utils.options import yaml_load
+    from savsr_tpu_torch.data.resize import resize_np
+
+    model = SAVSR(**flagship_net_kwargs()).eval()
+    load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()})
+    model.to(device)
+    rng = np.random.default_rng(9)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "savsr.pth")
+        torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+        cfg = eval_config(tmp, pth)
+        opt = yaml_load(cfg)
+        t0 = time.perf_counter()
+        with float32_precision(True):
+            for name in EVAL_SHAPES:
+                item, scale = first_window(opt, name)
+                hw = item["lq"].shape[1:3]
+                statics = model.stau_statics(hw, scale, dtype=torch.float32, device=device)
+                log_stau_plan("eval", statics["pix"], hw, scale, torch.float32)
+                for case in CONV_CASES:
+                    if case[0] in EVAL_CONV_CASES:
+                        rows.append(conv_case(rng, f"{case[0]} {name}", *case[1:], torch.float32,
+                                              device, b=1, hw=hw))
+                rows.append(sta_case(rng, model, torch.float32, device, b=1, hw=hw))
+                rows.append(stau_case(rng, model, statics, torch.float32, device, b=1, hw=hw))
+                rows.append(tail_case(rng, model, torch.float32, device, b=1, hw=hw, scale=scale))
+        failed = [f"{r['name']} {r['case']}" for r in rows if not r["ok"]]
+        if failed:
+            raise AssertionError(f"eval: f32 kernels disagree with their plain versions at the "
+                                 f"sweep's shapes: {failed}")
+        check_s = time.perf_counter() - t0
+
+        stats = []
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        results = test_pipeline(tmp, ["-opt", cfg, "--device", str(device)], stats=stats)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = require_kernels_ran("eval")
+        names = [ds["name"] for ds in opt["datasets"].values()]
+        bad = [n for n in names if n not in results
+               or not all(np.isfinite(results[n][m]) for m in ("psnr_y", "ssim_y"))]
+        if len(names) != EVAL_DATASETS or bad or len(stats) != EVAL_DATASETS * EVAL_FRAMES:
+            raise AssertionError(f"eval: {len(names)} datasets, {len(stats)} frames, missing or "
+                                 f"non-finite: {bad}")
+        for n in names:
+            log(f"[eval] {n:18s} psnr_y {results[n]['psnr_y']:.4f} dB  "
+                f"ssim_y {results[n]['ssim_y']:.6f}")
+        frames = len(stats)
+        totals = {k: sum(st[k] for st in stats) for k in ("load_s", "statics_s", "forward_s",
+                                                          "post_s")}
+        log(f"[eval] {len(names)} datasets x {EVAL_FRAMES} frames {EVAL_HW[0]}x{EVAL_HW[1]} (GT), strict "
+            f"f32, batch 1: {wall:.2f} s ({check_s:.2f} s of kernel checks before it); per "
+            f"frame: " + ", ".join(f"{k} {v / frames:.4f}" for k, v in totals.items())
+            + " s (load: the item's frames read and degraded on the host; forward: up to the "
+            "output on the host; post: metrics on the host and the PNG write)")
+        timed = {}
+        for n in EVAL_TIMED:
+            mine = [st for st in stats if st["dataset"] == n]
+            rest = [st["forward_s"] for st in mine[1:]]
+            timed[n] = {"statics_s": mine[0]["statics_s"], "first_forward_s": mine[0]["forward_s"],
+                        "forward_s": float(np.mean(rest)),
+                        "frame_s": float(np.mean([st["load_s"] + st["forward_s"] + st["post_s"]
+                                                  for st in mine[1:]]))}
+            log(f"[eval] {n}: frames 2-{len(mine)}: forward {timed[n]['forward_s']:.4f} s/frame "
+                f"(to the output on the host), whole frame {timed[n]['frame_s']:.4f} s; frame 1: "
+                f"statics {mine[0]['statics_s']:.4f} s apart, forward "
+                f"{mine[0]['forward_s']:.4f} s")
+        log(f"[eval] kernel launches in the main-path run: {launches} "
+            f"({ {k: round(v / frames, 2) for k, v in launches.items()} } per frame)")
+
+        # frame 0 of three datasets: the saved PNG against array2img of a
+        # direct forward of the same window (+ the BI post-process where the
+        # shapes differ)
+        vis = os.path.join(tmp, "results", opt["name"], "visualization")
+        for n in EVAL_TIMED:
+            item, scale = first_window(opt, n)
+            lq = torch.from_numpy(item["lq"]).permute(0, 3, 1, 2).contiguous()[None].to(device)
+            statics = model.stau_statics(lq.shape[-2:], scale, dtype=torch.float32, device=device)
+            sr = model(lq, scale, stau_statics=statics).permute(0, 2, 3, 1).cpu().numpy()
+            gt_hw = item["gt"].shape[:2]
+            if sr.shape[1:3] != gt_hw:
+                sr = resize_np(sr, gt_hw, mode="torch", antialias=True)
+            want = array2img(sr[0])
+            saved = cv2.imread(os.path.join(vis, n, "calendar",
+                                            f"00000000_{opt['name']}.png"), cv2.IMREAD_UNCHANGED)
+            same = saved is not None and saved.shape == want.shape and np.array_equal(saved, want)
+            log(f"[eval] {n} frame 0: LR {tuple(lq.shape[-2:])} -> {sr.shape[1:3]}, saved PNG "
+                f"{'equals' if same else 'DIFFERS FROM'} array2img of a direct forward")
+            if not same:
+                raise AssertionError(f"eval: {n} frame 0 differs from a direct forward")
+            timed[n].update(profile_forward(model, lq, scale, statics, device, n))
+    return {"launches": launches, "seconds": wall, "frames": frames, "per_frame": totals,
+            "timed": timed, "results": results, "rows": rows}
 
 
 def tensor_core_count(lib_path: str):
@@ -1089,6 +1332,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_parity = phase_train_parity(device)
     training = phase_training(device)
+    torch.cuda.empty_cache()
+    evaluation = phase_eval(sd, device)
 
     def entry(name, dtype, source, replaces, launches):
         head = next(r for r in rows if r["name"] == name and r["dtype"] == dtype
@@ -1104,20 +1349,21 @@ def main(argv=None) -> int:
     # the bf16 rows: launches on the main paths (serving, training); the f32
     # rows (the strict tier's kernels: csrc/conv.cu conv_f32_kernel, which
     # also runs every f32 OSConv, sta_f32_kernel, stau_f32_kernel,
-    # tail_f32_kernel): launches on the strict parity forwards and the f32
-    # train-parity step
+    # tail_f32_kernel): launches on the eval pipeline's main-path run (the
+    # strict tier's path) and, for the f32 OSConv, the f32 train-parity step
     kernels = [entry(name, "bf16", source, replaces,
                      (training if name in TRAINING_KERNELS else serving)["launches"][name])
                for name, (source, replaces) in SOURCES.items()]
     kernels += [entry(name, "f32", SOURCES[name][0] if name in ("sta", "stau", "tail")
                       else "savsr_tpu_torch/csrc/conv.cu", SOURCES[name][1],
-                      (train_parity if name in TRAINING_KERNELS else parity)[name])
+                      train_parity[name] if name in TRAINING_KERNELS
+                      else evaluation["launches"][name])
                 for name in ("conv3x3", "conv1x1", "sta", "stau", "tail", "osconv_agg")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "cases": rows, "serving": serving, "strict": strict,
-                       "training": training, "kernels": kernels},
+                       "training": training, "eval": evaluation, "kernels": kernels},
                       f, indent=1)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))

@@ -557,6 +557,7 @@ class SAVSR(nn.Module):
         from .chw_engine import trunk_apply_chw, window_l1_apply_chw, window_l2_apply_chw
 
         cfg = self.cfg
+        x = x.contiguous()  # the kernels read contiguous channel planes
         b, t, _, h_in, w_in = x.shape
         x_center = x[:, cfg.center]
         x = pad_spatial(x)

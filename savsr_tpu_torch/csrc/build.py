@@ -1,4 +1,5 @@
-"""nvcc build + ctypes loader for the port's CUDA kernels.
+"""nvcc build + ctypes loader for the port's CUDA kernels, and the g++
+build of the host resampler.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/savsr_tpu_torch/lib<name>-<digest>.so``; the digest covers the
@@ -10,6 +11,10 @@ build phase); ``load`` builds one library on first use.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o lib<name>.so <name>.cu
+
+``resample_native`` runs ``csrc/resample.cpp`` (host code of the data
+pipeline), built by g++ on first use into the same directory; without a
+host compiler it returns None and the caller keeps its numpy path.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import os
 import re
 import shutil
 import subprocess
-from typing import Iterable, List, Tuple
+import threading
+from typing import Iterable, List, Optional, Tuple
 
 CSRC_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC_DIR))
@@ -106,3 +112,62 @@ def load(name: str) -> ctypes.CDLL:
     lib.savsr_error_string.restype = ctypes.c_char_p
     lib.savsr_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+# the host resampler: the JAX package's flags, so that both packages' builds
+# contract the same multiply-adds
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread")
+_HOST_LOCK = threading.Lock()  # loader threads may ask at once: one g++ at a time
+
+
+@functools.lru_cache(maxsize=None)
+def _load_resampler() -> Optional[ctypes.CDLL]:
+    """The ctypes handle of the host resampler, built first if needed; None
+    if it cannot be built here (no g++)."""
+    src = os.path.join(CSRC_DIR, "resample.cpp")
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"libresample-{h.hexdigest()[:12]}.so")
+    with _HOST_LOCK:
+        try:
+            if not os.path.isfile(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                subprocess.run(["g++", *HOST_FLAGS, src, "-o", tmp], check=True,
+                               capture_output=True)
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(out)
+        except (OSError, subprocess.CalledProcessError):
+            return None
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.resample_hw_f32.restype = None
+    lib.resample_hw_f32.argtypes = [fp, fp, fp, fp, fp] + [ctypes.c_int64] * 6 + [ctypes.c_int]
+    return lib
+
+
+def resample_native(x, mh, mw, n_threads: int = 0):
+    """Two-pass resample of [N, H, W, C] float32 by the [H_out, H] and
+    [W_out, W] float32 weight matrices on the host; None if the resampler
+    cannot be built here."""
+    import numpy as np
+
+    lib = _load_resampler()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    mh = np.ascontiguousarray(mh, dtype=np.float32)
+    mw = np.ascontiguousarray(mw, dtype=np.float32)
+    n, h_in, w_in, c = x.shape
+    if mh.shape[1] != h_in or mw.shape[1] != w_in:
+        raise ValueError(f"weights {mh.shape} x {mw.shape} do not fit frames {x.shape}")
+    h_out, w_out = mh.shape[0], mw.shape[0]
+    scratch = np.empty((n, h_out, w_in, c), dtype=np.float32)
+    out = np.empty((n, h_out, w_out, c), dtype=np.float32)
+    if n_threads <= 0:
+        n_threads = min(8, os.cpu_count() or 1)
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.resample_hw_f32(x.ctypes.data_as(fp), scratch.ctypes.data_as(fp),
+                        out.ctypes.data_as(fp), mh.ctypes.data_as(fp), mw.ctypes.data_as(fp),
+                        n, h_in, w_in, c, h_out, w_out, n_threads)
+    return out

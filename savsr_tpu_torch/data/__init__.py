@@ -16,6 +16,7 @@ from ..utils.registry import DATASET_REGISTRY
 from .loader import DataLoader, DevicePrefetcher, EnlargedSampler
 
 # import dataset modules so their @register decorators run
+from . import video_test_dataset  # noqa: F401
 from . import vimeo90k_dataset  # noqa: F401
 
 __all__ = ["build_dataset", "build_dataloader", "DataLoader", "DevicePrefetcher",
@@ -23,8 +24,7 @@ __all__ = ["build_dataset", "build_dataloader", "DataLoader", "DevicePrefetcher"
 
 # dataset types of the JAX package that the port does not have yet
 NOT_PORTED = ("REDSDataset", "REDSRecurrentDataset", "ASREDSRecurrentDataset",
-              "Vimeo90KRecurrentDataset", "ASVimeo90KRecurrentDataset", "VideoTestDataset",
-              "ASVideoTestDataset", "VideoTestVimeo90KDataset", "ASVideoTestVimeo90KDataset",
+              "Vimeo90KRecurrentDataset", "ASVimeo90KRecurrentDataset",
               "VideoRecurrentTestDataset", "ASVideoRecurrentTestDataset")
 
 
@@ -43,19 +43,19 @@ def build_dataset(dataset_opt: dict, seed=None):
 
 
 def build_dataloader(dataset, dataset_opt: dict, sampler=None, seed=None):
-    """Training-loader construction (reference data/__init__.py:26-103)."""
+    """Phase-aware loader construction (reference data/__init__.py:26-103):
+    training batches are shuffled (or drawn by ``sampler``) and the last
+    short batch dropped; ``val``/``test`` loaders keep the dataset's order,
+    one item per batch unless ``batch_size_per_gpu`` says otherwise."""
     phase = dataset_opt["phase"]
-    if phase != "train":
-        raise NotImplementedError(f"datasets: phase {phase} (the eval pipeline) is not ported "
-                                  "yet")
-    return DataLoader(
-        dataset,
-        batch_size=dataset_opt["batch_size_per_gpu"],
-        shuffle=sampler is None,
-        sampler=sampler,
-        drop_last=True,
-        collate_fn=getattr(dataset, "as_collate_fn", None),
-        num_workers=dataset_opt.get("num_worker_per_gpu", 0),
-        seed=seed,
-        worker_mode=dataset_opt.get("worker_mode", "thread"),
-    )
+    common = dict(collate_fn=getattr(dataset, "as_collate_fn", None),
+                  num_workers=dataset_opt.get("num_worker_per_gpu", 0),
+                  worker_mode=dataset_opt.get("worker_mode", "thread"))
+    if phase == "train":
+        return DataLoader(dataset, batch_size=dataset_opt["batch_size_per_gpu"],
+                          shuffle=sampler is None, sampler=sampler, drop_last=True, seed=seed,
+                          **common)
+    if phase in ("val", "test"):
+        return DataLoader(dataset, batch_size=dataset_opt.get("batch_size_per_gpu", 1),
+                          shuffle=False, **common)
+    raise ValueError(f"Wrong dataset phase: {phase}.")

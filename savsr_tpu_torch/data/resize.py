@@ -12,8 +12,8 @@ implementations (lbasicsr/data/data_util.py:371-420):
 
 Both are separable 1-D convolutions with position-dependent taps, so each
 axis is realised once (cached) as a dense ``[out_size, in_size]`` weight
-matrix and applied as a matmul in numpy on the host. A device-side resize
-comes with ``train: degrade_on_device``, which is not ported yet.
+matrix and applied as a matmul: on the host (``resize_np``), or on NCHW
+device tensors (``resize_pt``, the device metrics' post-process).
 
 Algorithms are implemented from their public definitions (PIL/PyTorch
 antialiased resampling; MATLAB imresize) — no code is taken from the
@@ -161,8 +161,11 @@ def resize_np(
 ) -> np.ndarray:
     """Resize the trailing-spatial image(s) on host.
 
-    Accepts ``[..., H, W, C]`` (channel-last). Computation runs in float64
-    and is cast back to the input dtype.
+    Accepts ``[..., H, W, C]`` (channel-last). float32 images go through
+    the host resampler (csrc/resample.cpp: float accumulation, the JAX
+    package's arithmetic, ~1e-6 off float64); other dtypes, and float32
+    where the resampler cannot be built, are computed in float64 and cast
+    back to the input dtype.
     """
     h, w = img.shape[-3], img.shape[-2]
     H, W = size
@@ -172,6 +175,28 @@ def resize_np(
     mw = bicubic_weight_matrix(
         w, W, mode, antialias, None if scale is None else scale[1], np.float64
     )
+    if img.dtype == np.float32:
+        from ..csrc.build import resample_native
+
+        flat = img.reshape((-1,) + img.shape[-3:])
+        out = resample_native(flat, mh.astype(np.float32), mw.astype(np.float32))
+        if out is not None:
+            return out.reshape(img.shape[:-3] + out.shape[1:])
     out = np.einsum("Hh,...hwc->...Hwc", mh, img.astype(np.float64), optimize=True)
     out = np.einsum("Ww,...hwc->...hWc", mw, out, optimize=True)
     return out.astype(img.dtype)
+
+
+def resize_pt(x, size: Tuple[int, int], mode: str = "torch", antialias: bool = True):
+    """Resize [..., C, H, W] tensors on their device: the two weight
+    matrices of ``resize_np`` as true-f32 matmuls (the JAX package's
+    ``resize_jax`` at precision 'highest')."""
+    import torch
+
+    from ..archs.arch_util import float32_precision
+
+    h, w = x.shape[-2], x.shape[-1]
+    mh, mw = (torch.from_numpy(bicubic_weight_matrix(n, m, mode, antialias)).to(x)
+              for n, m in ((h, size[0]), (w, size[1])))
+    with float32_precision():
+        return torch.einsum("Hh,...hw,Ww->...HW", mh, x, mw)

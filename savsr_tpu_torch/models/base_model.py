@@ -118,6 +118,32 @@ class BaseModel:
                 group["lr"] = lr
 
     # ------------------------------------------------------------------ #
+    # validation bookkeeping
+    # ------------------------------------------------------------------ #
+
+    def _initialize_best_metric_results(self, dataset_name: str) -> None:
+        """A best-value record per metric of ``val: metrics`` for the
+        dataset (kept across validations): -inf / inf by ``better``."""
+        if not hasattr(self, "best_metric_results"):
+            self.best_metric_results: Dict[str, Dict] = {}
+        if dataset_name in self.best_metric_results:
+            return
+        record = {}
+        for metric, content in self.opt["val"]["metrics"].items():
+            better = content.get("better", "higher")
+            init_val = float("-inf") if better == "higher" else float("inf")
+            record[metric] = dict(better=better, val=init_val, iter=-1)
+        self.best_metric_results[dataset_name] = record
+
+    def _update_best_metric_result(self, dataset_name: str, metric: str, val: float,
+                                   current_iter) -> None:
+        rec = self.best_metric_results[dataset_name][metric]
+        if (rec["better"] == "higher" and val >= rec["val"]) or (
+                rec["better"] == "lower" and val <= rec["val"]):
+            rec["val"] = val
+            rec["iter"] = current_iter
+
+    # ------------------------------------------------------------------ #
     # EMA
     # ------------------------------------------------------------------ #
 

@@ -1,15 +1,18 @@
 """Training entry point: ``python -m savsr_tpu_torch.train -opt <cfg.yml>``.
 
 The port's counterpart of ``savsr_tpu/train.py`` (behaviour of
-lbasicsr/train.py:94-255: epoch/iter loop, auto resume, periodic log and
-save, prefetching) on one CUDA device; ``--device cpu`` runs it on the CPU
-(the OSConv kernels' plain versions). Without ``--device`` it runs on CUDA
-and raises if there is no card.
+lbasicsr/train.py:94-255: epoch/iter loop, auto resume, periodic log, save and
+validation, prefetching) on one CUDA device; ``--device cpu`` runs it on the
+CPU (the kernels' plain versions). Without ``--device`` it runs on CUDA and
+raises if there is no card. With a ``val:`` block, every ``val_*`` dataset
+is validated every ``val: val_freq`` iterations and once more after the
+final save (the eval forward in f32 on the EMA weights; see
+models/sr_model.py).
 
-Not ported yet, each raising NotImplementedError with the option's name: a
-``val:`` block or ``val_*`` datasets (the eval pipeline), ``train:
-bucket_train``, ``train: degrade_on_device``, perceptual/GAN losses, the
-recurrent model family, REDS, lmdb, multi-GPU.
+Not ported yet, each raising NotImplementedError with the option's name:
+``train: bucket_train``, ``train: degrade_on_device``, perceptual/GAN
+losses, ``val: bucket_eval``, the recurrent model family, REDS, lmdb,
+multi-GPU.
 """
 
 from __future__ import annotations
@@ -35,12 +38,6 @@ from .utils.options import copy_opt_file, dict2str, parse_options
 def reject_unported(opt: dict) -> None:
     """Raise for the options of the JAX package's trainer that the port
     does not run yet, naming the option (nothing is silently skipped)."""
-    if opt.get("val") is not None:
-        raise NotImplementedError("val: (validation during training; the eval pipeline) is "
-                                  "not ported yet")
-    for phase in opt.get("datasets", {}):
-        if phase != "train":
-            raise NotImplementedError(f"datasets: {phase} (the eval pipeline) is not ported yet")
     wandb = (opt.get("logger") or {}).get("wandb") or {}
     if wandb.get("project") is not None:
         raise NotImplementedError("logger: wandb is not ported yet")
@@ -52,26 +49,38 @@ def init_tb_loggers(opt):
     return None
 
 
-def create_train_dataloader(opt, logger):
-    dataset_opt = opt["datasets"]["train"]
-    enlarge = dataset_opt.get("dataset_enlarge_ratio", 1)
-    train_set = build_dataset(dataset_opt, seed=opt["manual_seed"])
-    train_sampler = EnlargedSampler(len(train_set), opt["world_size"], opt["rank"], enlarge)
-    train_loader = build_dataloader(train_set, dataset_opt, sampler=train_sampler,
-                                    seed=opt["manual_seed"])
-    num_iter_per_epoch = math.ceil(
-        len(train_set) * enlarge / (dataset_opt["batch_size_per_gpu"] * opt["world_size"]))
-    total_iters = int(opt["train"]["total_iter"])
-    total_epochs = math.ceil(total_iters / num_iter_per_epoch)
-    logger.info(
-        "Training statistics:"
-        f"\n\tNumber of train images: {len(train_set)}"
-        f"\n\tDataset enlarge ratio: {enlarge}"
-        f"\n\tBatch size per device: {dataset_opt['batch_size_per_gpu']}"
-        f"\n\tWorld size (process count): {opt['world_size']}"
-        f"\n\tRequire iter number per epoch: {num_iter_per_epoch}"
-        f"\n\tTotal epochs: {total_epochs}; iters: {total_iters}.")
-    return train_loader, total_epochs, total_iters
+def create_train_val_dataloader(opt, logger):
+    train_loader, val_loaders = None, []
+    for phase, dataset_opt in opt["datasets"].items():
+        if phase.split("_")[0] == "val":
+            val_set = build_dataset(dataset_opt)
+            val_loaders.append(build_dataloader(val_set, dataset_opt))
+            continue
+        if phase != "train":
+            raise ValueError(f"Dataset phase {phase} is not recognized.")
+        enlarge = dataset_opt.get("dataset_enlarge_ratio", 1)
+        train_set = build_dataset(dataset_opt, seed=opt["manual_seed"])
+        train_sampler = EnlargedSampler(len(train_set), opt["world_size"], opt["rank"], enlarge)
+        train_loader = build_dataloader(train_set, dataset_opt, sampler=train_sampler,
+                                        seed=opt["manual_seed"])
+        num_iter_per_epoch = math.ceil(
+            len(train_set) * enlarge / (dataset_opt["batch_size_per_gpu"] * opt["world_size"]))
+        total_iters = int(opt["train"]["total_iter"])
+        total_epochs = math.ceil(total_iters / num_iter_per_epoch)
+        logger.info(
+            "Training statistics:"
+            f"\n\tNumber of train images: {len(train_set)}"
+            f"\n\tDataset enlarge ratio: {enlarge}"
+            f"\n\tBatch size per device: {dataset_opt['batch_size_per_gpu']}"
+            f"\n\tWorld size (process count): {opt['world_size']}"
+            f"\n\tRequire iter number per epoch: {num_iter_per_epoch}"
+            f"\n\tTotal epochs: {total_epochs}; iters: {total_iters}.")
+    return train_loader, val_loaders, total_epochs, total_iters
+
+
+def validate(model, val_loaders, opt, current_iter, tb_logger) -> None:
+    for val_loader in val_loaders:
+        model.validation(val_loader, current_iter, tb_logger, opt["val"]["save_img"])
 
 
 def load_resume_state(opt):
@@ -116,7 +125,8 @@ def train_pipeline(root_path, args_list=None, stats=None):
     logger.info(dict2str(opt))
     tb_logger = init_tb_loggers(opt)
 
-    train_loader, total_epochs, total_iters = create_train_dataloader(opt, logger)
+    train_loader, val_loaders, total_epochs, total_iters = create_train_val_dataloader(opt,
+                                                                                      logger)
 
     model = build_model(opt)
     if resume_state:
@@ -184,6 +194,9 @@ def train_pipeline(root_path, args_list=None, stats=None):
                 logger.info("Saving models and training states.")
                 model.save(epoch, current_iter)
 
+            if opt.get("val") is not None and current_iter % opt["val"]["val_freq"] == 0:
+                validate(model, val_loaders, opt, current_iter, tb_logger)
+
             data_timer.start()
             iter_timer.start()
             train_data = prefetcher.next()
@@ -194,6 +207,8 @@ def train_pipeline(root_path, args_list=None, stats=None):
     logger.info(f"End of training. Time consumed: {consumed}")
     logger.info("Save the latest model.")
     model.save(epoch=-1, current_iter=-1)
+    if opt.get("val") is not None:
+        validate(model, val_loaders, opt, current_iter, tb_logger)
     return model
 
 

@@ -1,5 +1,5 @@
-"""Small host-side helpers: seeding, directory layout, resume bookkeeping
-(the port's counterpart of ``savsr_tpu/utils/misc.py``)."""
+"""Small host-side helpers: seeding, directory layout, file scanning,
+resume bookkeeping (the port's counterpart of ``savsr_tpu/utils/misc.py``)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import os
 import random
 import time
 from os import path as osp
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -36,14 +37,33 @@ def mkdir_and_rename(path: str) -> None:
 
 
 def make_exp_dirs(opt: dict) -> None:
-    """Create the experiment directory tree."""
+    """Create the experiment (training) or results (test) directory tree."""
     path_opt = dict(opt["path"])
-    mkdir_and_rename(path_opt.pop("experiments_root"))
+    mkdir_and_rename(path_opt.pop("experiments_root" if opt["is_train"] else "results_root"))
     for key, path in path_opt.items():
         if any(s in key for s in ("strict_load", "pretrain_network", "resume", "param_key")):
             continue
         if path is not None:
             os.makedirs(path, exist_ok=True)
+
+
+def scandir(dir_path: str, suffix: Optional[str | tuple] = None, recursive: bool = False,
+            full_path: bool = False) -> Iterator[str]:
+    """Yield the paths of the files under ``dir_path`` (hidden files
+    skipped), relative to it unless ``full_path``, optionally only those
+    ending in ``suffix``."""
+    root = dir_path
+
+    def _scan(dir_path: str):
+        for entry in os.scandir(dir_path):
+            if not entry.name.startswith(".") and entry.is_file():
+                rel = entry.path if full_path else osp.relpath(entry.path, root)
+                if suffix is None or rel.endswith(suffix):
+                    yield rel
+            elif recursive and entry.is_dir():
+                yield from _scan(entry.path)
+
+    return _scan(dir_path)
 
 
 def check_resume(opt: dict, resume_iter: int) -> None:

@@ -3,8 +3,8 @@
 The port's counterpart of ``savsr_tpu/utils/options.py`` (behaviour of
 lbasicsr/utils/options.py:100-221): YAML with ``!!python/tuple`` scale
 literals, ``--force_yml a:b=v`` deep overrides, seeding from ``manual_seed``,
-experiments path derivation and debug-mode frequency rewrites, plus the
-port's ``--device``.
+experiments (training) or results (test) path derivation and debug-mode
+frequency rewrites, plus the port's ``--device``.
 """
 
 from __future__ import annotations
@@ -135,7 +135,14 @@ def parse_options(root_path: str, is_train: bool = True,
             opt["path"][key] = osp.expanduser(val)
 
     if not is_train:
-        raise NotImplementedError("the test pipeline (is_train: false) is not ported yet")
+        results_root = opt["path"].get("results_root")
+        if results_root is None:
+            results_root = osp.join(root_path, "results")
+        results_root = osp.join(results_root, opt["name"])
+        opt["path"]["results_root"] = results_root
+        opt["path"]["log"] = results_root
+        opt["path"]["visualization"] = osp.join(results_root, "visualization")
+        return opt, args
     experiments_root = opt["path"].get("experiments_root")
     if experiments_root is None:
         experiments_root = osp.join(root_path, "experiments")

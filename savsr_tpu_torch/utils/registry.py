@@ -81,3 +81,4 @@ class Registry:
 DATASET_REGISTRY = Registry("dataset")
 MODEL_REGISTRY = Registry("model")
 LOSS_REGISTRY = Registry("loss")
+METRIC_REGISTRY = Registry("metric")

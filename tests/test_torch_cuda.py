@@ -548,6 +548,21 @@ def test_small_forward_on_the_card_matches_torch_golden(dev, scale):
     assert np.abs(y - io[f"y_{scale[0]}_{scale[1]}"]).max() <= 1e-5
 
 
+def test_forward_on_the_card_takes_a_channel_last_view(dev):
+    """A window handed over as a permuted view of channel-last frames (as
+    the eval datasets give them) gives the contiguous window's output: the
+    kernels read contiguous channel planes, so the forward copies first."""
+    io = np.load(os.path.join(GOLDEN_DIR, "savsr_small_forward.npz"))
+    model = SAVSR(**SMALL_CFG).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           np.load(os.path.join(GOLDEN_DIR, "savsr_small_state.npz")).items()})
+    model.to(dev)
+    x = torch.from_numpy(io["x"]).to(dev)
+    view = x.permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3)
+    assert not view.is_contiguous()
+    assert torch.equal(model(view, (2.0, 2.0)), model(x, (2.0, 2.0)))
+
+
 # (B, Cin, H, W, Cout, k, padding): partial tiles in every direction, Cin and
 # Cout off the 32/64 tiles, every padding of k = 3, and k = 1. In bf16 the
 # cases at padding k//2 run the tensor-core kernels (the bf16 conv's 64-Cout

@@ -137,15 +137,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert bad == []
 
 
-# the modules of the training path: each must be among the files the check
-# above walks, and importing all of them must not pull JAX in
+# the modules of the training and eval paths: each must be among the files
+# the check above walks, and importing all of them must not pull JAX in
 TRAINING_MODULES = [
     "ops.osconv", "archs.train_engine", "archs", "losses", "losses.basic_loss",
     "losses.loss_util", "models", "models.base_model", "models.sr_model",
     "models.video_base_model", "models.asvsr_model", "models.lr_scheduler", "data",
     "data.loader", "data.transforms", "data.resize", "data.vimeo90k_dataset",
-    "utils.registry", "utils.misc", "utils.file_client", "utils.options", "utils.logger",
-    "train",
+    "data.video_test_dataset", "data.data_util", "metrics", "metrics.psnr_ssim",
+    "metrics.metric_util", "utils.registry", "utils.misc", "utils.file_client",
+    "utils.options", "utils.logger", "utils.color_util", "utils.img_util", "csrc.build",
+    "train", "test",
 ]
 
 
