@@ -84,6 +84,26 @@ Phases (each prints its lines; any failure exits non-zero):
             by part, launches per frame; then frame 0 of x4.0, x1.1 and
             x(1.5,3.5) as saved must equal array2img of a direct forward.
 
+10. split   the split serving tier (conv_precision: split: pair-carried
+            bf16 hi/lo convs on the tensor cores, csrc/conv.cu
+            conv_wgmma_kernel<K, true>; STA, STAU and the tail on their f32
+            kernels): the split conv against its plain version at 8 x
+            180x320 (64->64 3x3 with a pair residual, the 3-pair merge, the
+            1x1 conv1, the WindowUnit_l1 OSConv's per-sample weight; f32's
+            tolerance on the merged values; the library time is F.conv2d in
+            bf16 over the stacked [hi, lo, hi] input, the nearest single
+            call); the flagship split forward on the 45x80 golden input at
+            x4, x(1.5,3.5), x3.05 against the strict forward on the card
+            (max abs < 2e-3 and 30x below the bf16 tier's) with its
+            deviation PSNR against the reference outputs; the CLI at --tier
+            split on the serving clip (the split main-path run: counts
+            zeroed just before, read just after; every split and f32 serving
+            kernel launched, no native conv); one profiled split forward of
+            8 windows (device busy, the split conv's share); and the shipped
+            Vid4 config with conv_precision: split on its x4, x1.1 and
+            x(1.5,3.5) datasets (psnr_y and ssim_y against the strict sweep
+            of phase 9).
+
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}};
 the line before it holds the per-kernel results as one JSON object.
@@ -111,7 +131,9 @@ from savsr_tpu_torch.csrc import build
 from savsr_tpu_torch.data.data_util import generate_frame_indices
 from savsr_tpu_torch.inference import (build_serving_model, flagship_net_kwargs,
                                        load_params, main as serve_main)
-from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
+from savsr_tpu_torch.ops.conv import (Pair, conv_fused, conv_fused_plain, conv_fused_split,
+                                      conv_fused_split_plain, pair_merge, pair_split,
+                                      split_weight)
 from savsr_tpu_torch.ops.osconv import (osconv_agg, osconv_agg_dx, osconv_agg_plain,
                                         osconv_agg_train, osconv_dagg, osconv_dagg_plain)
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
@@ -155,17 +177,27 @@ SOURCES = {
                    "savsr_tpu/ops/pallas/osconv_kernel.py:139"),
     "osconv_dagg": ("savsr_tpu_torch/csrc/osconv.cu",
                     "savsr_tpu/ops/pallas/osconv_kernel.py:303"),
+    # the split tier's convs: the pair-carry mode of kernels 1 and 2
+    "conv3x3_split": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:386"),
+    "conv1x1_split": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:531"),
 }
 SERVING_KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail")
+SPLIT_KERNELS = ("conv3x3_split", "conv1x1_split")
+# the split tier's path: its convs, and STA, STAU and the tail in f32
+SPLIT_SERVING_KERNELS = SPLIT_KERNELS + ("sta", "stau", "tail")
 # the CUDA kernels behind each row of the JSON kernels line, by dtype (the
 # flagship widths: C = 64, 4 experts; W % 4 == 0)
 CUDA_KERNELS = {
-    ("conv3x3", "bf16"): "conv_wgmma_kernel<3>", ("conv3x3", "f32"): "conv_f32_kernel<3, 1>",
-    ("conv1x1", "bf16"): "conv_wgmma_kernel<1>", ("conv1x1", "f32"): "conv_f32_kernel<1, 0>",
+    ("conv3x3", "bf16"): "conv_wgmma_kernel<3, false>",
+    ("conv3x3", "f32"): "conv_f32_kernel<3, 1>",
+    ("conv1x1", "bf16"): "conv_wgmma_kernel<1, false>",
+    ("conv1x1", "f32"): "conv_f32_kernel<1, 0>",
+    ("conv3x3_split", "split"): "conv_wgmma_kernel<3, true>",
+    ("conv1x1_split", "split"): "conv_wgmma_kernel<1, true>",
     ("sta", "bf16"): "sta_mma_kernel<64>", ("sta", "f32"): "sta_f32_kernel<64, false>",
     ("stau", "bf16"): "stau_mma_kernel<4>", ("stau", "f32"): "stau_f32_kernel<64>",
     ("tail", "bf16"): "tail_mma_kernel<4>", ("tail", "f32"): "tail_f32_kernel<false>",
-    ("osconv_agg", "bf16"): "conv_wgmma_kernel<3>",
+    ("osconv_agg", "bf16"): "conv_wgmma_kernel<3, false>",
     ("osconv_agg", "f32"): "conv_f32_kernel<3, 1> + conv_f32_reduce_kernel",
     ("osconv_dagg", "bf16"): "osconv_dagg_wgmma_kernel<3> + dagg_reduce_kernel",
 }
@@ -264,18 +296,24 @@ def nbytes(*ts) -> int:
 
 
 def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
-          io_bytes: int, dtype, device, tol=None, graph: bool = False, ops_ms=None) -> dict:
+          io_bytes: int, dtype, device, tol=None, graph: bool = False, ops_ms=None,
+          value=None, dt_name=None) -> dict:
     """Run the kernel and its plain version on the same inputs, compare in
     f32, time both (and the library call), and return the result row.
-    ``tol`` (relative to max|plain|) overrides TOL[dtype]. ``ms`` and
+    ``tol`` (relative to max|plain|) overrides TOL[dtype]; ``value`` maps an
+    output to the f32 tensor compared (default ``.float()``); ``dt_name``
+    names the row's type (default that of ``dtype``, whose peak rate holds
+    the operations). ``ms`` and
     ``library_ms`` are back-to-back calls between CUDA events; ``graph``
     adds ``graph_ms`` and ``library_graph_ms``, replays of a CUDA graph of
     the calls (device time, repack and copies included, no host launch
     cost), and ``breakdown``, the device time of each kernel of a call."""
     tol = TOL[dtype] if tol is None else tol
+    value = value or (lambda y: y.float())
+    dt_name = dt_name or DT_NAME[dtype]
     with torch.no_grad():
-        want = plain_fn().float()
-        got = kernel_fn().float()
+        want = value(plain_fn())
+        got = value(kernel_fn())
         if device.type == "cuda":
             torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -291,12 +329,12 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
                        "breakdown": per_call_breakdown(kernel_fn)}
     b_ms, b_by = bound_ms(flops, io_bytes, dtype, ops_ms)
     tflops = flops / ms * 1e-9
-    row = {"name": name, "case": label, "dtype": DT_NAME[dtype], "max_abs_err": err,
+    row = {"name": name, "case": label, "dtype": dt_name, "max_abs_err": err,
            "max_abs_plain": scale, "ok": ok, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "tflops": tflops, "bound_share": b_ms / ms, **graphed}
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-    log(f"[kernels] {name:11s} {label:44s} {DT_NAME[dtype]:4s} err {err:.3e} "
+    log(f"[kernels] {name:11s} {label:44s} {dt_name:4s} err {err:.3e} "
         f"(tol {tol * scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} lib {lib} "
         f"bound {b_ms:.4f} ({b_by}) {tflops:.1f} TFLOP/s = {100 * b_ms / ms:.1f}% of bound "
         f"{'ok' if ok else 'FAIL'}")
@@ -332,6 +370,7 @@ CONV_CASES = [
     ("all-epilogue 1x1 64+64->64 per-sample", 1, [64, 64], 64, True, (True, True, True, True)),
 ]
 HEADLINE = {"conv3x3": "conv0 64->64 lrelu", "conv1x1": "conv1 3x64->64 lrelu",
+            "conv3x3_split": "conv0 64->64 lrelu+pair res", "conv1x1_split": "conv1 3x64->64 lrelu",
             "osconv_agg": "fwd 192->64 (WindowUnit_l1)", "osconv_dagg": "192->64 (WindowUnit_l1)"}
 # (label, Cin, Cout, as dx): the OSConvs of the training forward (3x64 -> 64
 # in WindowUnit_l1, 5x64 -> 64 in WindowUnit_l2, 64 -> 64 in OSAdapt), k = 3,
@@ -383,6 +422,58 @@ def conv_case(rng, label, k, chans, cout, per_sample, epi, dtype, device, b=WIND
     flops = 2.0 * k * k * cin * cout * h * w * b
     io = nbytes(*parts, weight, bias, pre, out_scale, res) + b * cout * h * w * x_cat.element_size()
     return check(name, label, kernel, plain, library, flops, io, dtype, device)
+
+
+# (label, kernel size, input pairs' channels, Cout, per-sample weight, lrelu,
+#  pair residual): the split tier's convs of phase 10
+SPLIT_CASES = [
+    ("conv0 64->64 lrelu+pair res", 3, [64], 64, False, True, True),
+    ("merge_l1 3x64->64", 3, [64] * 3, 64, False, False, False),
+    ("conv1 3x64->64 lrelu", 1, [64] * 3, 64, False, True, False),
+    ("osconv 3x64->64 per-sample lrelu", 3, [64] * 3, 64, True, True, False),
+]
+
+
+def split_conv_case(rng, label, k, chans, cout, per_sample, act, res, device, b=WINDOWS,
+                    hw=LR_HW):
+    """Kernels 1-2 in their pair-carry mode (the split conv): pair inputs, an
+    f32 weight, a pair output, compared on the merged values at f32's
+    tolerance. Bound: 3x the bf16 conv's operations at the bf16 tensor-core
+    rate against the pairs' bytes (the f32 weight once); library: F.conv2d
+    in bf16 over the stacked [hi, lo, hi] input and the [Whi, Whi, Wlo]
+    weight, the nearest single call (it computes the same sum)."""
+    h, w = hw
+    cin = sum(chans)
+    f32 = torch.float32
+    parts = [pair_split(_rand(rng, (b, c, h, w), f32, device)) for c in chans]
+    weight = _rand(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), f32, device,
+                   std=(cin * k * k) ** -0.5)
+    bias = None if per_sample else _rand(rng, (cout,), f32, device, 0.1)
+    residual = pair_split(_rand(rng, (b, cout, h, w), f32, device)) if res else None
+    lrelu = (0.6, 0.4) if act else None
+    x_stack = torch.cat([t for p in parts for t in (p.hi, p.lo, p.hi)], 1)
+    w_stack = split_weight(weight, chans)
+    b_stack = None if bias is None else bias.to(torch.bfloat16)
+
+    def library():
+        if per_sample:
+            return F.conv2d(x_stack.reshape(1, b * 3 * cin, h, w),
+                            w_stack.reshape(b * cout, 3 * cin, k, k), padding=k // 2, groups=b)
+        return F.conv2d(x_stack, w_stack, b_stack, padding=k // 2)
+
+    name = "conv3x3_split" if k == 3 else "conv1x1_split"
+    flops = 3 * 2.0 * k * k * cin * cout * h * w * b
+    pair_bytes = sum(nbytes(p.hi, p.lo) for p in parts)
+    io = (pair_bytes + nbytes(weight, bias) + (0 if residual is None else nbytes(residual.hi,
+                                                                               residual.lo))
+          + b * cout * h * w * 4)
+    return check(name, label,
+                 lambda: conv_fused_split(parts, weight, bias, lrelu=lrelu, residual=residual),
+                 lambda: conv_fused_split_plain(parts, weight, bias, lrelu=lrelu,
+                                                residual=residual),
+                 library, flops, io, torch.bfloat16, device, tol=TOL[f32],
+                 value=lambda y: pair_merge(y) if isinstance(y, Pair) else y.float(),
+                 dt_name="split")
 
 
 def osconv_agg_case(rng, label, cin, cout, as_dx, dtype, device, b=TRAIN_B):
@@ -627,9 +718,17 @@ def write_clip(root: str, n: int, hw, name: str = "clip") -> str:
     return d
 
 
-def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOWS) -> dict:
-    """The port's CLI on a seeded clip, bf16 tier; returns the main-path
-    run's kernel launches and rates."""
+def require_no_native_conv(phase: str, launches: dict) -> None:
+    """The split tier runs every conv on the split kernels."""
+    if launches["conv3x3"] or launches["conv1x1"]:
+        raise AssertionError(f"{phase}: native conv launches in the split tier: {launches}")
+
+
+def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOWS,
+                  tier: str = "bf16") -> dict:
+    """The port's CLI on a seeded clip at ``tier`` (bf16 or split); returns
+    the main-path run's kernel launches and rates (bf16: and the bf16
+    tier's deviation from the strict tier on the first window)."""
     import cv2
 
     from savsr_tpu_torch.data.data_util import paths_from_folder, read_img_seq
@@ -638,7 +737,7 @@ def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOW
         clip = write_clip(tmp, n_frames, hw)
         pth = os.path.join(tmp, "savsr.pth")
         torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
-        argv = ["-i", clip, "-s", str(SCALE[0]), "-w", pth, "--tier", "bf16",
+        argv = ["-i", clip, "-s", str(SCALE[0]), "-w", pth, "--tier", tier,
                 "--windows", str(windows), "--device", str(device)]
         warm = []
         t0 = time.perf_counter()
@@ -650,7 +749,11 @@ def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOW
         t0 = time.perf_counter()
         serve_main(argv + ["-o", os.path.join(tmp, "out")], stats=stats)
         wall = time.perf_counter() - t0
-        launches = require_kernels_ran("serving")
+        phase = "serving" if tier == "bf16" else f"{tier}-serving"
+        launches = require_kernels_ran(phase, SERVING_KERNELS if tier == "bf16"
+                                       else SPLIT_SERVING_KERNELS)
+        if tier == "split":
+            require_no_native_conv(phase, launches)
         H, W = get_hw(hw[0], hw[1], SCALE)
         outs = paths_from_folder(os.path.join(tmp, "out"))
         frames = [cv2.imread(p) for p in outs]
@@ -658,14 +761,18 @@ def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOW
             raise AssertionError(f"serving wrote {len(frames)} frames of "
                                  f"{[None if f is None else f.shape for f in frames[:2]]}")
         n_chunk, chunk_s = stats[0]
-        log(f"[serving] {n_frames} frames {hw[0]}x{hw[1]} -> {H}x{W} bf16, windows {windows}: "
+        log(f"[{phase}] {n_frames} frames {hw[0]}x{hw[1]} -> {H}x{W} {tier}, windows {windows}: "
             f"first run {warm_s:.3f} s (first chunk {warm[0][1] * 1e3:.1f} ms); "
             f"main-path run {wall:.3f} s wall incl. IO")
-        log(f"[serving] steady chunk: {n_chunk} frames in {chunk_s * 1e3:.1f} ms = "
+        log(f"[{phase}] steady chunk: {n_chunk} frames in {chunk_s * 1e3:.1f} ms = "
             f"{chunk_s * 1e3 / n_chunk:.2f} ms/frame, {n_chunk / chunk_s:.3f} fps "
             f"(dispatch to frames on the host)")
-        log(f"[serving] kernel launches in the main-path run: {launches} "
+        log(f"[{phase}] kernel launches in the main-path run: {launches} "
             f"({ {k: v / n_frames for k, v in launches.items()} } per frame)")
+        result = {"launches": launches, "ms_per_frame": chunk_s * 1e3 / n_chunk,
+                  "fps": n_chunk / chunk_s}
+        if tier != "bf16":
+            return result
 
         # bf16 against the strict tier on the first window
         lr = read_img_seq(paths_from_folder(clip))
@@ -684,8 +791,7 @@ def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOW
             f"written frame 0 vs rounded strict: max {lsb} LSB")
         if not psnr >= 50:
             raise AssertionError(f"bf16 vs strict deviation PSNR {psnr:.2f} dB < 50")
-    return {"launches": launches, "ms_per_frame": chunk_s * 1e3 / n_chunk,
-            "fps": n_chunk / chunk_s, "bf16_vs_strict_db": psnr}
+    return dict(result, bf16_vs_strict_db=psnr)
 
 
 def device_rows(prof) -> list:
@@ -703,7 +809,8 @@ def device_rows(prof) -> list:
 def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dict:
     """Device time by kernel over one serving forward of ``windows`` windows
     at ``tier`` (torch.profiler), against the forward's unprofiled time; for
-    the strict tier also the f32 conv kernel's share and launches."""
+    the strict tier also the f32 conv kernel's share and launches, for the
+    split tier the split conv kernel's."""
     from torch.profiler import ProfilerActivity, profile
 
     dt = torch.bfloat16 if tier == "bf16" else torch.float32
@@ -745,11 +852,21 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
             + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in f32))
         result["f32_conv_ms"] = f32_ms
         return result
+    if tier == "split":
+        sp = [r for r in rows if "conv_wgmma" in r[0]]
+        sp_ms = sum(r[1] for r in sp)
+        log(f"[profile] split: the split conv kernels {sp_ms:.2f} ms = "
+            f"{100 * sp_ms / max(total, 1e-9):.1f}% of device busy {total:.2f} ms, in "
+            f"{sum(r[2] for r in sp)} device launches (wrapper calls conv3x3_split "
+            f"{launches['conv3x3_split']}, conv1x1_split {launches['conv1x1_split']}): "
+            + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in sp))
+        result["split_conv_ms"] = sp_ms
     # the bf16 conv's weight repack (ops/conv.py pack_weight: a zero pad and
     # an index_select, whose CUDA kernel is PyTorch's gather, for each
-    # per-sample OSConv weight; shared weights keep their packed copy)
+    # per-sample OSConv weight, split into hi and lo first in the split tier;
+    # shared weights keep their packed copy)
     repack = [r for r in rows if "scatter_gather" in r[0]]
-    log(f"[profile] gather kernels (the bf16 conv weight repack): "
+    log(f"[profile] gather kernels (the {tier} conv weight repack): "
         f"{sum(r[1] for r in repack):.2f} ms in {sum(r[2] for r in repack)} launches")
     return result
 
@@ -1103,15 +1220,20 @@ EVAL_CONV_CASES = ("conv_c 3->64 lrelu", "conv2 64+64->64 lrelu+res",
                    "osconv 5x64->64 per-sample lrelu", "conv1 3x64->64 lrelu")
 
 
-def eval_config(tmp: str, pth: str) -> str:
+def eval_config(tmp: str, pth: str, names=None, network=None) -> str:
     """The shipped Vid4 test config with its dataroots pointed at a seeded
     clip under ``tmp``, its weights at ``pth`` and its results under
-    ``tmp``; nothing else changed. Returns the written config's path."""
+    ``tmp``; with ``names`` only those datasets, with ``network`` these
+    network_g settings added; nothing else changed. Returns the written
+    config's path."""
     import yaml
 
     from savsr_tpu_torch.utils.options import yaml_load
 
     opt = yaml_load(EVAL_YML)
+    if names is not None:
+        opt["datasets"] = {k: ds for k, ds in opt["datasets"].items() if ds["name"] in names}
+    opt["network_g"].update(network or {})
     gt_root = os.path.join(tmp, "Vid4", "GT")
     write_clip(gt_root, EVAL_FRAMES, EVAL_HW, name="calendar")
     for ds in opt["datasets"].values():
@@ -1261,6 +1383,110 @@ def phase_eval(sd, device) -> dict:
             "timed": timed, "results": results, "rows": rows}
 
 
+# the shipped Vid4 config's datasets that phase 10 evaluates on the split tier
+SPLIT_EVAL = ("Vid4_x4.0", "Vid4_x1.1", "Vid4_x1.5_x3.5")
+
+
+def split_parity(sd, device) -> dict:
+    """The flagship split forward on the 45x80 golden input at three scales
+    against the strict forward on the card (max abs < 2e-3 and 30x below the
+    bf16 tier's, the JAX package's gate for its split tier,
+    tests/test_split_conv.py), with the deviation PSNR of each against the
+    reference torch outputs."""
+    g = np.load(os.path.join(GOLDENS, "savsr_realsize_forward.npz"))
+    x = torch.from_numpy(g["x"]).to(device)
+    scales = (("y", (4.0, 4.0)), ("y_1.5_3.5", (1.5, 3.5)), ("y_3.05_3.05", (3.05, 3.05)))
+    outs = {}
+    for tier in ("split", "strict", "bf16"):
+        dt = torch.bfloat16 if tier == "bf16" else torch.float32
+        model = build_serving_model(tier)
+        load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()})
+        model.to(device=device, dtype=dt)
+        ops.reset_counts()
+        for key, scale in scales:
+            statics = model.stau_statics(x.shape[-2:], scale, dtype=dt, device=device)
+            outs[tier, key] = model(x.to(dt), scale, stau_statics=statics).float().cpu().numpy()
+        if tier == "split":
+            launches = require_kernels_ran("split-parity", SPLIT_SERVING_KERNELS)
+            require_no_native_conv("split-parity", launches)
+        del model
+    result = {}
+    for key, scale in scales:
+        split, strict, bf16 = (outs[t, key] for t in ("split", "strict", "bf16"))
+        if split.shape != g[key].shape or not np.isfinite(split).all():
+            raise AssertionError(f"split parity {key}: shape {split.shape} or non-finite")
+        err = float(np.abs(split - strict).max())
+        err_bf16 = float(np.abs(bf16 - strict).max())
+        row = {"max_abs_vs_strict": err, "bf16_max_abs_vs_strict": err_bf16,
+               "db_vs_reference": deviation_psnr(split, g[key]),
+               "db_vs_strict": deviation_psnr(split, strict),
+               "strict_db_vs_reference": deviation_psnr(strict, g[key])}
+        log(f"[split] parity x{scale[0]}x{scale[1]} {tuple(x.shape)}: split vs strict max abs "
+            f"{err:.3e} (bf16 {err_bf16:.3e}, {err_bf16 / max(err, 1e-30):.1f}x), deviation PSNR "
+            f"vs strict {row['db_vs_strict']:.2f} dB; vs the reference outputs: split "
+            f"{row['db_vs_reference']:.2f} dB, strict {row['strict_db_vs_reference']:.2f} dB")
+        if not (err < 2e-3 and err * 30 < err_bf16):
+            raise AssertionError(f"split parity {key}: {err} vs strict (bf16 {err_bf16})")
+        result[key] = row
+    return result
+
+
+def split_eval(sd, device, strict_results: dict) -> dict:
+    """The shipped Vid4 config with conv_precision: split on three of its
+    datasets (the split tier's eval path: counts zeroed just before, read
+    just after), against the strict sweep's metrics of phase 9."""
+    from savsr_tpu_torch.test import test_pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "savsr.pth")
+        torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+        cfg = eval_config(tmp, pth, SPLIT_EVAL, {"conv_precision": "split"})
+        stats = []
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        results = test_pipeline(tmp, ["-opt", cfg, "--device", str(device)], stats=stats)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = require_kernels_ran("split-eval", SPLIT_SERVING_KERNELS)
+        require_no_native_conv("split-eval", launches)
+    if sorted(results) != sorted(SPLIT_EVAL) or not all(
+            np.isfinite(results[n][m]) for n in SPLIT_EVAL for m in ("psnr_y", "ssim_y")):
+        raise AssertionError(f"split eval: {results}")
+    for n in SPLIT_EVAL:
+        d_psnr = results[n]["psnr_y"] - strict_results[n]["psnr_y"]
+        d_ssim = results[n]["ssim_y"] - strict_results[n]["ssim_y"]
+        log(f"[split] eval {n:16s} psnr_y {results[n]['psnr_y']:.4f} dB ({d_psnr:+.4f} vs "
+            f"strict) ssim_y {results[n]['ssim_y']:.6f} ({d_ssim:+.6f})")
+    frames = len(stats)
+    fwd = {n: float(np.mean([st["forward_s"] for st in stats if st["dataset"] == n][1:]))
+           for n in SPLIT_EVAL}
+    log(f"[split] eval {len(SPLIT_EVAL)} datasets x {EVAL_FRAMES} frames, batch 1: {wall:.2f} s; "
+        f"forward to the output on the host, frames 2-{EVAL_FRAMES}: "
+        + ", ".join(f"{n} {v:.4f} s" for n, v in fwd.items())
+        + f"; kernel launches {launches} ({ {k: round(v / frames, 2) for k, v in launches.items()} }"
+        " per frame)")
+    return {"results": results, "launches": launches, "seconds": wall, "forward_s": fwd}
+
+
+def phase_split(sd, device, strict_results: dict) -> dict:
+    """Phase 10: the split serving tier (see the module docstring)."""
+    rng = np.random.default_rng(10)
+    with float32_precision(True):  # the plain versions run true f32
+        rows = [split_conv_case(rng, *case, device) for case in SPLIT_CASES]
+    failed = [r["case"] for r in rows if not r["ok"]]
+    if failed:
+        raise AssertionError(f"split conv disagrees with its plain version: {failed}")
+    parity = split_parity(sd, device)
+    torch.cuda.empty_cache()
+    serving = phase_serving(sd, device, tier="split")
+    profile = phase_profile(sd, device, tier="split")
+    torch.cuda.empty_cache()
+    evaluation = split_eval(sd, device, strict_results)
+    return {"rows": rows, "parity": parity, "serving": serving, "profile": profile,
+            "eval": evaluation}
+
+
 def tensor_core_count(lib_path: str):
     """(HMMA, HGMMA) instructions in a library's SASS — mma.sync and wgmma
     — or None without cuobjdump."""
@@ -1334,6 +1560,9 @@ def main(argv=None) -> int:
     training = phase_training(device)
     torch.cuda.empty_cache()
     evaluation = phase_eval(sd, device)
+    torch.cuda.empty_cache()
+    split = phase_split(sd, device, evaluation["results"])
+    rows = rows + split["rows"]
 
     def entry(name, dtype, source, replaces, launches):
         head = next(r for r in rows if r["name"] == name and r["dtype"] == dtype
@@ -1353,18 +1582,22 @@ def main(argv=None) -> int:
     # strict tier's path) and, for the f32 OSConv, the f32 train-parity step
     kernels = [entry(name, "bf16", source, replaces,
                      (training if name in TRAINING_KERNELS else serving)["launches"][name])
-               for name, (source, replaces) in SOURCES.items()]
+               for name, (source, replaces) in SOURCES.items() if name not in SPLIT_KERNELS]
     kernels += [entry(name, "f32", SOURCES[name][0] if name in ("sta", "stau", "tail")
                       else "savsr_tpu_torch/csrc/conv.cu", SOURCES[name][1],
                       train_parity[name] if name in TRAINING_KERNELS
                       else evaluation["launches"][name])
                 for name in ("conv3x3", "conv1x1", "sta", "stau", "tail", "osconv_agg")]
+    # the split rows: launches on the split tier's serving main-path run
+    kernels += [entry(name, "split", *SOURCES[name], split["serving"]["launches"][name])
+                for name in SPLIT_KERNELS]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "cases": rows, "serving": serving, "strict": strict,
-                       "training": training, "eval": evaluation, "kernels": kernels},
-                      f, indent=1)
+                       "training": training, "eval": evaluation,
+                       "split": {k: v for k, v in split.items() if k != "rows"},
+                       "kernels": kernels}, f, indent=1)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,25 +5,22 @@ from copy import deepcopy
 from ..utils.logger import get_root_logger
 
 # settings of the JAX package's engines that name one math here: the CHW
-# Pallas engine or XLA for the eval convs (``conv_engine``), the paired
-# alignment pass (``pair_align``) and native-precision convs
-# (``conv_precision: native``); the port has one engine for each
-JAX_ENGINE_KEYS = ("conv_engine", "pair_align", "conv_precision")
+# Pallas engine or XLA for the eval convs (``conv_engine``) and the paired
+# alignment pass (``pair_align``); the port has one engine for each.
+# ``conv_precision`` (native | split) is the network's own setting.
+JAX_ENGINE_KEYS = ("conv_engine", "pair_align")
 
 
 def build_network(opt: dict):
     """Instantiate a network from its options dict (key ``type``). The port
     has SAVSR; the JAX package's other architectures are not ported yet.
-    The JAX engine settings are accepted and logged;
-    ``conv_precision: split`` (the 3-pass bf16 conv tier) raises."""
+    The JAX engine settings are accepted and logged; ``conv_precision:
+    split`` builds the split serving tier (eval forwards only)."""
     opt = deepcopy(opt)
     net_type = opt.pop("type")
     if net_type != "SAVSR":
         raise NotImplementedError(f"network_g: type: {net_type} is not ported yet")
     engines = {k: opt.pop(k) for k in JAX_ENGINE_KEYS if k in opt}
-    if engines.get("conv_precision", "native") != "native":
-        raise NotImplementedError(f"network_g: conv_precision: {engines['conv_precision']} "
-                                  "(the split bf16 conv tier) is not ported yet")
     if engines:
         get_root_logger().info(f"network_g: {engines} select engines of the JAX package; the "
                                "port runs its one engine (the CUDA kernels of ops/).")

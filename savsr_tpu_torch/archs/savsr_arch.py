@@ -8,7 +8,9 @@ whose ``state_dict`` keys and shapes equal the reference's
 - serving (``forward(x, scale)``): the eval forward of the CHW serving
   engine (``_savsr_apply_inner`` with ``conv_engine="chw"``): the alignment
   scan, WindowUnit_l2 and the trunk (archs/chw_engine.py) on the fused conv
-  kernel, then the STA, STAU and tail kernels;
+  kernel, then the STA, STAU and tail kernels; with ``conv_precision:
+  split`` (f32 weights and input) the convs up to the trunk's end run the
+  split conv on pair carries and STA, STAU and the tail their f32 kernels;
 - training (``forward(x, scale, train=True)``): the differentiable forward
   of archs/train_engine.py, whose OSConv engine is the pair of kernels of
   ops/osconv.py; it returns ``(sr, stats_updates)``.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.conv import Pair
 from ..ops.sta import sta_conv_fused
 from ..ops.stau import plan_geometry, stau_upsample_fused, stau_window_plan
 from ..ops.tail import tail_fused
@@ -382,6 +385,13 @@ class SAVSRConfig:
     # "float32": matmuls and cuDNN convs in true f32 (TF32 off) — the strict
     # tier; "default" leaves PyTorch's defaults (the bf16 tier)
     matmul_precision: str = "float32"
+    # the serving forward's convs (eval only; training ignores it):
+    # "native" — at the weights' dtype; "split" — the split tier: f32
+    # weights, features carried between convs as bf16 hi/lo pairs, each conv
+    # a 3-pass bf16 contraction with f32 sums (ops/conv.py conv_fused_split),
+    # ~2^-16 relative error a conv; keep matmul_precision "float32" so the
+    # heads and STA, STAU and the tail stay strict
+    conv_precision: str = "native"
     # training-forward options (archs/train_engine.py). The port has one
     # OSConv training engine, the kernels of ops/osconv.py, so every value
     # of osconv_impl the JAX package accepts selects it (they are one math).
@@ -499,6 +509,8 @@ class SAVSR(nn.Module):
                                         if v is not None or k == "center_frame_idx"})
         if cfg.osconv_impl not in OSCONV_IMPLS:
             raise ValueError(f"unknown osconv impl {cfg.osconv_impl}")
+        if cfg.conv_precision not in ("native", "split"):
+            raise ValueError(f"conv_precision {cfg.conv_precision!r} not in ('native', 'split')")
         nf = cfg.num_feat
         self.f2p_win = WindowUnitL1(cfg.num_in_ch, nf, cfg.slid_win, cfg.w1_num_block)
         self.p2f_win = WindowUnitL1(cfg.num_in_ch, nf, cfg.slid_win, cfg.w1_num_block)
@@ -557,6 +569,10 @@ class SAVSR(nn.Module):
         from .chw_engine import trunk_apply_chw, window_l1_apply_chw, window_l2_apply_chw
 
         cfg = self.cfg
+        split = cfg.conv_precision == "split"
+        if split and (self.gamma.dtype != torch.float32 or x.dtype != torch.float32):
+            raise ValueError(f"conv_precision: split needs f32 weights and input, got "
+                             f"{self.gamma.dtype} weights and {x.dtype} input")
         x = x.contiguous()  # the kernels read contiguous channel planes
         b, t, _, h_in, w_in = x.shape
         x_center = x[:, cfg.center]
@@ -568,8 +584,12 @@ class SAVSR(nn.Module):
 
         n_iter = cfg.iter_win - cfg.slid_win + 1
         half = cfg.slid_win // 2
-        hf = x.new_zeros((b, cfg.num_feat, hp, wp))
-        hpf = x.new_zeros((b, cfg.num_feat, hp, wp))
+        if split:  # hidden states start as zero pairs
+            zero = x.new_zeros((b, cfg.num_feat, hp, wp), dtype=torch.bfloat16)
+            hf = hpf = Pair(zero, zero)
+        else:
+            hf = x.new_zeros((b, cfg.num_feat, hp, wp))
+            hpf = x.new_zeros((b, cfg.num_feat, hp, wp))
         hf_seq, hp_seq = [], []
         # sequential bidirectional propagation (reference savsr_arch.py:708-719)
         for idx in range(n_iter):

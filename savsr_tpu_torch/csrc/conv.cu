@@ -92,15 +92,38 @@
 //   cores fed: loads, shifts and the epilogue all overlap the MMAs of
 //   another stage or tile.
 //
+// * split (the same conv_wgmma_kernel, SPLIT = true): the split serving
+//   tier's conv (conv_precision: split), the pair-carry mode of the TPU
+//   kernels (chw_conv.py _body3 / _body1 with in_pair, out_pair, res_pair).
+//   A feature travels between convs as a pair of bf16 planes, hi = bf16(y)
+//   and lo = bf16(y - hi), whose f32 sum is its value; the weight splits
+//   alike into Whi = bf16(W) and Wlo = bf16(W - Whi). The conv contracts
+//   [Xhi; Xlo; Xhi] against [Whi, Whi, Wlo] (the lo*lo term, ~2^-16
+//   relative, is dropped): a bf16 contraction over 3 Cin channels, each
+//   product exact in the f32 accumulators. So the kernel is the bf16 one
+//   walking three K segments per input part, hi, lo and hi again, each a
+//   TMA map of its plane (hi's map serves two segments; it is read twice,
+//   the second time mostly from L2), against the weight the wrapper splits
+//   and packs (ops/conv.py pack_weight_split). Only the epilogue differs:
+//   f32 bias, pre_add and out_scale, a residual in f32 or as a pair (hi +
+//   lo), and the result written as a pair (hi = bf16(v), lo = bf16(v -
+//   hi)) or in f32. Bound: three times the bf16 conv's operations against
+//   the pair bytes (2 bf16 in, 2 bf16 out per channel and pixel): the wider
+//   main-path convs are bound by operations, 64->64 sits at the ridge (3x3
+//   64->64 at 8x180x320: 0.103 ms of operations, 0.070 ms of bytes, 0.106
+//   with a pair residual).
+//
 // Layout: NCHW. Input channel parts are read through separate pointers (f32)
-// or tensor maps (bf16), each with its own batch stride, so a channel concat
-// is never copied. Weights come packed by the wrapper (ops/conv.py
+// or tensor maps (bf16, split), each with its own batch stride, so a channel
+// concat is never copied. Weights come packed by the wrapper (ops/conv.py
 // pack_weight_f32 / pack_weight), shared or per sample.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -497,6 +520,25 @@ struct TmaParts {
   CUtensorMap halo[MAXP];
   int c[MAXP];
   int n;
+  __device__ const CUtensorMap* center_of(int p) const { return &center[p]; }
+  __device__ const CUtensorMap* halo_of(int p) const { return &halo[p]; }
+};
+
+// The split conv's K segments: segment p reads the planes of map map[p]
+// (each pair's hi and lo planes are one map each; a pair is the three
+// segments hi, lo, hi). 5 pairs (the WindowUnit_l2 merge and OSConv over 5
+// features) are 10 maps and 15 segments; the kernel's parameters stay under
+// 4 KB.
+constexpr int SPLIT_MAPS = 10;
+constexpr int SPLIT_SEGS = 16;
+struct SplitParts {
+  CUtensorMap center[SPLIT_MAPS];
+  CUtensorMap halo[SPLIT_MAPS];
+  int c[SPLIT_SEGS];
+  int map[SPLIT_SEGS];
+  int n;
+  __device__ const CUtensorMap* center_of(int p) const { return &center[map[p]]; }
+  __device__ const CUtensorMap* halo_of(int p) const { return &halo[map[p]]; }
 };
 
 // One pipeline stage: 16 input channels of the (TC_ROWS + KS - 1)-row slab
@@ -539,18 +581,113 @@ __device__ __forceinline__ uint32_t straddle(uint32_t lo, uint32_t hi) {
   return __byte_perm(lo, hi, 0x5432);
 }
 
+// The split conv's epilogue on a consumer warpgroup's fragments (the layout
+// of the bf16 epilogue below), in f32, in the TPU order: + bias, + pre_add,
+// x out_scale, abs-form LeakyReLU, + residual (a pair's hi + lo, or f32);
+// written as a pair (hi = bf16(v), lo = bf16(v - hi)) or, with out_lo
+// null, as f32. Null pointers switch a term off.
+__device__ __forceinline__ void split_epilogue(
+    const float (&acc)[64], const Tile& tl, int warp, int lane, int wg, int H, int W, int Cout,
+    const float* bias, const float* pre, const float* scale, long long s_bstride, int lrelu,
+    float la, float lb, const __nv_bfloat16* res_hi, const __nv_bfloat16* res_lo,
+    const float* res_f, __nv_bfloat16* out_hi, __nv_bfloat16* out_lo, float* out_f) {
+  const long long HW = (long long)H * W;
+  const bool pairs = (W & 1) == 0;  // x is even: 8-byte f32 and 4-byte bf16 pairs
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int co = tl.ct * TC_CO + 16 * (warp % 4) + lane / 4 + 8 * j;
+    if (co >= Cout) continue;
+    const float bv = bias ? bias[co] : 0.f;
+    const float sv = scale ? scale[tl.b * s_bstride + co] : 1.f;
+    const long long cbase = ((long long)tl.b * Cout + co) * HW;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int y = tl.y0 + wg * (TC_ROWS / TC_CONSUMERS) + i / 8;
+      const int x = tl.x0 + 8 * (i % 8) + 2 * (lane % 4);
+      if (y >= H || x >= W) continue;
+      const long long idx = cbase + (long long)y * W + x;
+      const int nv = x + 1 < W ? 2 : 1;
+      const bool vec = pairs && nv == 2;
+      float v[2] = {acc[4 * i + 2 * j] + bv, acc[4 * i + 2 * j + 1] + bv};
+      float p[2] = {0.f, 0.f}, r[2] = {0.f, 0.f};
+      if (vec) {
+        if (pre) {
+          const float2 q = *reinterpret_cast<const float2*>(pre + idx);
+          p[0] = q.x, p[1] = q.y;
+        }
+        if (res_lo) {
+          const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res_hi + idx));
+          const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res_lo + idx));
+          r[0] = h.x + l.x, r[1] = h.y + l.y;
+        } else if (res_f) {
+          const float2 q = *reinterpret_cast<const float2*>(res_f + idx);
+          r[0] = q.x, r[1] = q.y;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (c == nv) break;
+          if (pre) p[c] = pre[idx + c];
+          if (res_lo) r[c] = __bfloat162float(res_hi[idx + c]) + __bfloat162float(res_lo[idx + c]);
+          else if (res_f) r[c] = res_f[idx + c];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (pre) v[c] += p[c];
+        v[c] *= sv;
+        if (lrelu) v[c] = la * v[c] + lb * fabsf(v[c]);
+        if (res_lo || res_f) v[c] += r[c];
+      }
+      if (out_lo) {
+        if (vec) {
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
+          const float2 hf = __bfloat1622float2(hi);
+          *reinterpret_cast<__nv_bfloat162*>(out_hi + idx) = hi;
+          *reinterpret_cast<__nv_bfloat162*>(out_lo + idx) =
+              __floats2bfloat162_rn(v[0] - hf.x, v[1] - hf.y);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            if (c == nv) break;
+            const __nv_bfloat16 hi = __float2bfloat16_rn(v[c]);
+            out_hi[idx + c] = hi;
+            out_lo[idx + c] = __float2bfloat16_rn(v[c] - __bfloat162float(hi));
+          }
+        }
+      } else if (vec) {
+        *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (c == nv) break;
+          out_f[idx + c] = v[c];
+        }
+      }
+    }
+  }
+}
+
 // Persistent: block i takes tiles i, i + gridDim.x, ... (64 output channels
 // x 4 rows x 64 columns each); every role walks the same (tile, chunk)
 // sequence through the ring, so the producer loads the next tile's stages
 // while the consumers run this tile's epilogue.
-template <int KS>
+//
+// bf16 (SPLIT false): bias, pre, res and out are bf16. Split: bias and pre
+// are f32; res is the residual's hi plane with res_lo its lo plane, or, with
+// res_lo null, an f32 residual; out is the result's hi plane with out_lo its
+// lo plane, or, with out_lo null, the f32 result.
+template <int KS, bool SPLIT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-conv_wgmma_kernel(const __grid_constant__ TmaParts parts, int nchunk, int ntiles, int nx, int ny,
-                  int nct, int H, int W, int Cout, const __nv_bfloat16* __restrict__ wpk,
-                  long long w_bstride, const __nv_bfloat16* __restrict__ bias,
-                  const __nv_bfloat16* __restrict__ pre, const float* __restrict__ scale,
-                  long long s_bstride, int lrelu, float la, float lb,
-                  const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out) {
+conv_wgmma_kernel(const __grid_constant__ typename std::conditional<SPLIT, SplitParts,
+                                                                    TmaParts>::type parts,
+                  int nchunk, int ntiles, int nx, int ny, int nct, int H, int W, int Cout,
+                  const __nv_bfloat16* __restrict__ wpk, long long w_bstride,
+                  const void* __restrict__ bias_, const void* __restrict__ pre_,
+                  const float* __restrict__ scale, long long s_bstride, int lrelu, float la,
+                  float lb, const void* __restrict__ res_,
+                  const __nv_bfloat16* __restrict__ res_lo, void* __restrict__ out_,
+                  __nv_bfloat16* __restrict__ out_lo) {
   using C = TcCfg<KS>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -592,13 +729,13 @@ conv_wgmma_kernel(const __grid_constant__ TmaParts parts, int nchunk, int ntiles
           mbar_arrive_expect_tx(&tma_full[stage], bytes);
           uint8_t* st = smem + stage * C::STAGE_BYTES;
           const int y = tl.y0 - C::HALO;
-          tma_load_4d(st, &parts.center[p], &tma_full[stage], tl.x0, c0, y, tl.b);
+          tma_load_4d(st, parts.center_of(p), &tma_full[stage], tl.x0, c0, y, tl.b);
           if (left)
-            tma_load_4d(st + C::HALO_OFF, &parts.halo[p], &tma_full[stage], tl.x0 - HALO_PX, c0,
+            tma_load_4d(st + C::HALO_OFF, parts.halo_of(p), &tma_full[stage], tl.x0 - HALO_PX, c0,
                         y, tl.b);
           if (right)
-            tma_load_4d(st + C::HALO_OFF + C::SLAB * HALO_BYTES, &parts.halo[p], &tma_full[stage],
-                        tl.x0 + TC_COLS, c0, y, tl.b);
+            tma_load_4d(st + C::HALO_OFF + C::SLAB * HALO_BYTES, parts.halo_of(p),
+                        &tma_full[stage], tl.x0 + TC_COLS, c0, y, tl.b);
           bulk_load(st + C::W_OFF, wsrc + (long long)chunk * C::KK * TAP_BYTES, C::KK * TAP_BYTES,
                     &tma_full[stage]);
           if (++stage == C::STAGES) {
@@ -715,8 +852,20 @@ conv_wgmma_kernel(const __grid_constant__ TmaParts parts, int nchunk, int ntiles
     // epilogue on the fragments: acc[4i + 2j + c] is output channel
     // 16*(warp%4) + lane/4 + 8j, pixel n = 8i + 2*(lane%4) + c of the
     // warpgroup's 2 x 64 tile (row n / 64, column n % 64)
+    if constexpr (SPLIT) {
+      split_epilogue(acc, tl, warp, lane, wg, H, W, Cout, static_cast<const float*>(bias_),
+                     static_cast<const float*>(pre_), scale, s_bstride, lrelu, la, lb,
+                     static_cast<const __nv_bfloat16*>(res_), res_lo,
+                     static_cast<const float*>(res_), static_cast<__nv_bfloat16*>(out_), out_lo,
+                     static_cast<float*>(out_));
+      continue;
+    }
     const long long HW = (long long)H * W;
     const bool pairs = (W & 1) == 0;  // x is even, so a pair is 4-byte aligned
+    const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(bias_);
+    const __nv_bfloat16* pre = static_cast<const __nv_bfloat16*>(pre_);
+    const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(res_);
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(out_);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int co = tl.ct * TC_CO + 16 * (warp % 4) + lane / 4 + 8 * j;
@@ -770,11 +919,11 @@ conv_wgmma_kernel(const __grid_constant__ TmaParts parts, int nchunk, int ntiles
 constexpr int ERR_NO_ENCODER = -1;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = -2;      // a part's tensor map was refused
 
-template <int KS>
-int launch_wgmma(const TmaParts& parts, int nchunk, int B, int H, int W, int Cout,
-                 const void* wt, long long w_bstride, const void* bias, const void* pre,
-                 const float* scale, long long s_bstride, int lrelu, float la, float lb,
-                 const void* res, void* out, cudaStream_t stream) {
+template <int KS, bool SPLIT, typename Parts>
+int launch_wgmma(const Parts& parts, int nchunk, int B, int H, int W, int Cout, const void* wt,
+                 long long w_bstride, const void* bias, const void* pre, const float* scale,
+                 long long s_bstride, int lrelu, float la, float lb, const void* res,
+                 const void* res_lo, void* out, void* out_lo, cudaStream_t stream) {
   using C = TcCfg<KS>;
   static int sms = 0;
   if (!sms) {
@@ -782,8 +931,8 @@ int launch_wgmma(const TmaParts& parts, int nchunk, int B, int H, int W, int Cou
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(conv_wgmma_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+      e = cudaFuncSetAttribute(conv_wgmma_kernel<KS, SPLIT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) {
       sms = 0;
       return static_cast<int>(e);
@@ -793,12 +942,36 @@ int launch_wgmma(const TmaParts& parts, int nchunk, int B, int H, int W, int Cou
   const int nx = (W + TC_COLS - 1) / TC_COLS, ny = (H + TC_ROWS - 1) / TC_ROWS;
   const int ntiles = nx * ny * nct * B;
   const int grid = ntiles < sms ? ntiles : sms;
-  conv_wgmma_kernel<KS><<<grid, TC_THREADS, C::SMEM, stream>>>(
+  conv_wgmma_kernel<KS, SPLIT><<<grid, TC_THREADS, C::SMEM, stream>>>(
       parts, nchunk, ntiles, nx, ny, nct, H, W, Cout, static_cast<const __nv_bfloat16*>(wt),
-      w_bstride, static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(pre),
-      scale, s_bstride, lrelu, la, lb, static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out));
+      w_bstride, bias, pre, scale, s_bstride, lrelu, la, lb, res,
+      static_cast<const __nv_bfloat16*>(res_lo), out, static_cast<__nv_bfloat16*>(out_lo));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The two TMA maps of one bf16 tensor of channel planes (row pitch `pitch`
+// elements, a multiple of 8; 16-byte aligned base and batch stride): the
+// slab box and the halo box (TmaParts).
+int encode_maps(hopper::EncodeTiledFn encode, CUtensorMap* center, CUtensorMap* halo,
+                int ksize, const void* ptr, int ch, long long bstride, long long pitch, int B,
+                int H, int W) {
+  // (W, C, H, B): the strides need not grow with the dimension
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)ch, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)pitch * H * 2, (cuuint64_t)pitch * 2,
+                                 (cuuint64_t)bstride * 2};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const cuuint32_t slab = TC_ROWS + ksize - 1;
+  const cuuint32_t box_center[4] = {TC_COLS, TC_CI, slab, 1};
+  const cuuint32_t box_halo[4] = {HALO_PX, TC_CI, slab, 1};
+  void* base = const_cast<void*>(ptr);
+  if (encode(center, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box_center, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(halo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box_halo, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_ENCODE;
+  return 0;
 }
 
 }  // namespace
@@ -890,30 +1063,64 @@ extern "C" int savsr_conv_fused(int ksize, int nparts, const void* const* part_p
   TmaParts parts{};
   int nchunk = 0;
   for (int i = 0; i < nparts; ++i) {
-    // (W, C, H, B): the strides need not grow with the dimension
-    const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)part_ch[i], (cuuint64_t)H,
-                                (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)part_pitch[i] * H * 2,
-                                   (cuuint64_t)part_pitch[i] * 2,
-                                   (cuuint64_t)part_bstride[i] * 2};
-    const cuuint32_t elem[4] = {1, 1, 1, 1};
-    const cuuint32_t slab = TC_ROWS + ksize - 1;
-    const cuuint32_t box_center[4] = {TC_COLS, TC_CI, slab, 1};
-    const cuuint32_t box_halo[4] = {HALO_PX, TC_CI, slab, 1};
-    void* base = const_cast<void*>(part_ptrs[i]);
-    if (encode(&parts.center[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
-               box_center, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-        encode(&parts.halo[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box_halo,
-               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return ERR_ENCODE;
+    const int e = encode_maps(encode, &parts.center[i], &parts.halo[i], ksize, part_ptrs[i],
+                              part_ch[i], part_bstride[i], part_pitch[i], B, H, W);
+    if (e) return e;
     parts.c[i] = part_ch[i];
     nchunk += (part_ch[i] + TC_CI - 1) / TC_CI;
   }
   parts.n = nparts;
-  return ksize == 3 ? launch_wgmma<3>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias, pre, sc,
-                                      s_bstride, lrelu, la, lb, res, out, s)
-                    : launch_wgmma<1>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias, pre, sc,
-                                      s_bstride, lrelu, la, lb, res, out, s);
+  return ksize == 3 ? launch_wgmma<3, false>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
+                                             pre, sc, s_bstride, lrelu, la, lb, res, nullptr,
+                                             out, nullptr, s)
+                    : launch_wgmma<1, false>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
+                                             pre, sc, s_bstride, lrelu, la, lb, res, nullptr,
+                                             out, nullptr, s);
+}
+
+// The split conv on the tensor cores (conv_wgmma_kernel<K, true>). nmaps
+// bf16 tensors of channel planes (map_ptrs, as for savsr_conv_fused: row
+// pitch a multiple of 8, 16-byte aligned base and batch stride), read as
+// nsegs K segments: segment i is map seg_map[i], all its channels. Weights
+// are packed as ops/conv.py pack_weight_split lays them out (one block of
+// channels a segment), w_bstride elements per sample. bias, pre and scale
+// are f32; res is the residual's hi plane and res_lo its lo plane, or, with
+// res_lo null, an f32 residual; out and out_lo the result's hi and lo
+// planes, or, with out_lo null, out is the f32 result. Null pointers switch
+// an epilogue term off.
+extern "C" int savsr_conv_split(int ksize, int nmaps, const void* const* map_ptrs,
+                                const int* map_ch, const long long* map_bstride,
+                                const long long* map_pitch, int nsegs, const int* seg_map,
+                                int B, int H, int W, int Cout, const void* wt,
+                                long long w_bstride, const void* bias, const void* pre,
+                                const void* scale, long long s_bstride, int lrelu, float la,
+                                float lb, const void* res, const void* res_lo, void* out,
+                                void* out_lo, void* stream) {
+  if (nmaps < 1 || nmaps > SPLIT_MAPS || nsegs < 1 || nsegs > SPLIT_SEGS ||
+      (ksize != 1 && ksize != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hopper::EncodeTiledFn encode = hopper::encode_tiled();
+  if (!encode) return ERR_NO_ENCODER;
+  SplitParts parts{};
+  for (int i = 0; i < nmaps; ++i) {
+    const int e = encode_maps(encode, &parts.center[i], &parts.halo[i], ksize, map_ptrs[i],
+                              map_ch[i], map_bstride[i], map_pitch[i], B, H, W);
+    if (e) return e;
+  }
+  int nchunk = 0;
+  for (int i = 0; i < nsegs; ++i) {
+    if (seg_map[i] < 0 || seg_map[i] >= nmaps) return static_cast<int>(cudaErrorInvalidValue);
+    parts.map[i] = seg_map[i];
+    parts.c[i] = map_ch[seg_map[i]];
+    nchunk += (parts.c[i] + TC_CI - 1) / TC_CI;
+  }
+  parts.n = nsegs;
+  const float* sc = static_cast<const float*>(scale);
+  return ksize == 3 ? launch_wgmma<3, true>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
+                                            pre, sc, s_bstride, lrelu, la, lb, res, res_lo, out,
+                                            out_lo, s)
+                    : launch_wgmma<1, true>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
+                                            pre, sc, s_bstride, lrelu, la, lb, res, res_lo, out,
+                                            out_lo, s);
 }

@@ -1,5 +1,6 @@
-"""Kernel wrappers of the serving path (conv3x3, conv1x1, sta, stau, tail)
-and of the training path (osconv_agg, osconv_dagg), and their launch counts.
+"""Kernel wrappers of the serving path (conv3x3, conv1x1, sta, stau, tail;
+the split tier's conv3x3_split, conv1x1_split) and of the training path
+(osconv_agg, osconv_dagg), and their launch counts.
 
 ``launches[k]`` counts launches of kernel ``k`` on CUDA tensors (one per
 call, added where the wrapper launches it); ``plain_cuda_calls[k]`` counts
@@ -14,7 +15,8 @@ import functools
 
 import torch
 
-KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail", "osconv_agg", "osconv_dagg")
+KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail", "osconv_agg", "osconv_dagg",
+           "conv3x3_split", "conv1x1_split")
 
 launches = dict.fromkeys(KERNELS, 0)
 plain_cuda_calls = dict.fromkeys(KERNELS, 0)

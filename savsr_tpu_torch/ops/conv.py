@@ -29,6 +29,16 @@ steps: ``pack_weight`` reorders the weight into the kernel's A-operand
 stages (``pack_index``), and ``tma_part`` gives each part a row pitch that
 TMA can address (a multiple of 8 elements, 16-byte aligned base and batch
 stride), copying the part into a pitch-padded buffer where it has none.
+
+The split conv (``conv_fused_split``, the split serving tier) is the pair-carry
+mode of the TPU kernels (``in_pair``, ``out_pair``, ``res_pair``): features
+travel as a ``Pair`` of bf16 planes, hi = bf16(y) and lo = bf16(y - hi), and
+each conv contracts [Xhi; Xlo; Xhi] against [Whi, Whi, Wlo] on the bf16
+tensor-core kernel (f32 accumulators), with an f32 epilogue that writes a
+``Pair`` or f32. The TPU interleaves hi and lo channels in ``pc``-wide
+chunks of one tensor (a VMEM artefact); here a pair is two tensors and a
+concat a list of pairs. Its weight is split and packed per call of a
+per-sample weight, once for a shared one (``pack_weight_split``).
 """
 
 from __future__ import annotations
@@ -70,6 +80,10 @@ def conv_fused_plain(parts: Sequence[torch.Tensor], weight: torch.Tensor,
                      residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: the same function, computed in f32."""
     count_plain(_kernel_name(weight), parts[0])
+    return _conv_plain(parts, weight, bias, pre_add, out_scale, lrelu, residual)
+
+
+def _conv_plain(parts, weight, bias, pre_add, out_scale, lrelu, residual) -> torch.Tensor:
     x = torch.cat(list(parts), 1) if len(parts) > 1 else parts[0]
     dtype = x.dtype
     xf, wf = x.float(), weight.float()
@@ -223,6 +237,83 @@ def tma_part(p: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return buf, pitch
 
 
+class Pair:
+    """A feature of the split tier: two bf16 tensors of one shape, ``hi`` =
+    bf16(y) and ``lo`` = bf16(y - hi), whose f32 sum stands for y (the TPU
+    engine's pair carry, ``savsr_tpu/archs/chw_engine.py`` pair_split)."""
+
+    __slots__ = ("hi", "lo")
+
+    def __init__(self, hi: torch.Tensor, lo: torch.Tensor):
+        self.hi, self.lo = hi, lo
+
+
+def pair_split(x: torch.Tensor) -> Pair:
+    """f32 -> its pair: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return Pair(hi, (x - hi.float()).to(torch.bfloat16))
+
+
+def pair_merge(p: Pair) -> torch.Tensor:
+    """A pair's value in f32: hi + lo."""
+    return p.hi.float() + p.lo.float()
+
+
+def split_weight(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
+    """f32 [(B,) Cout, Cin, k, k] -> bf16 [(B,) Cout, 3 Cin, k, k]: for each
+    input part (``chans`` channels) the blocks [Whi, Whi, Wlo], Whi =
+    bf16(W), Wlo = bf16(W - Whi), against the part's [Xhi; Xlo; Xhi]
+    (``savsr_tpu/archs/chw_engine.py`` _split_w)."""
+    w = weight.detach().float()
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16)
+    blocks, off = [], 0
+    for c in chans:
+        sl = slice(off, off + c)
+        blocks += [hi[..., sl, :, :], hi[..., sl, :, :], lo[..., sl, :, :]]
+        off += c
+    return torch.cat(blocks, dim=-3)
+
+
+def pack_weight_split(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
+    """The split conv's weight: ``split_weight`` in the bf16 kernel's layout
+    (``pack_index`` over three segments of ``c`` channels a part); a shared
+    weight's is packed once (``packed_once``)."""
+    chans3 = tuple(c for c in chans for _ in range(3))
+
+    def pack():
+        return pack_weight(split_weight(weight, chans), chans3)
+
+    return packed_once(weight, ("split",) + chans3, pack)
+
+
+def _split_inputs(parts) -> List[Pair]:
+    parts = parts if isinstance(parts, (list, tuple)) else [parts]
+    return [p if isinstance(p, Pair) else pair_split(p) for p in parts]
+
+
+def conv_fused_split_plain(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                           pre_add: Optional[torch.Tensor] = None,
+                           out_scale: Optional[torch.Tensor] = None,
+                           lrelu: Optional[Tuple[float, float]] = None,
+                           residual=None, out: str = "pair"):
+    """Plain PyTorch version of the split conv: the f32 conv of [Xhi; Xlo;
+    Xhi] (per part) by [Whi, Whi, Wlo], both bf16-valued, with TF32 off, so
+    every product is exact and only the f32 sums' order differs from the
+    kernel's; then the epilogue in f32 and the pair split of the result."""
+    from ..archs.arch_util import float32_precision
+
+    pairs = _split_inputs(parts)
+    count_plain(_kernel_name(weight) + "_split", pairs[0].hi)
+    xs = [t.float() for p in pairs for t in (p.hi, p.lo, p.hi)]
+    w = split_weight(weight, [p.hi.shape[1] for p in pairs]).float()
+    res = pair_merge(residual) if isinstance(residual, Pair) else residual
+    with float32_precision(True):
+        y = _conv_plain(xs, w, None if bias is None else bias.float(), pre_add, out_scale,
+                        lrelu, res)
+    return pair_split(y) if out == "pair" else y
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from ..csrc.build import load
@@ -248,6 +339,17 @@ def _lib():
         p, p, p, ll,                                 # bias, pre_add, out_scale, s_bstride
         i, f, f,                                                 # lrelu, a, b
         p, p, p, i, i, p,                            # residual, out, partial, nchunks, per, stream
+    ]
+    lib.savsr_conv_split.restype = i
+    lib.savsr_conv_split.argtypes = [
+        i, i, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll),
+        ctypes.POINTER(ll),                                      # K, nmaps, maps, ch, bstride, pitch
+        i, ctypes.POINTER(i),                                    # nsegs, seg_map
+        i, i, i, i,                                              # B, H, W, Cout
+        p, ll,                                                   # weight, w_bstride
+        p, p, p, ll,                                 # bias, pre_add, out_scale, s_bstride
+        i, f, f,                                                 # lrelu, a, b
+        p, p, p, p, p,                               # residual hi / f32, lo, out hi / f32, lo, stream
     ]
     return lib
 
@@ -370,3 +472,108 @@ def conv_fused(parts, weight: torch.Tensor,
     if not parts[0].is_cuda:
         return conv_fused_plain(parts, weight, bias, pre_add, out_scale, lrelu, residual)
     return _launch(parts, weight, bias, pre_add, out_scale, lrelu, residual)
+
+
+# the split kernel's TMA maps (two a pair) and K segments (three a pair):
+# csrc/conv.cu SPLIT_MAPS, SPLIT_SEGS
+SPLIT_MAX_PAIRS = 5
+
+
+def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre_add,
+                   out_scale, lrelu, residual, out: str):
+    """One launch of the split kernel, ``savsr_conv_split``: the pairs' hi
+    and lo planes as TMA maps (``tma_part``), each pair read as the segments
+    hi, lo, hi, against ``pack_weight_split``; returns a ``Pair`` or (``out``
+    "f32") an f32 tensor; counted once as conv3x3_split / conv1x1_split."""
+    hi0 = pairs[0].hi
+    b, _, h, w = hi0.shape
+    require(k in (1, 3) and weight.shape[-2:] == (k, k), f"kernel size {tuple(weight.shape)}")
+    require(1 <= len(pairs) <= SPLIT_MAX_PAIRS, f"{len(pairs)} pairs (max {SPLIT_MAX_PAIRS})")
+    require(out in ("pair", "f32"), f"out {out!r}")
+    for p in pairs:
+        for t in (p.hi, p.lo):
+            require(t.device == hi0.device and t.dtype == torch.bfloat16 and t.dim() == 4
+                    and t.shape[0] == b and tuple(t.shape[2:]) == (h, w)
+                    and t.shape[1] == p.hi.shape[1],
+                    "pairs must be CUDA bf16 tensors of one size")
+            require(t.stride(3) == 1 and t.stride(2) == w and t.stride(1) == h * w,
+                    "each plane needs contiguous channel planes")
+    chans = [p.hi.shape[1] for p in pairs]
+    cout = weight.shape[-4]
+    per_sample = weight.dim() == 5
+    dev = hi0.device
+    require(weight.device == dev and weight.dtype == torch.float32
+            and weight.shape[-3] == sum(chans) and (not per_sample or weight.shape[0] == b),
+            f"weight {tuple(weight.shape)} {weight.dtype} vs f32 input {b}x{sum(chans)}")
+    shape = (b, cout, h, w)
+
+    def f32_operand(name, t):
+        require(t is None or (t.device == dev and t.dtype == torch.float32 and t.is_contiguous()
+                              and tuple(t.shape) == shape and t.data_ptr() % 8 == 0),
+                f"{name} must be a contiguous 8-byte aligned f32 {list(shape)} tensor on {dev}")
+
+    f32_operand("pre_add", pre_add)
+    if isinstance(residual, Pair):
+        for t in (residual.hi, residual.lo):
+            require(t.device == dev and t.dtype == torch.bfloat16 and t.is_contiguous()
+                    and tuple(t.shape) == shape and t.data_ptr() % 4 == 0,
+                    f"a pair residual is two contiguous bf16 tensors on {dev}")
+        res, res_lo = residual.hi, residual.lo
+    else:
+        f32_operand("residual", residual)
+        res, res_lo = residual, None
+    require(bias is None or (bias.device == dev and bias.dtype == torch.float32
+                             and bias.numel() == cout and bias.is_contiguous()),
+            f"bias must be f32 on {dev}")
+    s_bstride = 0
+    if out_scale is not None:
+        require(out_scale.device == dev and out_scale.dtype == torch.float32
+                and out_scale.is_contiguous() and out_scale.numel() in (cout, b * cout),
+                "out_scale")
+        s_bstride = cout if out_scale.numel() == b * cout else 0
+
+    maps = [tma_part(t) for p in pairs for t in (p.hi, p.lo)]
+    nmaps = len(maps)
+    seg_map = [m for i in range(len(pairs)) for m in (2 * i, 2 * i + 1, 2 * i)]
+    wt = pack_weight_split(weight, chans)
+    if out == "pair":
+        dst = Pair(hi0.new_empty(shape), hi0.new_empty(shape))
+        o, o_lo = dst.hi, dst.lo
+    else:
+        dst = o = torch.empty(shape, dtype=torch.float32, device=hi0.device)
+        o_lo = None
+    la, lb = lrelu if lrelu is not None else (1.0, 0.0)
+    counter = _kernel_name(weight) + "_split"
+    lib = _lib()
+    rc = lib.savsr_conv_split(
+        k, nmaps, (ctypes.c_void_p * nmaps)(*[t.data_ptr() for t, _ in maps]),
+        (ctypes.c_int * nmaps)(*[t.shape[1] for t, _ in maps]),
+        (ctypes.c_longlong * nmaps)(*[t.stride(0) for t, _ in maps]),
+        (ctypes.c_longlong * nmaps)(*[pitch for _, pitch in maps]),
+        len(seg_map), (ctypes.c_int * len(seg_map))(*seg_map), b, h, w, cout, ptr(wt),
+        wt.shape[1] if per_sample else 0, ptr(bias), ptr(pre_add), ptr(out_scale), s_bstride,
+        int(lrelu is not None), la, lb, ptr(res), ptr(res_lo), ptr(o), ptr(o_lo),
+        stream_ptr(o))
+    check_rc(lib, rc, counter)
+    launches[counter] += 1
+    return dst
+
+
+def conv_fused_split(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                     pre_add: Optional[torch.Tensor] = None,
+                     out_scale: Optional[torch.Tensor] = None,
+                     lrelu: Optional[Tuple[float, float]] = None,
+                     residual=None, out: str = "pair"):
+    """The split conv of concat(parts): ``parts`` is a ``Pair``, an f32
+    tensor or a list of them (f32 parts, the window's raw frames, are split
+    first); ``weight`` f32 [Cout, Cin, K, K] or per sample [B, Cout, Cin, K,
+    K]; ``bias``, ``pre_add`` f32; ``residual`` a ``Pair`` or f32. Returns
+    a ``Pair`` (``out`` "pair") or the f32 result (``out`` "f32"). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    pairs = _split_inputs(parts)
+    if not pairs[0].hi.is_cuda:
+        return conv_fused_split_plain(pairs, weight, bias, pre_add, out_scale, lrelu, residual,
+                                      out)
+    return _launch_split(weight.shape[-1], pairs, weight.contiguous(), bias, pre_add,
+                          out_scale, lrelu, residual, out)

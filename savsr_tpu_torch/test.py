@@ -10,9 +10,11 @@ and with ``val: save_img`` the SR frames under
 ``--device cpu`` is given (every kernel then takes its plain PyTorch
 version); asking for CUDA without a card is an error.
 
-Not ported yet, each raising NotImplementedError with the option's name:
-``val: bucket_eval`` / ``bucket_auto``, ``network_g: conv_precision:
-split``, the NIQE metric, the recurrent test sets and models.
+``network_g: conv_precision: split`` evaluates on the split serving tier
+(the split conv's pair carries; STA, STAU and the tail in f32). Not ported
+yet, each raising NotImplementedError with the option's name: ``val:
+bucket_eval`` / ``bucket_auto``, the NIQE metric, the recurrent test sets
+and models.
 
 Usage:
   python -m savsr_tpu_torch.test -opt options/test/SAVSR/test_SAVSR_Vid4_asBI.yml

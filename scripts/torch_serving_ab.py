@@ -22,8 +22,8 @@ Per checkout:
   version's and the library call's times, and the bound;
 - the serving profile, as ``chip_smoke.phase_profile`` takes it: one bf16
   forward of 8 windows unprofiled (median of 3) and under torch.profiler,
-  its device busy time and the device time of the STA, STAU and tail
-  kernels;
+  its device busy time and the device time of the bf16 conv, STA, STAU and
+  tail kernels;
 - with ``--strict``: the f32 ``sta_case``, ``stau_case`` and ``tail_case``
   rows (the strict tier's CUDA-core STA, STAU and tail kernels, STAU on the
   f32 statics' sampler planes; the tail's library call with TF32 off),
@@ -66,7 +66,8 @@ def profile(cs, model, device, dtype) -> dict:
         torch.cuda.synchronize()
     rows = cs.device_rows(prof)
     kernels = {cs.short_name(name): ms for name, ms, _ in rows
-               if cs.short_name(name).startswith(("sta", "tail", "conv_f32", "conv_fused"))}
+               if cs.short_name(name).startswith(("sta", "tail", "conv_f32", "conv_fused",
+                                                  "conv_wgmma"))}
     f32 = [(ms, n) for name, ms, n in rows
            if cs.short_name(name).startswith(("conv_f32", "conv_fused"))]
     return {"forward_ms": fwd_ms, "device_ms": sum(r[1] for r in rows), "kernels": kernels,

@@ -21,7 +21,8 @@ from savsr_tpu_torch import ops
 from savsr_tpu_torch.archs.arch_util import float32_precision
 from savsr_tpu_torch.archs.savsr_arch import (SAVSR, STAUpsample, _stau_head, get_hw,
                                               stau_sampler_planes, tail_operands)
-from savsr_tpu_torch.ops.conv import conv_fused, conv_fused_plain
+from savsr_tpu_torch.ops.conv import (Pair, conv_fused, conv_fused_plain, conv_fused_split,
+                                      conv_fused_split_plain, pair_merge, pair_split)
 from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
 from savsr_tpu_torch.ops.stau import (plan_geometry, stau_upsample_fused,
                                       stau_upsample_fused_plain, stau_window_plan)
@@ -202,6 +203,90 @@ def test_conv_f32_frames_view_parts(dev):
     _agree(lambda: conv_fused(parts, weight, **kw),
            lambda: conv_fused_plain(parts, weight, None, None, None, kw["lrelu"]),
            torch.float32, "conv3x3")
+
+
+# the split conv (B, h, w, k, input parts' channels, Cout, per-sample weight,
+# residual: pair / f32 / none, output: pair / f32, raw f32 inputs, pre_add and
+# out_scale): the serving path's split convs at its shape (8 x 180x320:
+# conv_c and conv_sup on the raw frames, conv0 and conv2 with their pair
+# residuals, the WindowUnit_l1 OSConv's per-sample weight, the WindowUnit_l2
+# merge over 5 pairs, conv1, conv_last's f32 output), then batch 1 at the
+# eval sweep's widths (650, 715, 671: pitch-padded TMA copies; odd widths
+# take the epilogue's scalar path) and every epilogue term at once
+SPLIT = [
+    (8, 180, 320, 3, [3], 64, False, None, "pair", True, False),
+    (8, 180, 320, 3, [6], 64, False, None, "pair", True, False),
+    (8, 180, 320, 3, [64], 64, False, "pair", "pair", False, False),
+    (8, 180, 320, 3, [64, 64], 64, False, "pair", "pair", False, False),
+    (8, 180, 320, 3, [64] * 3, 64, True, None, "pair", False, False),
+    (8, 180, 320, 3, [64] * 5, 128, False, None, "pair", False, False),
+    (8, 180, 320, 1, [64] * 3, 64, False, None, "pair", False, False),
+    (8, 180, 320, 3, [64], 64, False, "pair", "f32", False, False),
+    (1, 36, 650, 3, [64, 64], 64, False, "pair", "pair", False, False),
+    (1, 20, 715, 3, [64] * 5, 64, True, None, "pair", False, False),
+    (1, 20, 671, 1, [64] * 3, 64, False, "pair", "f32", False, False),
+    (2, 13, 37, 3, [24, 40], 72, True, "f32", "pair", False, True),
+    (2, 9, 33, 1, [16], 24, False, "f32", "f32", True, True),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT, ids=[
+    f"k{c[3]}-{'+'.join(map(str, c[4]))}to{c[5]}-b{c[0]}-{c[1]}x{c[2]}-{c[8]}" for c in SPLIT])
+def test_split_conv_kernel_matches_plain(dev, case):
+    """The split conv against ``conv_fused_split_plain`` on the merged values
+    at f32's tolerance (both sum exact products of bf16 values in f32, in
+    other orders), and a second launch bit for bit."""
+    b, h, w, k, chans, cout, per_sample, res, out, raw, pre_scale = case
+    rng = np.random.default_rng(sum(chans) + cout + h + w)
+    f32 = torch.float32
+    parts = [_rand(rng, (b, c, h, w), f32, dev) for c in chans]
+    if not raw:
+        parts = [pair_split(p) for p in parts]
+    cin = sum(chans)
+    weight = _rand(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), f32, dev,
+                   (cin * k * k) ** -0.5)
+    kw = dict(bias=None if per_sample else _rand(rng, (cout,), f32, dev, 0.1),
+              lrelu=(0.6, 0.4), out=out)
+    if res is not None:
+        r = _rand(rng, (b, cout, h, w), f32, dev)
+        kw["residual"] = pair_split(r) if res == "pair" else r
+    if pre_scale:
+        kw.update(pre_add=_rand(rng, (b, cout, h, w), f32, dev),
+                  out_scale=torch.from_numpy(rng.uniform(0.5, 1.5, (b, cout))
+                                             .astype(np.float32)).to(dev))
+
+    def merged(y):
+        assert isinstance(y, Pair) == (out == "pair")
+        return pair_merge(y) if out == "pair" else y
+
+    name = "conv3x3_split" if k == 3 else "conv1x1_split"
+    got = _agree(lambda: merged(conv_fused_split(parts, weight, **kw)),
+                 lambda: merged(conv_fused_split_plain(parts, weight, **kw)), f32, name)
+    with torch.no_grad():
+        assert torch.equal(got, merged(conv_fused_split(parts, weight, **kw)))
+
+
+def test_small_split_forward_on_the_card(dev):
+    """The small config's split forward on the card: every conv through the
+    split kernels (none through the native ones), STA, STAU and the tail on
+    their f32 kernels, no plain version on the card; < 2e-3 from the strict
+    forward on the card (the tier's gate, tests/test_torch_split.py)."""
+    io = np.load(os.path.join(GOLDEN_DIR, "savsr_small_forward.npz"))
+    state = {k: torch.from_numpy(v) for k, v in
+             np.load(os.path.join(GOLDEN_DIR, "savsr_small_state.npz")).items()}
+    x = torch.from_numpy(io["x"]).to(dev)
+    outs = {}
+    for prec in ("native", "split"):
+        model = SAVSR(**SMALL_CFG, conv_precision=prec).eval()
+        model.load_state_dict(state)
+        model.to(dev)
+        ops.reset_counts()
+        outs[prec] = model(x, (1.5, 3.5))
+    assert all(ops.launches[k] > 0 for k in ("conv3x3_split", "conv1x1_split", "sta", "stau",
+                                             "tail")), ops.launches
+    assert ops.launches["conv3x3"] == ops.launches["conv1x1"] == 0, ops.launches
+    assert not any(ops.plain_cuda_calls.values()), ops.plain_cuda_calls
+    assert float((outs["split"] - outs["native"]).abs().max()) < 2e-3
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

@@ -286,8 +286,49 @@ def test_conv_engine_chw_is_accepted_and_changes_nothing(world):
         k: v.shape for k, v in plain.state_dict().items()}
 
 
+def test_split_tier_eval_matches_direct_split_forward(world, tmp_path, monkeypatch):
+    """``network_g: conv_precision: split`` runs the pipeline on the split
+    tier: every frame's psnr_y and ssim_y equal those of a direct split
+    forward of its window (the same post-process and metrics), at
+    x(1.5, 3.5)."""
+    from savsr_tpu_torch import test as test_mod
+    from savsr_tpu_torch.archs.savsr_arch import SAVSR
+    from savsr_tpu_torch.data import build_dataset
+    from savsr_tpu_torch.data.resize import resize_np
+    from savsr_tpu_torch.metrics import calculate_metric
+    from savsr_tpu_torch.utils.convert import load_checkpoint, load_into
+    from savsr_tpu_torch.utils.img_util import array2img
+    from savsr_tpu_torch.utils.options import yaml_load
+
+    built, real_build = [], test_mod.build_model
+    monkeypatch.setattr(test_mod, "build_model", lambda opt: built.append(real_build(opt))
+                        or built[-1])
+    scales = {"Vid4_x1.5_x3.5": SCALES["Vid4_x1.5_x3.5"]}
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(_yml(world, net_extra="  conv_precision: split\n", scales=scales))
+    results = test_mod.test_pipeline(str(tmp_path), ["-opt", str(cfg), "--device", "cpu"])
+    (model,) = built
+    assert model.net_g.cfg.conv_precision == "split"
+    assert np.isfinite(results["Vid4_x1.5_x3.5"]["psnr_y"])
+
+    opt = yaml_load(cfg.read_text())
+    net = SAVSR(**{k: v for k, v in opt["network_g"].items() if k != "type"}).eval()
+    load_into(net, load_checkpoint(str(world / "net_g.npz"), "params"))
+    dataset = build_dataset(dict(opt["datasets"]["test_01"], phase="test"))
+    metrics = opt["val"]["metrics"].values()
+    for i in range(len(dataset)):
+        item = dataset[i]
+        lq = torch.from_numpy(item["lq"]).permute(0, 3, 1, 2)[None]
+        sr = net(lq, scales["Vid4_x1.5_x3.5"]).permute(0, 2, 3, 1).numpy()
+        if sr.shape[1:3] != item["gt"].shape[:2]:  # the BI post-process
+            sr = resize_np(sr, item["gt"].shape[:2], mode="torch", antialias=True)
+        data = {"img": array2img(sr[0]), "img2": array2img(item["gt"])}
+        want = [calculate_metric(data, m) for m in metrics]
+        got = model.metric_results[item["folder"]][int(item["idx"].split("/")[0])]
+        assert list(got) == want, (i, list(got), want)
+
+
 UNPORTED = [
-    ("conv_precision", dict(net_extra="  conv_precision: split\n")),
     ("bucket_eval", dict(val_extra="  bucket_eval: true\n")),
     ("bucket_auto", dict(val_extra="  bucket_auto: true\n")),
 ]
