@@ -103,6 +103,33 @@ Phases (each prints its lines; any failure exits non-zero):
             Vid4 config with conv_precision: split on its x4, x1.1 and
             x(1.5,3.5) datasets (psnr_y and ssim_y against the strict sweep
             of phase 9).
+11. fast    the fast serving tier (f32 weights and carries at
+            matmul_precision: default: every product one bf16 pass, f32
+            sums; the convs on conv_wgmma_kernel<K, true> with one K segment
+            a part, STA and the tail on their CUDA-core kernels with the
+            tier's rounding points, STAU on stau_mma_kernel<CB, true>): each
+            fast kernel against its plain version at 8 x 180x320, C = 64
+            (the 3x3 64->64 with an f32 residual, the 3-part merge, the 1x1
+            3x64->64, the per-sample OSConv, STA, STAU and the tail; f32's
+            tolerance for the convs and STA; for STAU and the tail, whose
+            values are rounded inside the kernel where another f32 sum order
+            may round one the other way, max abs one bf16 ulp of the output's
+            scale and mean abs 1e-5 of it, which a rounding point misplaced
+            for every value exceeds;
+            the library time of the convs is F.conv2d in bf16 on the rounded
+            input, the nearest single call); the flagship fast forward on
+            the 45x80 golden input at x4, x(1.5,3.5), x3.05 against the
+            strict forward on the card (deviation PSNR at least the bf16
+            tier's, max abs at least 10x the split tier's of phase 10) with
+            its deviation PSNR against the reference outputs; the CLI at
+            --tier fast on the serving clip (the fast main-path run: counts
+            zeroed just before, read just after; every fast kernel launched
+            as often as the bf16 run launches its own, no other kernel and
+            no plain version); one profiled fast forward of 8 windows
+            (device busy, the fast conv's share, the rounding passes); and
+            the shipped Vid4 config with matmul_precision: default on its
+            x4, x1.1 and x(1.5,3.5) datasets (psnr_y and ssim_y against the
+            strict sweep of phase 9).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}};
@@ -131,15 +158,19 @@ from savsr_tpu_torch.csrc import build
 from savsr_tpu_torch.data.data_util import generate_frame_indices
 from savsr_tpu_torch.inference import (build_serving_model, flagship_net_kwargs,
                                        load_params, main as serve_main)
-from savsr_tpu_torch.ops.conv import (Pair, conv_fused, conv_fused_plain, conv_fused_split,
+from savsr_tpu_torch.ops.conv import (Pair, conv_fused, conv_fused_fast, conv_fused_fast_plain,
+                                      conv_fused_plain, conv_fused_split,
                                       conv_fused_split_plain, pair_merge, pair_split,
                                       split_weight)
 from savsr_tpu_torch.ops.osconv import (osconv_agg, osconv_agg_dx, osconv_agg_plain,
                                         osconv_agg_train, osconv_dagg, osconv_dagg_plain)
-from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
+from savsr_tpu_torch.ops.sta import (sta_conv_fused, sta_conv_fused_fast,
+                                     sta_conv_fused_fast_plain, sta_conv_fused_plain)
 from savsr_tpu_torch.ops.stau import (plan_geometry, stau_upsample_fused,
+                                      stau_upsample_fused_fast, stau_upsample_fused_fast_plain,
                                       stau_upsample_fused_plain, stau_window_plan)
-from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
+from savsr_tpu_torch.ops.tail import (tail_fused, tail_fused_fast, tail_fused_fast_plain,
+                                      tail_fused_plain)
 from savsr_tpu_torch.utils.convert import load_into
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -180,11 +211,20 @@ SOURCES = {
     # the split tier's convs: the pair-carry mode of kernels 1 and 2
     "conv3x3_split": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:386"),
     "conv1x1_split": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:531"),
+    # the fast tier's kernels: the default-precision mode of kernels 1-5
+    "conv3x3_fast": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:386"),
+    "conv1x1_fast": ("savsr_tpu_torch/csrc/conv.cu", "savsr_tpu/ops/pallas/chw_conv.py:531"),
+    "sta_fast": ("savsr_tpu_torch/csrc/sta.cu", "savsr_tpu/ops/pallas/sta_kernel.py:84"),
+    "stau_fast": ("savsr_tpu_torch/csrc/stau.cu", "savsr_tpu/ops/pallas/stau_kernel.py:183"),
+    "tail_fast": ("savsr_tpu_torch/csrc/tail.cu", "savsr_tpu/ops/pallas/tail_kernel.py:89"),
 }
 SERVING_KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail")
 SPLIT_KERNELS = ("conv3x3_split", "conv1x1_split")
 # the split tier's path: its convs, and STA, STAU and the tail in f32
 SPLIT_SERVING_KERNELS = SPLIT_KERNELS + ("sta", "stau", "tail")
+# the fast tier's path: its five kernels and nothing else
+FAST_KERNELS = ("conv3x3_fast", "conv1x1_fast", "sta_fast", "stau_fast", "tail_fast")
+TIER_KERNELS = {"bf16": SERVING_KERNELS, "split": SPLIT_SERVING_KERNELS, "fast": FAST_KERNELS}
 # the CUDA kernels behind each row of the JSON kernels line, by dtype (the
 # flagship widths: C = 64, 4 experts; W % 4 == 0)
 CUDA_KERNELS = {
@@ -195,11 +235,16 @@ CUDA_KERNELS = {
     ("conv3x3_split", "split"): "conv_wgmma_kernel<3, true>",
     ("conv1x1_split", "split"): "conv_wgmma_kernel<1, true>",
     ("sta", "bf16"): "sta_mma_kernel<64>", ("sta", "f32"): "sta_f32_kernel<64, false>",
-    ("stau", "bf16"): "stau_mma_kernel<4>", ("stau", "f32"): "stau_f32_kernel<64>",
+    ("stau", "bf16"): "stau_mma_kernel<4, false>", ("stau", "f32"): "stau_f32_kernel<64>",
     ("tail", "bf16"): "tail_mma_kernel<4>", ("tail", "f32"): "tail_f32_kernel<false>",
     ("osconv_agg", "bf16"): "conv_wgmma_kernel<3, false>",
     ("osconv_agg", "f32"): "conv_f32_kernel<3, 1> + conv_f32_reduce_kernel",
     ("osconv_dagg", "bf16"): "osconv_dagg_wgmma_kernel<3> + dagg_reduce_kernel",
+    ("conv3x3_fast", "fast"): "conv_wgmma_kernel<3, true>",
+    ("conv1x1_fast", "fast"): "conv_wgmma_kernel<1, true>",
+    ("sta_fast", "fast"): "sta_f32_kernel<64, false>",
+    ("stau_fast", "fast"): "stau_mma_kernel<4, true>",
+    ("tail_fast", "fast"): "tail_f32_kernel<true>",
 }
 TRAINING_KERNELS = ("osconv_agg", "osconv_dagg")
 # the training path's shapes: a micro-batch of 8 samples of 60x60 LR crops
@@ -297,10 +342,11 @@ def nbytes(*ts) -> int:
 
 def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
           io_bytes: int, dtype, device, tol=None, graph: bool = False, ops_ms=None,
-          value=None, dt_name=None) -> dict:
+          value=None, dt_name=None, mean_tol=None) -> dict:
     """Run the kernel and its plain version on the same inputs, compare in
     f32, time both (and the library call), and return the result row.
-    ``tol`` (relative to max|plain|) overrides TOL[dtype]; ``value`` maps an
+    ``tol`` (relative to max|plain|) overrides TOL[dtype]; ``mean_tol``
+    (relative to max|plain|) also bounds the mean abs error; ``value`` maps an
     output to the f32 tensor compared (default ``.float()``); ``dt_name``
     names the row's type (default that of ``dtype``, whose peak rate holds
     the operations). ``ms`` and
@@ -316,9 +362,12 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
         got = value(kernel_fn())
         if device.type == "cuda":
             torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        diff = (got - want).abs()
+        err, mean_err = float(diff.max()), float(diff.mean())
         scale = float(want.abs().max())
         ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+        if mean_tol is not None:
+            ok = ok and mean_err <= mean_tol * scale
         ms = timed_ms(kernel_fn, device)
         plain_ms = timed_ms(plain_fn, device, reps=3, iters=3)
         lib_ms = None if library_fn is None else timed_ms(library_fn, device)
@@ -330,12 +379,13 @@ def check(name: str, label: str, kernel_fn, plain_fn, library_fn, flops: float,
     b_ms, b_by = bound_ms(flops, io_bytes, dtype, ops_ms)
     tflops = flops / ms * 1e-9
     row = {"name": name, "case": label, "dtype": dt_name, "max_abs_err": err,
-           "max_abs_plain": scale, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "mean_abs_err": mean_err, "max_abs_plain": scale, "ok": ok, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "tflops": tflops, "bound_share": b_ms / ms, **graphed}
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+    mean = "" if mean_tol is None else f", mean {mean_err:.3e} (tol {mean_tol * scale:.3e})"
     log(f"[kernels] {name:11s} {label:44s} {dt_name:4s} err {err:.3e} "
-        f"(tol {tol * scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} lib {lib} "
+        f"(tol {tol * scale:.3e}{mean}) ms {ms:.4f} plain {plain_ms:.4f} lib {lib} "
         f"bound {b_ms:.4f} ({b_by}) {tflops:.1f} TFLOP/s = {100 * b_ms / ms:.1f}% of bound "
         f"{'ok' if ok else 'FAIL'}")
     if graphed:
@@ -371,6 +421,7 @@ CONV_CASES = [
 ]
 HEADLINE = {"conv3x3": "conv0 64->64 lrelu", "conv1x1": "conv1 3x64->64 lrelu",
             "conv3x3_split": "conv0 64->64 lrelu+pair res", "conv1x1_split": "conv1 3x64->64 lrelu",
+            "conv3x3_fast": "conv0 64->64 lrelu+res", "conv1x1_fast": "conv1 3x64->64 lrelu",
             "osconv_agg": "fwd 192->64 (WindowUnit_l1)", "osconv_dagg": "192->64 (WindowUnit_l1)"}
 # (label, Cin, Cout, as dx): the OSConvs of the training forward (3x64 -> 64
 # in WindowUnit_l1, 5x64 -> 64 in WindowUnit_l2, 64 -> 64 in OSAdapt), k = 3,
@@ -718,17 +769,25 @@ def write_clip(root: str, n: int, hw, name: str = "clip") -> str:
     return d
 
 
-def require_no_native_conv(phase: str, launches: dict) -> None:
-    """The split tier runs every conv on the split kernels."""
-    if launches["conv3x3"] or launches["conv1x1"]:
-        raise AssertionError(f"{phase}: native conv launches in the split tier: {launches}")
+# the kernels a tier's path must not launch: the split tier runs every conv
+# on the split kernels, the fast tier nothing but its five kernels
+TIER_FORBIDDEN = {"bf16": (), "split": ("conv3x3", "conv1x1"),
+                  "fast": SERVING_KERNELS + SPLIT_KERNELS}
+
+
+def require_none_of(phase: str, launches: dict, tier: str) -> None:
+    """No kernel of ``TIER_FORBIDDEN[tier]`` launched."""
+    other = {k: launches[k] for k in TIER_FORBIDDEN[tier] if launches[k]}
+    if other:
+        raise AssertionError(f"{phase}: other tiers' kernels launched in the {tier} tier: "
+                             f"{other} ({launches})")
 
 
 def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOWS,
                   tier: str = "bf16") -> dict:
-    """The port's CLI on a seeded clip at ``tier`` (bf16 or split); returns
-    the main-path run's kernel launches and rates (bf16: and the bf16
-    tier's deviation from the strict tier on the first window)."""
+    """The port's CLI on a seeded clip at ``tier`` (bf16, split or fast);
+    returns the main-path run's kernel launches and rates (bf16: and the
+    bf16 tier's deviation from the strict tier on the first window)."""
     import cv2
 
     from savsr_tpu_torch.data.data_util import paths_from_folder, read_img_seq
@@ -750,10 +809,8 @@ def phase_serving(sd, device, n_frames: int = 8, hw=LR_HW, windows: int = WINDOW
         serve_main(argv + ["-o", os.path.join(tmp, "out")], stats=stats)
         wall = time.perf_counter() - t0
         phase = "serving" if tier == "bf16" else f"{tier}-serving"
-        launches = require_kernels_ran(phase, SERVING_KERNELS if tier == "bf16"
-                                       else SPLIT_SERVING_KERNELS)
-        if tier == "split":
-            require_no_native_conv(phase, launches)
+        launches = require_kernels_ran(phase, TIER_KERNELS[tier])
+        require_none_of(phase, launches, tier)
         H, W = get_hw(hw[0], hw[1], SCALE)
         outs = paths_from_folder(os.path.join(tmp, "out"))
         frames = [cv2.imread(p) for p in outs]
@@ -837,11 +894,29 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
     port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
         "conv_f32", "conv_f32_reduce", "conv_wgmma", "sta_f32", "sta_mma", "stau_f32", "stau_mma",
         "tail_f32", "tail_mma"))]
+    result = {"tier": tier, "launches": launches}
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
         f"everything else {total - port_ms:.2f} ms in {sum(r[2] for r in rows) - sum(r[2] for r in port)} "
         f"device events")
-    result = {"tier": tier, "forward_ms": fwd_ms, "device_ms": total, "launches": launches}
+    result.update(forward_ms=fwd_ms, device_ms=total, port_ms=port_ms)
+    if tier == "fast":
+        fc = [r for r in rows if "conv_wgmma" in r[0]]
+        fc_ms = sum(r[1] for r in fc)
+        # the rounding passes: each fast conv's parts cast to bf16 (ops/conv.py
+        # bf16_part), STA's st and STAU's inputs; PyTorch's copy kernels
+        casts = [r for r in rows if "copy" in r[0].lower()]
+        cast_ms = sum(r[1] for r in casts)
+        log(f"[profile] fast: the fast conv kernels {fc_ms:.2f} ms = "
+            f"{100 * fc_ms / max(total, 1e-9):.1f}% of device busy {total:.2f} ms, in "
+            f"{sum(r[2] for r in fc)} device launches (wrapper calls conv3x3_fast "
+            f"{launches['conv3x3_fast']}, conv1x1_fast {launches['conv1x1_fast']}): "
+            + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in fc))
+        log(f"[profile] fast: copy kernels (the bf16 rounding passes and the pitch copies) "
+            f"{cast_ms:.2f} ms in {sum(r[2] for r in casts)} launches: "
+            + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in casts[:4]))
+        result.update(fast_conv_ms=fc_ms, copy_ms=cast_ms)
+        return result
     if tier == "strict":
         f32 = [r for r in rows if "conv_f32" in r[0]]
         f32_ms = sum(r[1] for r in f32)
@@ -1408,7 +1483,7 @@ def split_parity(sd, device) -> dict:
             outs[tier, key] = model(x.to(dt), scale, stau_statics=statics).float().cpu().numpy()
         if tier == "split":
             launches = require_kernels_ran("split-parity", SPLIT_SERVING_KERNELS)
-            require_no_native_conv("split-parity", launches)
+            require_none_of("split-parity", launches, tier)
         del model
     result = {}
     for key, scale in scales:
@@ -1431,16 +1506,20 @@ def split_parity(sd, device) -> dict:
     return result
 
 
-def split_eval(sd, device, strict_results: dict) -> dict:
-    """The shipped Vid4 config with conv_precision: split on three of its
-    datasets (the split tier's eval path: counts zeroed just before, read
-    just after), against the strict sweep's metrics of phase 9."""
+# the network_g settings that select a tier in an eval config
+TIER_NETWORK = {"split": {"conv_precision": "split"}, "fast": {"matmul_precision": "default"}}
+
+
+def tier_eval(sd, device, strict_results: dict, tier: str = "split") -> dict:
+    """The shipped Vid4 config with ``tier``'s network_g setting on three of
+    its datasets (the tier's eval path: counts zeroed just before, read just
+    after), against the strict sweep's metrics of phase 9."""
     from savsr_tpu_torch.test import test_pipeline
 
     with tempfile.TemporaryDirectory() as tmp:
         pth = os.path.join(tmp, "savsr.pth")
         torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
-        cfg = eval_config(tmp, pth, SPLIT_EVAL, {"conv_precision": "split"})
+        cfg = eval_config(tmp, pth, SPLIT_EVAL, TIER_NETWORK[tier])
         stats = []
         ops.reset_counts()
         t0 = time.perf_counter()
@@ -1448,20 +1527,20 @@ def split_eval(sd, device, strict_results: dict) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = require_kernels_ran("split-eval", SPLIT_SERVING_KERNELS)
-        require_no_native_conv("split-eval", launches)
+        launches = require_kernels_ran(f"{tier}-eval", TIER_KERNELS[tier])
+        require_none_of(f"{tier}-eval", launches, tier)
     if sorted(results) != sorted(SPLIT_EVAL) or not all(
             np.isfinite(results[n][m]) for n in SPLIT_EVAL for m in ("psnr_y", "ssim_y")):
-        raise AssertionError(f"split eval: {results}")
+        raise AssertionError(f"{tier} eval: {results}")
     for n in SPLIT_EVAL:
         d_psnr = results[n]["psnr_y"] - strict_results[n]["psnr_y"]
         d_ssim = results[n]["ssim_y"] - strict_results[n]["ssim_y"]
-        log(f"[split] eval {n:16s} psnr_y {results[n]['psnr_y']:.4f} dB ({d_psnr:+.4f} vs "
+        log(f"[{tier}] eval {n:16s} psnr_y {results[n]['psnr_y']:.4f} dB ({d_psnr:+.4f} vs "
             f"strict) ssim_y {results[n]['ssim_y']:.6f} ({d_ssim:+.6f})")
     frames = len(stats)
     fwd = {n: float(np.mean([st["forward_s"] for st in stats if st["dataset"] == n][1:]))
            for n in SPLIT_EVAL}
-    log(f"[split] eval {len(SPLIT_EVAL)} datasets x {EVAL_FRAMES} frames, batch 1: {wall:.2f} s; "
+    log(f"[{tier}] eval {len(SPLIT_EVAL)} datasets x {EVAL_FRAMES} frames, batch 1: {wall:.2f} s; "
         f"forward to the output on the host, frames 2-{EVAL_FRAMES}: "
         + ", ".join(f"{n} {v:.4f} s" for n, v in fwd.items())
         + f"; kernel launches {launches} ({ {k: round(v / frames, 2) for k, v in launches.items()} }"
@@ -1482,7 +1561,212 @@ def phase_split(sd, device, strict_results: dict) -> dict:
     serving = phase_serving(sd, device, tier="split")
     profile = phase_profile(sd, device, tier="split")
     torch.cuda.empty_cache()
-    evaluation = split_eval(sd, device, strict_results)
+    evaluation = tier_eval(sd, device, strict_results, "split")
+    return {"rows": rows, "parity": parity, "serving": serving, "profile": profile,
+            "eval": evaluation}
+
+
+# (label, kernel size, input parts' channels, Cout, per-sample weight, lrelu,
+#  f32 residual): the fast tier's convs of phase 11
+FAST_CASES = [
+    ("conv0 64->64 lrelu+res", 3, [64], 64, False, True, True),
+    ("merge_l1 3x64->64", 3, [64] * 3, 64, False, False, False),
+    ("conv1 3x64->64 lrelu", 1, [64] * 3, 64, False, True, False),
+    ("osconv 3x64->64 per-sample lrelu", 3, [64] * 3, 64, True, True, False),
+]
+# the tolerance of the fast kernels that round values inside: STAU (f0, sa,
+# r*fc, fea) and the tail (the row-mixed centre frame), where the kernel's f32
+# sums in another order may round one value the other way: one bf16 ulp of
+# the output's scale at most, and rarely, so the mean abs error stays under
+# 1e-5 of the output's scale. A rounding point misplaced for all values
+# (the tail's sr left unrounded, STAU's f0 rounded in the residual) stays
+# under the max bound but moves the mean to ~2e-4 of the scale, 20x over
+# (scripts/fast_fault_check.py plants both)
+FAST_INNER_TOL = 2.0 ** -8
+FAST_INNER_MEAN_TOL = 1e-5
+
+
+def fast_conv_case(rng, label, k, chans, cout, per_sample, act, res, device, b=WINDOWS,
+                   hw=LR_HW):
+    """Kernels 1-2 in their default-precision mode (the fast conv): f32
+    parts, weight, residual and output, the products of their bf16 values.
+    Bound: the bf16 conv's operations at the bf16 tensor-core rate against
+    the f32 bytes (parts, weight, residual in; output out). Library: F.conv2d
+    in bf16 on the inputs rounded to bf16, the nearest single call."""
+    h, w = hw
+    cin = sum(chans)
+    f32 = torch.float32
+    parts = [_rand(rng, (b, c, h, w), f32, device) for c in chans]
+    weight = _rand(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), f32, device,
+                   std=(cin * k * k) ** -0.5)
+    bias = None if per_sample else _rand(rng, (cout,), f32, device, 0.1)
+    residual = _rand(rng, (b, cout, h, w), f32, device) if res else None
+    lrelu = (0.6, 0.4) if act else None
+    x_b = torch.cat(parts, 1).to(torch.bfloat16)
+    w_b = weight.to(torch.bfloat16)
+    b_b = None if bias is None else bias.to(torch.bfloat16)
+
+    def library():
+        if per_sample:
+            return F.conv2d(x_b.reshape(1, b * cin, h, w), w_b.reshape(b * cout, cin, k, k),
+                            padding=k // 2, groups=b)
+        return F.conv2d(x_b, w_b, b_b, padding=k // 2)
+
+    name = "conv3x3_fast" if k == 3 else "conv1x1_fast"
+    flops = 2.0 * k * k * cin * cout * h * w * b
+    io = nbytes(*parts, weight, bias, residual) + b * cout * h * w * 4
+    return check(name, label,
+                 lambda: conv_fused_fast(parts, weight, bias, lrelu=lrelu, residual=residual),
+                 lambda: conv_fused_fast_plain(parts, weight, bias, lrelu=lrelu,
+                                               residual=residual),
+                 library, flops, io, torch.bfloat16, device, tol=TOL[f32], dt_name="fast")
+
+
+def fast_sta_case(rng, model, device, b=WINDOWS, hw=LR_HW):
+    """Kernel 3 in its default-precision mode: the K product of bf16 values
+    (its bound at the bf16 tensor-core rate beside the 25-tap filter's f32
+    CUDA-core rate, the slower of the two, as the bf16 row's; the kernel
+    runs both on the CUDA cores), f32 in and out."""
+    h, w = hw
+    c = model.cfg.num_feat
+    kc = model.upsample.kernel_conv[0]
+    x = _rand(rng, (b, c, h, w), torch.float32, device)
+    st = _rand(rng, (b, c, h, w), torch.float32, device)
+    wk, bk = kc.weight.float(), kc.bias.float()
+    k_flops, filter_flops = 2.0 * 25 * c * c * h * w * b, 2.0 * 25 * c * h * w * b
+    ops_ms = max(k_flops / PEAK_FLOPS[torch.bfloat16],
+                 filter_flops / PEAK_FLOPS[torch.float32]) * 1e3
+    io = nbytes(x, st, wk, bk) + x.numel() * 4
+    return check("sta_fast", f"C={c} {h}x{w}", lambda: sta_conv_fused_fast(x, st, wk, bk),
+                 lambda: sta_conv_fused_fast_plain(x, st, wk, bk), None,
+                 k_flops + filter_flops, io, torch.bfloat16, device, tol=TOL[torch.float32],
+                 ops_ms=ops_ms, dt_name="fast")
+
+
+def fast_stau_case(rng, model, pix, device, b=WINDOWS, hw=LR_HW):
+    """Kernel 4 in its default-precision mode on the bf16 kernel's plan of the
+    serving statics: f32 in and out, the products at the bf16 tensor-core
+    rate."""
+    h, w = hw
+    up = model.upsample
+    c = model.cfg.num_feat
+    n = up.weight_compress.shape[0]
+    H, W = pix.shape[1:]
+    x = _rand(rng, (b, c, h, w), torch.float32, device)
+    sta = _rand(rng, (b, c, h, w), torch.float32, device)
+    wts = [t.float() for t in (up.weight_compress, up.weight_expand, up.fusion.weight)]
+    args = (x, sta, pix, *wts, up.fusion.bias)
+    plan = stau_window_plan(pix, h, w, *plan_geometry(torch.float32, fast=True))
+    cout = wts[2].shape[0]
+    flops = (16.0 * c + 4.0 * n * (c // 8) * c + 4.0 * n * (c // 8) + 4.0 * c * cout) * H * W * b
+    io = nbytes(x, sta, pix, *wts, up.fusion.bias) + b * cout * H * W * 4
+    return check("stau_fast", f"C={c} {h}x{w} -> {H}x{W}",
+                 lambda: stau_upsample_fused_fast(*args, plan=plan),
+                 lambda: stau_upsample_fused_fast_plain(*args), None, flops, io,
+                 torch.bfloat16, device, tol=FAST_INNER_TOL, dt_name="fast",
+                 mean_tol=FAST_INNER_MEAN_TOL)
+
+
+def fast_tail_case(rng, model, device, b=WINDOWS, hw=LR_HW, scale=SCALE):
+    """Kernel 5 in its default-precision mode: f32 in and out, the conv's
+    and the skip's products of bf16 values. Library: F.conv2d and
+    F.interpolate in bf16 on the inputs rounded to bf16."""
+    h, w = hw
+    H, W = get_hw(h, w, scale)
+    c = model.cfg.num_feat
+    sr = _rand(rng, (b, c, H, W), torch.float32, device)
+    xc = torch.from_numpy(rng.random((b, 3, h, w)).astype(np.float32)).to(device)
+    o = tail_operands(h, w, H, W, device)
+    wt, bt = model.tail.weight.float(), model.tail.bias.float()
+    args = (sr, xc, o["tail_j0"], o["tail_wy"], o["tail_c0"], o["tail_cw"], wt, bt)
+    sr_b, xc_b, wt_b, bt_b = (t.to(torch.bfloat16) for t in (sr, xc, wt, bt))
+
+    def library():
+        return F.conv2d(sr_b, wt_b, bt_b, padding=1) + F.interpolate(
+            xc_b, size=(H, W), mode="bilinear", align_corners=False)
+
+    flops = (2.0 * 27 * c + 3 * 6.0) * H * W * b
+    io = nbytes(sr, xc, wt, bt, *(o[k] for k in o)) + b * 3 * H * W * 4
+    return check("tail_fast", f"C={c} {H}x{W}", lambda: tail_fused_fast(*args),
+                 lambda: tail_fused_fast_plain(*args), library, flops, io, torch.bfloat16,
+                 device, tol=FAST_INNER_TOL, dt_name="fast", mean_tol=FAST_INNER_MEAN_TOL)
+
+
+def fast_parity(sd, device, split_parity_rows: dict) -> dict:
+    """The flagship fast forward on the 45x80 golden input at three scales
+    against the strict forward on the card: its deviation PSNR against
+    strict at least the bf16 tier's, and its max abs against strict at
+    least 10x the split tier's (phase 10), with its deviation PSNR against
+    the reference torch outputs."""
+    g = np.load(os.path.join(GOLDENS, "savsr_realsize_forward.npz"))
+    x = torch.from_numpy(g["x"]).to(device)
+    scales = (("y", (4.0, 4.0)), ("y_1.5_3.5", (1.5, 3.5)), ("y_3.05_3.05", (3.05, 3.05)))
+    outs = {}
+    for tier in ("fast", "strict", "bf16"):
+        dt = torch.bfloat16 if tier == "bf16" else torch.float32
+        model = build_serving_model(tier)
+        load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()})
+        model.to(device=device, dtype=dt)
+        ops.reset_counts()
+        for key, scale in scales:
+            statics = model.stau_statics(x.shape[-2:], scale, dtype=dt, device=device)
+            outs[tier, key] = model(x.to(dt), scale, stau_statics=statics).float().cpu().numpy()
+        if tier == "fast":
+            launches = require_kernels_ran("fast-parity", FAST_KERNELS)
+            require_none_of("fast-parity", launches, tier)
+        del model
+    result = {}
+    for key, scale in scales:
+        fast, strict, bf16 = (outs[t, key] for t in ("fast", "strict", "bf16"))
+        if fast.shape != g[key].shape or not np.isfinite(fast).all():
+            raise AssertionError(f"fast parity {key}: shape {fast.shape} or non-finite")
+        err = float(np.abs(fast - strict).max())
+        err_split = split_parity_rows[key]["max_abs_vs_strict"]
+        row = {"max_abs_vs_strict": err, "split_max_abs_vs_strict": err_split,
+               "bf16_max_abs_vs_strict": float(np.abs(bf16 - strict).max()),
+               "db_vs_strict": deviation_psnr(fast, strict),
+               "bf16_db_vs_strict": deviation_psnr(bf16, strict),
+               "db_vs_reference": deviation_psnr(fast, g[key]),
+               "strict_db_vs_reference": deviation_psnr(strict, g[key])}
+        log(f"[fast] parity x{scale[0]}x{scale[1]} {tuple(x.shape)}: fast vs strict max abs "
+            f"{err:.3e} ({err / max(err_split, 1e-30):.1f}x the split tier's {err_split:.3e}; bf16 "
+            f"{row['bf16_max_abs_vs_strict']:.3e}), deviation PSNR vs strict "
+            f"{row['db_vs_strict']:.2f} dB (bf16 {row['bf16_db_vs_strict']:.2f} dB); vs the "
+            f"reference outputs: fast {row['db_vs_reference']:.2f} dB, strict "
+            f"{row['strict_db_vs_reference']:.2f} dB")
+        if not (row["db_vs_strict"] >= row["bf16_db_vs_strict"] and err >= 10 * err_split):
+            raise AssertionError(f"fast parity {key}: {row}")
+        result[key] = row
+    return result
+
+
+def phase_fast(sd, device, strict_results: dict, split_parity_rows: dict,
+               bf16_launches: dict) -> dict:
+    """Phase 11: the fast serving tier (see the module docstring)."""
+    rng = np.random.default_rng(11)
+    model = SAVSR(**flagship_net_kwargs()).eval()
+    load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()})
+    model.to(device)
+    with float32_precision(True):  # the plain versions run f32 with TF32 off
+        pix = model.stau_statics(LR_HW, SCALE, dtype=torch.float32, device=device)["pix"]
+        log_stau_plan("fast", pix, LR_HW, SCALE, torch.bfloat16)
+        rows = [fast_conv_case(rng, *case, device) for case in FAST_CASES]
+        rows += [fast_sta_case(rng, model, device), fast_stau_case(rng, model, pix, device),
+                 fast_tail_case(rng, model, device)]
+    del model
+    failed = [r["case"] for r in rows if not r["ok"]]
+    if failed:
+        raise AssertionError(f"fast kernels disagree with their plain versions: {failed}")
+    parity = fast_parity(sd, device, split_parity_rows)
+    torch.cuda.empty_cache()
+    serving = phase_serving(sd, device, tier="fast")
+    want = {f"{k}_fast": bf16_launches[k] for k in SERVING_KERNELS}
+    got = {k: serving["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"fast-serving: launches {got}, the bf16 run's {want}")
+    profile = phase_profile(sd, device, tier="fast")
+    torch.cuda.empty_cache()
+    evaluation = tier_eval(sd, device, strict_results, "fast")
     return {"rows": rows, "parity": parity, "serving": serving, "profile": profile,
             "eval": evaluation}
 
@@ -1562,7 +1846,9 @@ def main(argv=None) -> int:
     evaluation = phase_eval(sd, device)
     torch.cuda.empty_cache()
     split = phase_split(sd, device, evaluation["results"])
-    rows = rows + split["rows"]
+    torch.cuda.empty_cache()
+    fast = phase_fast(sd, device, evaluation["results"], split["parity"], serving["launches"])
+    rows = rows + split["rows"] + fast["rows"]
 
     def entry(name, dtype, source, replaces, launches):
         head = next(r for r in rows if r["name"] == name and r["dtype"] == dtype
@@ -1582,7 +1868,8 @@ def main(argv=None) -> int:
     # strict tier's path) and, for the f32 OSConv, the f32 train-parity step
     kernels = [entry(name, "bf16", source, replaces,
                      (training if name in TRAINING_KERNELS else serving)["launches"][name])
-               for name, (source, replaces) in SOURCES.items() if name not in SPLIT_KERNELS]
+               for name, (source, replaces) in SOURCES.items()
+               if name not in SPLIT_KERNELS + FAST_KERNELS]
     kernels += [entry(name, "f32", SOURCES[name][0] if name in ("sta", "stau", "tail")
                       else "savsr_tpu_torch/csrc/conv.cu", SOURCES[name][1],
                       train_parity[name] if name in TRAINING_KERNELS
@@ -1591,12 +1878,16 @@ def main(argv=None) -> int:
     # the split rows: launches on the split tier's serving main-path run
     kernels += [entry(name, "split", *SOURCES[name], split["serving"]["launches"][name])
                 for name in SPLIT_KERNELS]
+    # the fast rows: launches on the fast tier's serving main-path run
+    kernels += [entry(name, "fast", *SOURCES[name], fast["serving"]["launches"][name])
+                for name in FAST_KERNELS]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "cases": rows, "serving": serving, "strict": strict,
                        "training": training, "eval": evaluation,
                        "split": {k: v for k, v in split.items() if k != "rows"},
+                       "fast": {k: v for k, v in fast.items() if k != "rows"},
                        "kernels": kernels}, f, indent=1)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))

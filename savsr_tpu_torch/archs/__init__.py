@@ -7,7 +7,9 @@ from ..utils.logger import get_root_logger
 # settings of the JAX package's engines that name one math here: the CHW
 # Pallas engine or XLA for the eval convs (``conv_engine``) and the paired
 # alignment pass (``pair_align``); the port has one engine for each.
-# ``conv_precision`` (native | split) is the network's own setting.
+# ``conv_precision`` (native | split) and ``matmul_precision`` (float32 |
+# default) are the network's own settings: with f32 weights they select the
+# strict, fast or split serving tier (``SAVSR.serving_tier``).
 JAX_ENGINE_KEYS = ("conv_engine", "pair_align")
 
 
@@ -15,7 +17,8 @@ def build_network(opt: dict):
     """Instantiate a network from its options dict (key ``type``). The port
     has SAVSR; the JAX package's other architectures are not ported yet.
     The JAX engine settings are accepted and logged; ``conv_precision:
-    split`` builds the split serving tier (eval forwards only)."""
+    split`` builds the split serving tier and ``matmul_precision: default``
+    with f32 weights the fast one (eval forwards only)."""
     opt = deepcopy(opt)
     net_type = opt.pop("type")
     if net_type != "SAVSR":

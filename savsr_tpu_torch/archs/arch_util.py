@@ -22,22 +22,36 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: int = 0) -> torch.Tensor:
-    """NCHW convolution with the module's weight/bias cast to x's dtype."""
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: int = 0, fast: bool = False) -> torch.Tensor:
+    """NCHW convolution with the module's weight/bias cast to x's dtype
+    (``fast``: its operands rounded to bf16, ``dot_operand``)."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, padding=padding)
+    return F.conv2d(dot_operand(x, fast), dot_operand(conv.weight.to(x.dtype), fast), bias,
+                    padding=padding)
 
 
-def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    return x @ lin.weight.to(x.dtype).t() + lin.bias.to(x.dtype)
+def linear(x: torch.Tensor, lin: nn.Linear, fast: bool = False) -> torch.Tensor:
+    return (dot_operand(x, fast) @ dot_operand(lin.weight.to(x.dtype), fast).t()
+            + lin.bias.to(x.dtype))
 
 
-def fc1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+def fc1x1(x: torch.Tensor, conv: nn.Conv2d, fast: bool = False) -> torch.Tensor:
     """A 1x1 conv applied to a [B, C] vector (a matmul with its weight core)."""
-    y = x @ conv.weight[:, :, 0, 0].to(x.dtype).t()
+    y = dot_operand(x, fast) @ dot_operand(conv.weight[:, :, 0, 0].to(x.dtype), fast).t()
     if conv.bias is not None:
         y = y + conv.bias.to(y.dtype)
     return y
+
+
+def dot_operand(t: torch.Tensor, fast: bool) -> torch.Tensor:
+    """An operand of a matmul or convolution. In the fast tier (``fast``: f32
+    at matmul_precision default, which a TPU runs as one bf16 pass: bf16
+    operands, exact products, f32 sums) an f32 tensor rounded to bf16 and
+    kept in f32, so that the f32 op with TF32 off is that pass exactly; else
+    ``t`` itself."""
+    if fast and t.dtype == torch.float32:
+        return t.to(torch.bfloat16).float()
+    return t
 
 
 @dataclass

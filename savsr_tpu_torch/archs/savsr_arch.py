@@ -8,9 +8,13 @@ whose ``state_dict`` keys and shapes equal the reference's
 - serving (``forward(x, scale)``): the eval forward of the CHW serving
   engine (``_savsr_apply_inner`` with ``conv_engine="chw"``): the alignment
   scan, WindowUnit_l2 and the trunk (archs/chw_engine.py) on the fused conv
-  kernel, then the STA, STAU and tail kernels; with ``conv_precision:
-  split`` (f32 weights and input) the convs up to the trunk's end run the
-  split conv on pair carries and STA, STAU and the tail their f32 kernels;
+  kernel, then the STA, STAU and tail kernels, at the tier that the
+  weights' dtype and ``matmul_precision`` / ``conv_precision`` name
+  (``SAVSR.serving_tier``): bf16; strict (f32, ``float32``); fast (f32 at
+  ``default``: every product in one bf16 pass, the fast kernels, the heads'
+  operands rounded to bf16); split (f32 with ``conv_precision: split``: the
+  convs up to the trunk's end run the split conv on pair carries and STA,
+  STAU and the tail their f32 kernels);
 - training (``forward(x, scale, train=True)``): the differentiable forward
   of archs/train_engine.py, whose OSConv engine is the pair of kernels of
   ops/osconv.py; it returns ``(sr, stats_updates)``.
@@ -30,9 +34,10 @@ import torch
 import torch.nn as nn
 
 from ..ops.conv import Pair
-from ..ops.sta import sta_conv_fused
-from ..ops.stau import plan_geometry, stau_upsample_fused, stau_window_plan
-from ..ops.tail import tail_fused
+from ..ops.sta import sta_conv_fused, sta_conv_fused_fast
+from ..ops.stau import (plan_geometry, stau_upsample_fused, stau_upsample_fused_fast,
+                        stau_window_plan)
+from ..ops.tail import tail_fused, tail_fused_fast
 from .arch_util import (
     _bilinear_matrix,
     avg_pool2,
@@ -185,23 +190,27 @@ class ResidualGroup(nn.Module):
 
 
 def scale_attention_apply(att: ScaleAttention, v: torch.Tensor, temperature: float = 1.0,
-                          ctx=None):
+                          ctx=None, fast: bool = False):
     """[B, in_planes] -> (ca [B,Cin], fa [B,Cout] | None, sa [B,k,k] | None,
     ka [B,K] | None). ``ctx`` (arch_util.TrainCtx) switches the BatchNorm to
-    batch statistics in training."""
-    v = torch.relu(batch_norm(fc1x1(v, att.fc), att.bn, ctx))
-    ca = sigmoid(fc1x1(v, att.channel_fc) / temperature)
-    fa = None if att.filter_fc is None else sigmoid(fc1x1(v, att.filter_fc) / temperature)
+    batch statistics in training; ``fast`` rounds the products' operands to
+    bf16 (the fast tier, ``arch_util.dot_operand``), as ``fast`` does in
+    every head below."""
+    v = torch.relu(batch_norm(fc1x1(v, att.fc, fast), att.bn, ctx))
+    ca = sigmoid(fc1x1(v, att.channel_fc, fast) / temperature)
+    fa = (None if att.filter_fc is None
+          else sigmoid(fc1x1(v, att.filter_fc, fast) / temperature))
     sa = None
     if att.spatial_fc is not None:
         k = att.kernel_size
-        sa = sigmoid(fc1x1(v, att.spatial_fc) / temperature).reshape(-1, k, k)
+        sa = sigmoid(fc1x1(v, att.spatial_fc, fast) / temperature).reshape(-1, k, k)
     ka = (None if att.kernel_fc is None
-          else torch.softmax(fc1x1(v, att.kernel_fc) / temperature, dim=1))
+          else torch.softmax(fc1x1(v, att.kernel_fc, fast) / temperature, dim=1))
     return ca, fa, sa, ka
 
 
-def osconv_attention(m: OSConv2d, gap: torch.Tensor, scale: Scale, ctx=None):
+def osconv_attention(m: OSConv2d, gap: torch.Tensor, scale: Scale, ctx=None,
+                     fast: bool = False):
     """Scale-routed attention heads from a [B, Cin] GAP vector (reference
     savsr_arch.py:139-150)."""
     b, dtype = gap.shape[0], gap.dtype
@@ -210,21 +219,22 @@ def osconv_attention(m: OSConv2d, gap: torch.Tensor, scale: Scale, ctx=None):
     scale_info[:, 0] = 1.0 / scale[0]
     scale_info[:, 1] = 1.0 / scale[1]
     r = torch.cat([scale_info, gap], dim=1)
-    r = torch.relu(linear(r, m.scale_routing[0]))
-    r = torch.relu(linear(r, m.scale_routing[2]))
-    return scale_attention_apply(m.attention, r, ctx=ctx)
+    r = torch.relu(linear(r, m.scale_routing[0], fast))
+    r = torch.relu(linear(r, m.scale_routing[2], fast))
+    return scale_attention_apply(m.attention, r, ctx=ctx, fast=fast)
 
 
-def osadapt_mask(m: OSAdapt, x: torch.Tensor, ctx=None) -> torch.Tensor:
+def osadapt_mask(m: OSAdapt, x: torch.Tensor, ctx=None, fast: bool = False) -> torch.Tensor:
     """The downsample/upsample mask head of OSAdapt (reference
-    savsr_arch.py:190-205) -> [B, 1, H, W]."""
+    savsr_arch.py:190-205) -> [B, 1, H, W]. The bilinear resize stays f32
+    in the fast tier, as the JAX package pins it to highest precision."""
     s = m.mask
-    y = torch.relu(batch_norm(conv2d(x, s[0], padding=1), s[1], ctx))
+    y = torch.relu(batch_norm(conv2d(x, s[0], 1, fast), s[1], ctx))
     y = avg_pool2(y)
-    y = torch.relu(batch_norm(conv2d(y, s[4], padding=1), s[5], ctx))
-    y = torch.relu(batch_norm(conv2d(y, s[7], padding=1), s[8], ctx))
+    y = torch.relu(batch_norm(conv2d(y, s[4], 1, fast), s[5], ctx))
+    y = torch.relu(batch_norm(conv2d(y, s[7], 1, fast), s[8], ctx))
     y = upsample_bilinear_2x(y)
-    return sigmoid(batch_norm(conv2d(y, s[11], padding=1), s[12], ctx))
+    return sigmoid(batch_norm(conv2d(y, s[11], 1, fast), s[12], ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -284,19 +294,20 @@ def stau_sampler_planes(head: Dict[str, torch.Tensor], scale: Scale, h: int,
     return torch.cat([torch.stack([fy_f, fx_f, fy_s, fx_s]), rt], dim=0).contiguous()
 
 
-def _stau_head(m: STAUpsample, h: int, w: int, scale: Scale, dtype, device, inp=None):
+def _stau_head(m: STAUpsample, h: int, w: int, scale: Scale, dtype, device, inp=None,
+               fast: bool = False):
     """STAU coordinate head: static HR coordinate embedding -> offsets and
     expert routing (reference savsr_arch.py:326-364). Depends only on
     (params, h, w, scale), never on video content. ``inp``: the coordinate
     input already on the device (the training engine caches it)."""
     if inp is None:
         inp = torch.as_tensor(_stau_coordinate_input(h, w, scale), dtype=dtype, device=device)
-    emb = torch.relu(conv2d(inp, m.body[0]))
-    emb = torch.relu(conv2d(emb, m.body[2]))
+    emb = torch.relu(conv2d(inp, m.body[0], fast=fast))
+    emb = torch.relu(conv2d(emb, m.body[2], fast=fast))
     return {
-        "offset": conv2d(emb, m.offset),
-        "st_offset": conv2d(emb, m.st_offset),
-        "routing": sigmoid(conv2d(emb, m.routing[0])),
+        "offset": conv2d(emb, m.offset, fast=fast),
+        "st_offset": conv2d(emb, m.st_offset, fast=fast),
+        "routing": sigmoid(conv2d(emb, m.routing[0], fast=fast)),
     }
 
 
@@ -337,31 +348,36 @@ def tail_operands(h0: int, w0: int, H: int, W: int, device) -> Dict[str, torch.T
 
 
 def stau_apply(m: STAUpsample, x: torch.Tensor, scale: Scale, st_feat: torch.Tensor,
-               statics: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+               statics: Optional[Dict[str, torch.Tensor]] = None,
+               fast: bool = False) -> torch.Tensor:
     """STA filtering + fused STAU sampler on [B, C, h, w] -> [B, C, H, W].
-    ``statics`` (SAVSR.stau_statics) hoists the coordinate head."""
+    ``statics`` (SAVSR.stau_statics) hoists the coordinate head; ``fast``
+    the fast tier's head and kernels."""
     b, c, h, w = x.shape
     x, st_feat = x.contiguous(), st_feat.contiguous()
     if statics is None:
-        head = _stau_head(m, h, w, scale, x.dtype, x.device)
+        head = _stau_head(m, h, w, scale, x.dtype, x.device, fast=fast)
         pix = stau_sampler_planes(head, scale, h, w)
     else:
         pix = statics["pix"]
     kc = m.kernel_conv[0]
-    sta = sta_conv_fused(x, st_feat, kc.weight, kc.bias)
-    return stau_upsample_fused(x, sta, pix, m.weight_compress, m.weight_expand,
-                               m.fusion.weight, m.fusion.bias,
-                               plan=None if statics is None else statics["stau_plan"])
+    sta = (sta_conv_fused_fast if fast else sta_conv_fused)(x, st_feat, kc.weight, kc.bias)
+    return (stau_upsample_fused_fast if fast else stau_upsample_fused)(
+        x, sta, pix, m.weight_compress, m.weight_expand, m.fusion.weight, m.fusion.bias,
+        plan=None if statics is None else statics["stau_plan"])
 
 
 def tail_fused_apply(tail: nn.Conv2d, sr: torch.Tensor, x_center: torch.Tensor,
-                     statics: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """Tail conv + bilinear centre-frame skip: [B, C, H, W] -> [B, 3, H, W]."""
+                     statics: Optional[Dict[str, torch.Tensor]] = None,
+                     fast: bool = False) -> torch.Tensor:
+    """Tail conv + bilinear centre-frame skip: [B, C, H, W] -> [B, 3, H, W]
+    (``fast``: the fast kernel)."""
     H, W = sr.shape[2:]
     h0, w0 = x_center.shape[2:]
     ops = statics if statics is not None else tail_operands(h0, w0, H, W, sr.device)
-    return tail_fused(sr, x_center.contiguous(), ops["tail_j0"], ops["tail_wy"],
-                      ops["tail_c0"], ops["tail_cw"], tail.weight, tail.bias)
+    return (tail_fused_fast if fast else tail_fused)(
+        sr, x_center.contiguous(), ops["tail_j0"], ops["tail_wy"], ops["tail_c0"],
+        ops["tail_cw"], tail.weight, tail.bias)
 
 
 # ---------------------------------------------------------------------------
@@ -382,15 +398,19 @@ class SAVSRConfig:
     n_resgroups: int = 4
     n_resblocks: int = 8
     center_frame_idx: Optional[int] = None
-    # "float32": matmuls and cuDNN convs in true f32 (TF32 off) — the strict
-    # tier; "default" leaves PyTorch's defaults (the bf16 tier)
+    # the serving tier with f32 weights (SAVSR.serving_tier; bf16 weights run
+    # the bf16 tier whatever it says): "float32" — true f32, TF32 off, the
+    # strict tier; "default" — every product in one bf16 pass with f32 sums,
+    # as a TPU runs f32 at default precision: the fast tier (the fast
+    # kernels, the heads' operands rounded to bf16). Training keeps its
+    # behaviour: TF32 off only at "float32"
     matmul_precision: str = "float32"
     # the serving forward's convs (eval only; training ignores it):
     # "native" — at the weights' dtype; "split" — the split tier: f32
     # weights, features carried between convs as bf16 hi/lo pairs, each conv
     # a 3-pass bf16 contraction with f32 sums (ops/conv.py conv_fused_split),
-    # ~2^-16 relative error a conv; keep matmul_precision "float32" so the
-    # heads and STA, STAU and the tail stay strict
+    # ~2^-16 relative error a conv; needs matmul_precision "float32" (the
+    # heads and STA, STAU and the tail stay strict)
     conv_precision: str = "native"
     # training-forward options (archs/train_engine.py). The port has one
     # OSConv training engine, the kernels of ops/osconv.py, so every value
@@ -495,6 +515,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
 
 
 OSCONV_IMPLS = ("einsum", "grouped", "batchgroup", "taps", "kpatch3", "pallas", "pallas_train")
+MATMUL_PRECISIONS = ("float32", "default")
 
 
 class SAVSR(nn.Module):
@@ -511,6 +532,9 @@ class SAVSR(nn.Module):
             raise ValueError(f"unknown osconv impl {cfg.osconv_impl}")
         if cfg.conv_precision not in ("native", "split"):
             raise ValueError(f"conv_precision {cfg.conv_precision!r} not in ('native', 'split')")
+        if cfg.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision {cfg.matmul_precision!r} not in "
+                             f"{MATMUL_PRECISIONS}")
         nf = cfg.num_feat
         self.f2p_win = WindowUnitL1(cfg.num_in_ch, nf, cfg.slid_win, cfg.w1_num_block)
         self.p2f_win = WindowUnitL1(cfg.num_in_ch, nf, cfg.slid_win, cfg.w1_num_block)
@@ -528,21 +552,48 @@ class SAVSR(nn.Module):
         self.upsample = STAUpsample(nf)
         self.tail = _conv(nf, cfg.num_in_ch, 3)
 
+    def serving_tier(self, dtype: Optional[torch.dtype] = None) -> str:
+        """The serving forward's tier at feature dtype ``dtype`` (default: the
+        weights'): "bf16" for bf16; for f32 "strict" (matmul_precision
+        float32), "fast" (default) or "split" (conv_precision split, which
+        needs float32)."""
+        dtype = self.gamma.dtype if dtype is None else dtype
+        cfg = self.cfg
+        if dtype != torch.float32:
+            return "bf16"
+        fast = cfg.matmul_precision == "default"
+        if cfg.conv_precision == "split":
+            if fast:
+                raise NotImplementedError(
+                    "network_g: conv_precision: split with matmul_precision: default (the "
+                    "split convs with default-precision heads and STA, STAU and tail) is not "
+                    "ported yet; use matmul_precision: float32")
+            return "split"
+        return "fast" if fast else "strict"
+
+    def _precision(self, tier: str):
+        """The tier's context: TF32 off for fast (its products are the f32
+        ops of bf16-rounded operands) and at matmul_precision float32."""
+        return float32_precision(tier == "fast" or self.cfg.matmul_precision == "float32")
+
     @torch.no_grad()
     def stau_statics(self, lq_hw, scale, dtype=torch.float32, device=None):
         """Frame-invariant operands for (LR shape, scale): the STAU
         coordinate-head outputs, the sampler planes, the window plan of the
-        STAU kernel that runs ``dtype`` and the tail's resize rows/columns.
+        STAU kernel that the tier of ``dtype`` runs (``serving_tier``; the
+        fast tier's is the bf16 kernel's) and the tail's resize rows/columns.
         ``dtype`` must be the forward's feature dtype for the result to equal
         the inline path exactly (and for the plan to fit its kernel)."""
         h, w = int(lq_hw[0]), int(lq_hw[1])
         scale = normalize_scale(scale)
         device = self.gamma.device if device is None else device
         H, W = get_hw(h, w, scale)
-        with float32_precision(self.cfg.matmul_precision == "float32"):
-            st = _stau_head(self.upsample, h, w, scale, dtype, device)
+        tier = self.serving_tier(dtype)
+        with self._precision(tier):
+            st = _stau_head(self.upsample, h, w, scale, dtype, device, fast=tier == "fast")
             st["pix"] = stau_sampler_planes(st, scale, h, w)
-            st["stau_plan"] = stau_window_plan(st["pix"], h, w, *plan_geometry(dtype))
+            st["stau_plan"] = stau_window_plan(st["pix"], h, w,
+                                               *plan_geometry(dtype, fast=tier == "fast"))
         st.update(tail_operands(h, w, H, W, device))
         return st
 
@@ -556,23 +607,28 @@ class SAVSR(nn.Module):
         train_engines = train if self.cfg.engines == "auto" else self.cfg.engines == "train"
         if train and not train_engines:
             raise ValueError("train=True needs the training engine (engines: auto | train)")
-        with float32_precision(self.cfg.matmul_precision == "float32"):
-            if train_engines:
-                from .train_engine import savsr_train_forward
+        if train_engines:
+            from .train_engine import savsr_train_forward
 
+            with float32_precision(self.cfg.matmul_precision == "float32"):
                 sr, updates = savsr_train_forward(self, x, scale, train)
-                return (sr, updates) if train else sr
-            with torch.no_grad():
-                return self._forward(x, scale, stau_statics)
+            return (sr, updates) if train else sr
+        tier = self.serving_tier()
+        with self._precision(tier), torch.no_grad():
+            return self._forward(x, scale, stau_statics, tier)
 
-    def _forward(self, x, scale: Scale, statics) -> torch.Tensor:
+    def _forward(self, x, scale: Scale, statics, tier: str) -> torch.Tensor:
         from .chw_engine import trunk_apply_chw, window_l1_apply_chw, window_l2_apply_chw
 
         cfg = self.cfg
-        split = cfg.conv_precision == "split"
-        if split and (self.gamma.dtype != torch.float32 or x.dtype != torch.float32):
+        split, fast = tier == "split", tier == "fast"
+        if cfg.conv_precision == "split" and (self.gamma.dtype != torch.float32
+                                              or x.dtype != torch.float32):
             raise ValueError(f"conv_precision: split needs f32 weights and input, got "
                              f"{self.gamma.dtype} weights and {x.dtype} input")
+        if fast and x.dtype != torch.float32:
+            raise ValueError(f"the fast tier (f32 weights, matmul_precision: default) needs "
+                             f"f32 input, got {x.dtype}")
         x = x.contiguous()  # the kernels read contiguous channel planes
         b, t, _, h_in, w_in = x.shape
         x_center = x[:, cfg.center]
@@ -595,18 +651,18 @@ class SAVSR(nn.Module):
         for idx in range(n_iter):
             it_b = x_backward[:, cfg.iter_win - 1 - 2 * half - idx: cfg.iter_win - idx]
             it_f = x_forward[:, idx: idx + cfg.slid_win]
-            hf = window_l1_apply_chw(self.f2p_win, it_b, hf, scale, hp, wp)
-            hpf = window_l1_apply_chw(self.p2f_win, it_f, hpf, scale, hp, wp)
+            hf = window_l1_apply_chw(self.f2p_win, it_b, hf, scale, hp, wp, fast)
+            hpf = window_l1_apply_chw(self.p2f_win, it_f, hpf, scale, hp, wp, fast)
             hf_seq.append(hf)
             hp_seq.append(hpf)
         # f2p outputs were produced from the future end backwards; each hidden
         # pair stays two channel parts (no concat copy)
         h_feat = [[hf_seq[n_iter - 1 - i], hp_seq[i]] for i in range(n_iter)]
         for unit in self.h_win:
-            h_feat = window_l2_apply_chw(unit, h_feat, scale, hp, wp)
-        h_feat, align_feat = trunk_apply_chw(self, h_feat[0], scale, hp, wp)
+            h_feat = window_l2_apply_chw(unit, h_feat, scale, hp, wp, fast)
+        h_feat, align_feat = trunk_apply_chw(self, h_feat[0], scale, hp, wp, fast)
 
         # arbitrary-scale upsampling on the un-padded region
         sr = stau_apply(self.upsample, h_feat[:, :, :h_in, :w_in], scale,
-                        align_feat[:, :, :h_in, :w_in], statics)
-        return tail_fused_apply(self.tail, sr, x_center, statics)
+                        align_feat[:, :, :h_in, :w_in], statics, fast)
+        return tail_fused_apply(self.tail, sr, x_center, statics, fast)

@@ -8,8 +8,9 @@
 //     fc   = sum_n r_n(P) z_n
 //     fea  = f0 + sum_n r_n(P) We_n fc (We_n: [C, C/8])
 //     out  = Wfus [sa; fea] + bias    (Wfus: [Cout, 2C])
-// with the TPU kernel's rounding points: f0, sa, r_n*fc and fea are rounded
-// to the I/O type before the next product (no-ops in f32).
+// with the TPU kernel's rounding points: the hat x-weights of both samples,
+// f0, sa, r_n*fc and fea are rounded to the I/O type before the next product
+// (no-ops in f32); the y-weights stay f32.
 //
 // The TPU kernel samples with "hat" matrices on the MXU over a band of LR
 // rows per group of HR rows (band starts j0/g0 precomputed on the host).
@@ -94,6 +95,23 @@
 //   memory, packed once (ops/stau.py pack_stau_weights). The output tile
 //   goes through shared memory and leaves as 16-byte stores along W. The
 //   bilinear taps stay f32 FMAs on the CUDA cores, as in the f32 kernel.
+//
+// * fast (stau_mma_kernel<CB, true>, the fast serving tier: f32 weights and
+//   carries at matmul_precision default): the TPU kernel's f32 mode at
+//   DEFAULT precision, where every product takes its operands rounded to
+//   bf16 and sums in f32. The wrapper hands the kernel x and sta rounded to
+//   bf16 and the weights packed from their bf16 values, so the samples, the
+//   compress, the routing, the expand and the fusion are the bf16 kernel's.
+//   Two things differ, as the TPU's f32 mode has them: f0 enters the
+//   residual fea = f0 + STK We^T in f32 (it is rounded only where it meets
+//   the compress), and the output is f32. The f32 f0 would hold 32 more
+//   registers a thread from the sampling to the expand, past the block's
+//   128-register budget, so the expand takes it again per k-block from the
+//   staged box (sample_kb: the same taps, the same f32 arithmetic, so the
+//   same values); at C = 64 ptxas still spills a little (96 bytes stored,
+//   240 loaded a thread). The f32 output tile would not fit the shared
+//   memory, so the accumulators go straight to device memory (a warp's
+//   store fills four 32-byte sectors).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -244,9 +262,33 @@ struct Source {
   int y0, x0, nc;
 };
 
+// the 4 taps of a bilinear sample at (fy, fx): top-left tap (y, x), which
+// taps lie in the image (taps outside are skipped: their weight is never
+// multiplied in) and their weights wy * wx, the x-weights rounded to bf16 as
+// the TPU kernel rounds its hat matrix (the y-weights stay f32)
+struct Taps {
+  int y, x;
+  bool ok[4];
+  float wt[4];
+};
+
+__device__ __forceinline__ Taps taps_of(float fy, float fx, int h, int w) {
+  const float yf = floorf(fy), xf = floorf(fx);
+  const float wy1 = fy - yf, wx1 = fx - xf;
+  const float wy0 = 1.f - wy1;
+  const float wx0r = __bfloat162float(__float2bfloat16_rn(1.f - wx1));
+  const float wx1r = __bfloat162float(__float2bfloat16_rn(wx1));
+  // compare in float before converting: coordinates may lie far outside
+  const bool ya = yf >= 0.f && yf <= h - 1, yb = yf + 1.f >= 0.f && yf + 1.f <= h - 1;
+  const bool xa = xf >= 0.f && xf <= w - 1, xb = xf + 1.f >= 0.f && xf + 1.f <= w - 1;
+  return Taps{(int)fmaxf(fminf(yf, (float)h), -1.f),
+              (int)fmaxf(fminf(xf, (float)w), -1.f),
+              {ya && xa, ya && xb, yb && xa, yb && xb},
+              {wy0 * wx0r, wy0 * wx1r, wy1 * wx0r, wy1 * wx1r}};
+}
+
 // the bilinear sample of one HR pixel at (fy, fx), as the f32 sums of lane
-// q's channels, v[kb] = {16 kb + 2q, +1, 16 kb + 8 + 2q, +1}; taps outside
-// the image are skipped (their weight is never multiplied in)
+// q's channels, v[kb] = {16 kb + 2q, +1, 16 kb + 8 + 2q, +1}
 template <int CB>
 __device__ __forceinline__ void sample(float (&v)[CB][4], const Source& s, float fy, float fx,
                                        int h, int w, int q, int g) {
@@ -254,20 +296,13 @@ __device__ __forceinline__ void sample(float (&v)[CB][4], const Source& s, float
   for (int kb = 0; kb < CB; ++kb)
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[kb][j] = 0.f;
-  const float yf = floorf(fy), xf = floorf(fx);
-  const float wy1 = fy - yf, wx1 = fx - xf;
-  const float wy0 = 1.f - wy1, wx0 = 1.f - wx1;
-  // compare in float before converting: coordinates may lie far outside
-  const bool ya = yf >= 0.f && yf <= h - 1, yb = yf + 1.f >= 0.f && yf + 1.f <= h - 1;
-  const bool xa = xf >= 0.f && xf <= w - 1, xb = xf + 1.f >= 0.f && xf + 1.f <= w - 1;
-  const int y = (int)fmaxf(fminf(yf, (float)h), -1.f);
-  const int x = (int)fmaxf(fminf(xf, (float)w), -1.f);
-  const bool ok[4] = {ya && xa, ya && xb, yb && xa, yb && xb};
-  const float wt[4] = {wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1};
+  const Taps tp = taps_of(fy, fx, h, w);
+  const int y = tp.y, x = tp.x;
   const long long hw = (long long)h * w;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    if (!ok[t]) continue;
+    if (!tp.ok[t]) continue;
+    const float wt = tp.wt[t];
     const int ty = y + t / 2, tx = x + t % 2;
     uint32_t d[2 * CB];  // lane q's channels as bf16 pairs, in v's order
     if (s.stage) {
@@ -306,11 +341,43 @@ __device__ __forceinline__ void sample(float (&v)[CB][4], const Source& s, float
     }
 #pragma unroll
     for (int kb = 0; kb < CB; ++kb) {
-      v[kb][0] += wt[t] * bf16_lo(d[2 * kb]);
-      v[kb][1] += wt[t] * bf16_hi(d[2 * kb]);
-      v[kb][2] += wt[t] * bf16_lo(d[2 * kb + 1]);
-      v[kb][3] += wt[t] * bf16_hi(d[2 * kb + 1]);
+      v[kb][0] += wt * bf16_lo(d[2 * kb]);
+      v[kb][1] += wt * bf16_hi(d[2 * kb]);
+      v[kb][2] += wt * bf16_lo(d[2 * kb + 1]);
+      v[kb][3] += wt * bf16_hi(d[2 * kb + 1]);
     }
+  }
+}
+
+// k-block kb of ``sample``: v = sample's v[kb], the same taps and f32
+// arithmetic on the same values (one 8-byte staged load a tap)
+template <int CB>
+__device__ __forceinline__ void sample_kb(float (&v)[4], const Source& s, float fy, float fx,
+                                          int h, int w, int q, int kb) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = 0.f;
+  const Taps tp = taps_of(fy, fx, h, w);
+  const long long hw = (long long)h * w;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (!tp.ok[t]) continue;
+    const float wt = tp.wt[t];
+    const int ty = tp.y + t / 2, tx = tp.x + t % 2;
+    uint2 d;
+    if (s.stage) {
+      d = *reinterpret_cast<const uint2*>(s.stage + ((ty - s.y0) * s.nc + (tx - s.x0)) * (32 * CB) +
+                                          q * (8 * CB) + 8 * kb);
+    } else {
+      const unsigned short* p =
+          reinterpret_cast<const unsigned short*>(s.plane0) + (long long)ty * w + tx;
+      const int c = 16 * kb + 2 * q;
+      d.x = p[c * hw] | ((uint32_t)p[(c + 1) * hw] << 16);
+      d.y = p[(c + 8) * hw] | ((uint32_t)p[(c + 9) * hw] << 16);
+    }
+    v[0] += wt * bf16_lo(d.x);
+    v[1] += wt * bf16_hi(d.x);
+    v[2] += wt * bf16_lo(d.y);
+    v[3] += wt * bf16_hi(d.y);
   }
 }
 
@@ -356,10 +423,11 @@ __device__ __forceinline__ void fence_u32(uint32_t (&r)[R][4]) {
 // of a warpgroup pass together: the fusion product is one wgmma m64nCk16
 // per k-block over their 64 pixels (A, sa or fea, from each warp's
 // registers; B, Wfus, from shared memory), issued by all four, so every
-// warp runs every pass (pixels off the image are dead lanes).
-template <int CB>
+// warp runs every pass (pixels off the image are dead lanes). FAST: f0 in
+// f32 in the residual and an f32 output (``outp`` float; else bf16).
+template <int CB, bool FAST>
 __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const Source& ss,
-                                          const float* __restrict__ pix, bf16* __restrict__ outb,
+                                          const float* __restrict__ pix, void* __restrict__ outp,
                                           int NE, int h, int w, int H, int W, int Y, int X0,
                                           bool vec_out) {
   using Cfg = StauCfg<CB>;
@@ -436,7 +504,8 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
   wgmma_wait<0>();  // the sa products: their A registers may go now
   fence_u32(sa);
   // 4. fea = bf16(f0 + STK We^T), per 16 channels kb the expand n-tiles
-  //    2kb, 2kb + 1, as the A fragment of fusion k-block CB + kb
+  //    2kb, 2kb + 1, as the A fragment of fusion k-block CB + kb; FAST: f0
+  //    in f32, sampled again (sample_kb)
   uint32_t fea[CB][4];
 #pragma unroll
   for (int kb = 0; kb < CB; ++kb) {
@@ -448,14 +517,26 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
         const uint2 b = bfrag(smem, Cfg::WE_OFF + k * NT + 2 * kb + j, lane);
         mma_m16n8k16_bf16(e[j], stk[k], b.x, b.y);
       }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
+    if constexpr (FAST) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const uint32_t f = f0[kb][2 * j + hf];
-        fea[kb][2 * j + hf] =
-            pack_bf16x2(e[j][2 * hf] + bf16_lo(f), e[j][2 * hf + 1] + bf16_hi(f));
+        float f[4] = {0.f, 0.f, 0.f, 0.f};
+        if (live[hf]) sample_kb<CB>(f, sf, fy[hf], fx[hf], h, w, q, kb);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          fea[kb][2 * j + hf] =
+              pack_bf16x2(e[j][2 * hf] + f[2 * j], e[j][2 * hf + 1] + f[2 * j + 1]);
       }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const uint32_t f = f0[kb][2 * j + hf];
+          fea[kb][2 * j + hf] =
+              pack_bf16x2(e[j][2 * hf] + bf16_lo(f), e[j][2 * hf + 1] + bf16_hi(f));
+        }
+    }
   }
   __syncwarp();
   fence_regs(out);
@@ -468,8 +549,22 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
   wgmma_wait<0>();
   fence_u32(fea);
   fence_regs(out);
-  // 5. + bias, bf16, through the warp's [C][OUT_PITCH] tile, 16-byte stores
+  // 5. + bias; FAST: f32, straight from the accumulators (a store instruction
+  //    writes 8 pixels of 4 channels); else bf16, through the warp's
+  //    [C][OUT_PITCH] tile, 16-byte stores
   const float* bias = reinterpret_cast<const float*>(smem + Cfg::OFF_BIAS);
+  if constexpr (FAST) {
+    float* outf = static_cast<float*>(outp);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int co = 8 * nt + 2 * q + (j & 1), x = X0 + 8 * (j >> 1) + g;
+        if (Y < H && x < W) outf[co * HW + pbase + x] = out[4 * nt + j] + bias[co];
+      }
+    return;
+  }
+  bf16* outb = static_cast<bf16*>(outp);
   bf16* tile = reinterpret_cast<bf16*>(smem + Cfg::OFF_OUT) + warp * C * OUT_PITCH;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -498,12 +593,12 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
 // Persistent: block i takes tiles i, i + gridDim.x, ...; tile t is spatial
 // tile t / B (row group, column segment) of sample t % B; warp w takes
 // row w / 2, columns 32 (w % 2) .. + 31 of the tile
-template <int CB>
+template <int CB, bool FAST>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 stau_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sta,
                 const float* __restrict__ pix, const int4* __restrict__ plan,
                 const bf16* __restrict__ wpk, const float* __restrict__ bias,
-                bf16* __restrict__ out, int B, int NE, int h, int w, int H, int W, int ncs,
+                void* __restrict__ out, int B, int NE, int h, int w, int H, int W, int ncs,
                 int ntiles, int vec_in, int vec_out) {
   using Cfg = StauCfg<CB>;
   constexpr int C = Cfg::C;
@@ -555,9 +650,11 @@ stau_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sta,
     const Source sf{staged ? stage : nullptr, x + off, p.yf, p.xf, p.ncf};
     const Source ss{staged ? stage + p.nrf * p.ncf * Cfg::SLOT : nullptr, sta + off, p.ys, p.xs,
                     p.ncs};
+    const long long ob = (long long)b * C * H * W;
+    void* outs = FAST ? static_cast<void*>(static_cast<float*>(out) + ob)
+                      : static_cast<void*>(static_cast<bf16*>(out) + ob);
     for (int X = X0; X < X0 + TC_COLS / 2; X += TC_PASS)
-      stau_pass<CB>(smem, sf, ss, pix, out + (long long)b * C * H * W, NE, h, w, H, W, Y, X,
-                    vec_out);
+      stau_pass<CB, FAST>(smem, sf, ss, pix, outs, NE, h, w, H, W, Y, X, vec_out);
     cp_async_wait_all();
     __syncthreads();
     if (tn < ntiles) {
@@ -569,7 +666,7 @@ stau_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sta,
   }
 }
 
-template <int CB>
+template <int CB, bool FAST>
 int launch_mma(const void* x, const void* sta, const float* pix, const int* plan,
                const void* wpk, const float* bias, void* out, int B, int NE, int h, int w, int H,
                int W, int vec_in, int vec_out, cudaStream_t stream) {
@@ -580,8 +677,8 @@ int launch_mma(const void* x, const void* sta, const float* pix, const int* plan
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(stau_mma_kernel<CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Cfg::SMEM);
+      e = cudaFuncSetAttribute(stau_mma_kernel<CB, FAST>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
     if (e != cudaSuccess) {
       sms = 0;
       return static_cast<int>(e);
@@ -590,10 +687,10 @@ int launch_mma(const void* x, const void* sta, const float* pix, const int* plan
   const int ncs = (W + TC_COLS - 1) / TC_COLS;
   const int ntiles = B * ncs * ((H + TC_ROWS - 1) / TC_ROWS);
   const int grid = ntiles < sms ? ntiles : sms;
-  stau_mma_kernel<CB><<<grid, TC_THREADS, Cfg::SMEM, stream>>>(
+  stau_mma_kernel<CB, FAST><<<grid, TC_THREADS, Cfg::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(sta), pix,
-      reinterpret_cast<const int4*>(plan), static_cast<const bf16*>(wpk), bias,
-      static_cast<bf16*>(out), B, NE, h, w, H, W, ncs, ntiles, vec_in, vec_out);
+      reinterpret_cast<const int4*>(plan), static_cast<const bf16*>(wpk), bias, out, B, NE, h, w,
+      H, W, ncs, ntiles, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1031,8 +1128,25 @@ extern "C" int savsr_stau_mma(const void* x, const void* sta, const float* pix, 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 16: return launch_mma<1>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
-    case 32: return launch_mma<2>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
-    default: return launch_mma<4>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
+    case 16: return launch_mma<1, false>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
+    case 32: return launch_mma<2, false>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
+    default: return launch_mma<4, false>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
+  }
+}
+
+// fast (the fast tier): as savsr_stau_mma, with x and sta the f32 inputs
+// rounded to bf16, wpk packed from the weights' bf16 values, and out f32
+// [B, C, H, W] (vec_out unused).
+extern "C" int savsr_stau_fast(const void* x, const void* sta, const float* pix, const int* plan,
+                               const void* wpk, const float* bias, void* out, int B, int C,
+                               int NE, int h, int w, int H, int W, int vec_in, int vec_out,
+                               void* stream) {
+  if ((C != 16 && C != 32 && C != 64) || NE < 1 || NE > NE_PAD || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return launch_mma<1, true>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
+    case 32: return launch_mma<2, true>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
+    default: return launch_mma<4, true>(x, sta, pix, plan, wpk, bias, out, B, NE, h, w, H, W, vec_in, vec_out, s);
   }
 }

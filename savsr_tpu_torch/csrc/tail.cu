@@ -17,8 +17,10 @@
 //
 // * f32 (tail_f32_kernel<ROUND>, CUDA cores, true f32; also bf16 at channel
 //   counts the tensor-core kernel does not take, widened to f32 by the
-//   wrapper, with ROUND: the row-mixed centre frame and the column weights
-//   rounded to bf16, the output rounded once by the wrapper). At C = 64 and 8
+//   wrapper, with ROUND: sr as it is loaded, the row-mixed centre frame and
+//   the column weights rounded to bf16, the output rounded once by the
+//   wrapper; and the fast tier, f32 sr with ROUND and the weights packed
+//   from their bf16 values: the TPU kernel's one bf16 pass, f32 output). At C = 64 and 8
 //   x 720x1280 the read of sr (1.89 GB, 0.56 ms) and the 27 C FMAs a pixel
 //   (12.7 G, 0.38 ms at the FP32 rate) are close, so the design keeps both
 //   going at once. On the CUDA cores the rate of shared-memory load
@@ -104,7 +106,14 @@ static_assert(TF_W_OFF % 4 == 0 && (TF_BW * 4) % 16 == 0, "16-byte copies");
 // lanes 0..15, x0 + 256 for 16..31: two addresses a warp), and takes its
 // neighbours' columns by shuffles: its two 6-value windows. They go, times
 // the row's taps, into the sums of the up to 3 output rows that read the
-// row; per output its sum takes the taps in (dy, dx) order.
+// row; per output its sum takes the taps in (dy, dx) order. ROUND: the
+// values of sr rounded to bf16 as they are loaded (the conv's operand in the
+// TPU kernel's one bf16 pass; a no-op on the widened bf16 route).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool ROUND>
 __device__ __forceinline__ void tf_channel(float (&acc)[TF_R][TF_X][3], const float* st, int warp,
                                            int lane) {
   float w[TF_WSLOTS];
@@ -120,9 +129,14 @@ __device__ __forceinline__ void tf_channel(float (&acc)[TF_R][TF_X][3], const fl
   const int up = (lane + 31) & 31, down = (lane + 1) & 31;
 #pragma unroll
   for (int r = 0; r < TF_R + 2; ++r) {
-    const float4 a = *reinterpret_cast<const float4*>(ra + r * TF_BW);
-    const float4 q = *reinterpret_cast<const float4*>(rb + r * TF_BW);
-    const float e = re[r * TF_BW];
+    float4 a = *reinterpret_cast<const float4*>(ra + r * TF_BW);
+    float4 q = *reinterpret_cast<const float4*>(rb + r * TF_BW);
+    float e = re[r * TF_BW];
+    if constexpr (ROUND) {
+      a = make_float4(round_bf16(a.x), round_bf16(a.y), round_bf16(a.z), round_bf16(a.w));
+      q = make_float4(round_bf16(q.x), round_bf16(q.y), round_bf16(q.z), round_bf16(q.w));
+      e = round_bf16(e);
+    }
     const float al = __shfl_sync(~0u, a.w, up);
     const float ar = __shfl_sync(~0u, lane == 0 ? q.x : a.x, down);
     const float bl = __shfl_sync(~0u, lane == 31 ? a.w : q.w, up);
@@ -142,10 +156,6 @@ __device__ __forceinline__ void tf_channel(float (&acc)[TF_R][TF_X][3], const fl
             acc[o][j][k] = fmaf(w[9 * dy + 3 * dx + k], v[j >> 2][(j & 3) + dx], acc[o][j][k]);
     }
   }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // 4 outputs of a row at columns x .. x + 3: one 16-byte store where the
@@ -284,7 +294,7 @@ tail_f32_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
                         // barriers are initialised)
       if (threadIdx.x == 0) issue(slot == 0 ? TF_STAGES - 1 : slot - 1);
       mbar_wait(&full[slot], phase);
-      if (active) tf_channel(acc, tsm + slot * TF_STAGE, warp, lane);
+      if (active) tf_channel<ROUND>(acc, tsm + slot * TF_STAGE, warp, lane);
       if (++slot == TF_STAGES) slot = 0, phase ^= 1;
     }
     if (active)

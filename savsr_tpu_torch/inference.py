@@ -10,6 +10,10 @@ chunk computing while the previous one is copied out, and image encoding on
 writer threads. Precision tiers:
 
   bf16   (default) bf16 params/activations, f32 accumulation in the kernels
+  fast   f32 params and carries; every product in one bf16 pass (operands
+         rounded to bf16, exact products, f32 sums) on the tensor cores, as
+         a TPU runs f32 at default precision; epilogues, STA's filter, STAU's
+         row weights and residual and the tail's row mix in f32
   split  f32 params; every conv up to the trunk's end a 3-pass bf16 hi/lo
          contraction on the tensor cores (f32 sums) with bf16 hi/lo pair
          carries between convs (~2^-16 relative error a conv); STA, STAU,
@@ -25,6 +29,7 @@ Usage:
   python -m savsr_tpu_torch.inference -i clips_root/ -o out/ -s 1.5 3.5 \
       -w net_g.npz --tier strict --device cpu
   python -m savsr_tpu_torch.inference -i lr_frames/ -o out/ -s 4 -w savsr.pth --tier split
+  python -m savsr_tpu_torch.inference -i lr_frames/ -o out/ -s 4 -w savsr.pth --tier fast
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from .utils.convert import load_checkpoint, load_into
 from .utils.img_util import imwrite
 from .utils.logger import get_root_logger
 
-TIERS = ("bf16", "split", "strict")
+TIERS = ("bf16", "fast", "split", "strict")
 # the architecture fields an options file's network_g block may set (the
 # tier sets the precisions)
 ARCH_KEYS = {f.name for f in dataclasses.fields(SAVSRConfig)} - {"matmul_precision",
@@ -72,7 +77,7 @@ def build_serving_model(tier: str, net_kwargs: Optional[dict] = None) -> SAVSR:
         raise ValueError(f"tier {tier!r} not in {TIERS}")
     kwargs = flagship_net_kwargs()
     kwargs.update(net_kwargs or {})
-    kwargs["matmul_precision"] = "default" if tier == "bf16" else "float32"
+    kwargs["matmul_precision"] = "default" if tier in ("bf16", "fast") else "float32"
     kwargs["conv_precision"] = "split" if tier == "split" else "native"
     return SAVSR(**kwargs).eval()
 

@@ -17,7 +17,9 @@ updates are cast back to f32. f32 steps run in true f32 (TF32 off) through
 the network's ``matmul_precision``.
 
 The eval forward takes f32 ``lq`` and the f32 weights whatever the
-training dtype, as the JAX package's does. Not ported yet (each raises
+training dtype, as the JAX package's does, at the tier the network's
+settings name (``SAVSR.serving_tier``: strict at ``matmul_precision:
+float32``, fast at ``default``, split with ``conv_precision: split``). Not ported yet (each raises
 NotImplementedError): ``train: bucket_train``, ``train: degrade_on_device``,
 perceptual/GAN losses, ``val: bucket_eval`` / ``bucket_auto``.
 """

@@ -1,11 +1,13 @@
 """Kernel wrappers of the serving path (conv3x3, conv1x1, sta, stau, tail;
-the split tier's conv3x3_split, conv1x1_split) and of the training path
+the split tier's conv3x3_split, conv1x1_split; the fast tier's conv3x3_fast,
+conv1x1_fast, sta_fast, stau_fast, tail_fast) and of the training path
 (osconv_agg, osconv_dagg), and their launch counts.
 
 ``launches[k]`` counts launches of kernel ``k`` on CUDA tensors (one per
 call, added where the wrapper launches it); ``plain_cuda_calls[k]`` counts
 calls of its plain PyTorch version with CUDA tensors, which neither path
-makes. Counts are process-wide; ``reset_counts`` zeroes them.
+makes, and ``plain_calls[k]`` every call of its plain version (the CPU's
+route). Counts are process-wide; ``reset_counts`` zeroes them.
 """
 
 from __future__ import annotations
@@ -16,19 +18,23 @@ import functools
 import torch
 
 KERNELS = ("conv3x3", "conv1x1", "sta", "stau", "tail", "osconv_agg", "osconv_dagg",
-           "conv3x3_split", "conv1x1_split")
+           "conv3x3_split", "conv1x1_split",
+           "conv3x3_fast", "conv1x1_fast", "sta_fast", "stau_fast", "tail_fast")
 
 launches = dict.fromkeys(KERNELS, 0)
 plain_cuda_calls = dict.fromkeys(KERNELS, 0)
+plain_calls = dict.fromkeys(KERNELS, 0)
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
         plain_cuda_calls[k] = 0
+        plain_calls[k] = 0
 
 
 def count_plain(kernel: str, t: torch.Tensor) -> None:
+    plain_calls[kernel] += 1
     if t.is_cuda:
         plain_cuda_calls[kernel] += 1
 

@@ -39,6 +39,13 @@ tensor-core kernel (f32 accumulators), with an f32 epilogue that writes a
 chunks of one tensor (a VMEM artefact); here a pair is two tensors and a
 concat a list of pairs. Its weight is split and packed per call of a
 per-sample weight, once for a shared one (``pack_weight_split``).
+
+The fast conv (``conv_fused_fast``, the fast serving tier: f32 weights and
+carries at ``matmul_precision: default``) is the TPU kernels' f32 mode at
+DEFAULT precision, one bf16 pass: the inputs and the weight rounded to bf16,
+exact products summed in f32, the epilogue and the output in f32. It runs on
+the split conv's kernel with one K segment a part (each part rounded to bf16
+by one pass before the launch, the weight by its packing, ``pack_weight_fast``).
 """
 
 from __future__ import annotations
@@ -477,35 +484,15 @@ def conv_fused(parts, weight: torch.Tensor,
 # the split kernel's TMA maps (two a pair) and K segments (three a pair):
 # csrc/conv.cu SPLIT_MAPS, SPLIT_SEGS
 SPLIT_MAX_PAIRS = 5
+SPLIT_MAPS = 10
 
 
-def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre_add,
-                   out_scale, lrelu, residual, out: str):
-    """One launch of the split kernel, ``savsr_conv_split``: the pairs' hi
-    and lo planes as TMA maps (``tma_part``), each pair read as the segments
-    hi, lo, hi, against ``pack_weight_split``; returns a ``Pair`` or (``out``
-    "f32") an f32 tensor; counted once as conv3x3_split / conv1x1_split."""
-    hi0 = pairs[0].hi
-    b, _, h, w = hi0.shape
-    require(k in (1, 3) and weight.shape[-2:] == (k, k), f"kernel size {tuple(weight.shape)}")
-    require(1 <= len(pairs) <= SPLIT_MAX_PAIRS, f"{len(pairs)} pairs (max {SPLIT_MAX_PAIRS})")
-    require(out in ("pair", "f32"), f"out {out!r}")
-    for p in pairs:
-        for t in (p.hi, p.lo):
-            require(t.device == hi0.device and t.dtype == torch.bfloat16 and t.dim() == 4
-                    and t.shape[0] == b and tuple(t.shape[2:]) == (h, w)
-                    and t.shape[1] == p.hi.shape[1],
-                    "pairs must be CUDA bf16 tensors of one size")
-            require(t.stride(3) == 1 and t.stride(2) == w and t.stride(1) == h * w,
-                    "each plane needs contiguous channel planes")
-    chans = [p.hi.shape[1] for p in pairs]
-    cout = weight.shape[-4]
-    per_sample = weight.dim() == 5
-    dev = hi0.device
-    require(weight.device == dev and weight.dtype == torch.float32
-            and weight.shape[-3] == sum(chans) and (not per_sample or weight.shape[0] == b),
-            f"weight {tuple(weight.shape)} {weight.dtype} vs f32 input {b}x{sum(chans)}")
-    shape = (b, cout, h, w)
+def _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual):
+    """Check the split kernel's epilogue operands for an output of ``shape``
+    on ``dev``: f32 bias, pre_add and out_scale, and a residual in f32 or as
+    a ``Pair``. Returns out_scale's batch stride and the residual's planes
+    (hi, lo) or (f32, None)."""
+    b, cout = shape[:2]
 
     def f32_operand(name, t):
         require(t is None or (t.device == dev and t.dtype == torch.float32 and t.is_contiguous()
@@ -531,9 +518,62 @@ def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre
                 and out_scale.is_contiguous() and out_scale.numel() in (cout, b * cout),
                 "out_scale")
         s_bstride = cout if out_scale.numel() == b * cout else 0
+    return s_bstride, res, res_lo
+
+
+def _run_split(k: int, maps, seg_map, wt: torch.Tensor, per_sample: bool, bias, pre_add,
+               out_scale, s_bstride: int, lrelu, res, res_lo, o, o_lo, counter: str) -> None:
+    """One launch of ``savsr_conv_split``: the bf16 ``maps`` ((tensor, row
+    pitch) each) read as the K segments ``seg_map``, against the packed
+    weight ``wt``, into ``o`` (f32, or a pair's hi plane with ``o_lo``);
+    counted once as ``counter``."""
+    b, cout, h, w = o.shape
+    n, nsegs = len(maps), len(seg_map)
+    la, lb = lrelu if lrelu is not None else (1.0, 0.0)
+    lib = _lib()
+    rc = lib.savsr_conv_split(
+        k, n, (ctypes.c_void_p * n)(*[t.data_ptr() for t, _ in maps]),
+        (ctypes.c_int * n)(*[t.shape[1] for t, _ in maps]),
+        (ctypes.c_longlong * n)(*[t.stride(0) for t, _ in maps]),
+        (ctypes.c_longlong * n)(*[pitch for _, pitch in maps]),
+        nsegs, (ctypes.c_int * nsegs)(*seg_map), b, h, w, cout, ptr(wt),
+        wt.shape[1] if per_sample else 0, ptr(bias), ptr(pre_add), ptr(out_scale), s_bstride,
+        int(lrelu is not None), la, lb, ptr(res), ptr(res_lo), ptr(o), ptr(o_lo),
+        stream_ptr(o))
+    check_rc(lib, rc, counter)
+    launches[counter] += 1
+
+
+def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre_add,
+                  out_scale, lrelu, residual, out: str):
+    """One launch of the split kernel, ``savsr_conv_split``: the pairs' hi
+    and lo planes as TMA maps (``tma_part``), each pair read as the segments
+    hi, lo, hi, against ``pack_weight_split``; returns a ``Pair`` or (``out``
+    "f32") an f32 tensor; counted once as conv3x3_split / conv1x1_split."""
+    hi0 = pairs[0].hi
+    b, _, h, w = hi0.shape
+    require(k in (1, 3) and weight.shape[-2:] == (k, k), f"kernel size {tuple(weight.shape)}")
+    require(1 <= len(pairs) <= SPLIT_MAX_PAIRS, f"{len(pairs)} pairs (max {SPLIT_MAX_PAIRS})")
+    require(out in ("pair", "f32"), f"out {out!r}")
+    for p in pairs:
+        for t in (p.hi, p.lo):
+            require(t.device == hi0.device and t.dtype == torch.bfloat16 and t.dim() == 4
+                    and t.shape[0] == b and tuple(t.shape[2:]) == (h, w)
+                    and t.shape[1] == p.hi.shape[1],
+                    "pairs must be CUDA bf16 tensors of one size")
+            require(t.stride(3) == 1 and t.stride(2) == w and t.stride(1) == h * w,
+                    "each plane needs contiguous channel planes")
+    chans = [p.hi.shape[1] for p in pairs]
+    cout = weight.shape[-4]
+    per_sample = weight.dim() == 5
+    dev = hi0.device
+    require(weight.device == dev and weight.dtype == torch.float32
+            and weight.shape[-3] == sum(chans) and (not per_sample or weight.shape[0] == b),
+            f"weight {tuple(weight.shape)} {weight.dtype} vs f32 input {b}x{sum(chans)}")
+    shape = (b, cout, h, w)
+    s_bstride, res, res_lo = _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual)
 
     maps = [tma_part(t) for p in pairs for t in (p.hi, p.lo)]
-    nmaps = len(maps)
     seg_map = [m for i in range(len(pairs)) for m in (2 * i, 2 * i + 1, 2 * i)]
     wt = pack_weight_split(weight, chans)
     if out == "pair":
@@ -542,20 +582,8 @@ def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre
     else:
         dst = o = torch.empty(shape, dtype=torch.float32, device=hi0.device)
         o_lo = None
-    la, lb = lrelu if lrelu is not None else (1.0, 0.0)
-    counter = _kernel_name(weight) + "_split"
-    lib = _lib()
-    rc = lib.savsr_conv_split(
-        k, nmaps, (ctypes.c_void_p * nmaps)(*[t.data_ptr() for t, _ in maps]),
-        (ctypes.c_int * nmaps)(*[t.shape[1] for t, _ in maps]),
-        (ctypes.c_longlong * nmaps)(*[t.stride(0) for t, _ in maps]),
-        (ctypes.c_longlong * nmaps)(*[pitch for _, pitch in maps]),
-        len(seg_map), (ctypes.c_int * len(seg_map))(*seg_map), b, h, w, cout, ptr(wt),
-        wt.shape[1] if per_sample else 0, ptr(bias), ptr(pre_add), ptr(out_scale), s_bstride,
-        int(lrelu is not None), la, lb, ptr(res), ptr(res_lo), ptr(o), ptr(o_lo),
-        stream_ptr(o))
-    check_rc(lib, rc, counter)
-    launches[counter] += 1
+    _run_split(k, maps, seg_map, wt, per_sample, bias, pre_add, out_scale, s_bstride, lrelu,
+               res, res_lo, o, o_lo, _kernel_name(weight) + "_split")
     return dst
 
 
@@ -577,3 +605,96 @@ def conv_fused_split(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] =
                                       out)
     return _launch_split(weight.shape[-1], pairs, weight.contiguous(), bias, pre_add,
                           out_scale, lrelu, residual, out)
+
+
+# ---------------------------------------------------------------------------
+# the fast tier's conv
+# ---------------------------------------------------------------------------
+
+
+def conv_fused_fast_plain(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                          pre_add: Optional[torch.Tensor] = None,
+                          out_scale: Optional[torch.Tensor] = None,
+                          lrelu: Optional[Tuple[float, float]] = None,
+                          residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the fast conv: the f32 conv of bf16(parts) by
+    bf16(weight), with TF32 off, so every product is exact and only the f32
+    sums' order differs from the kernel's; then the epilogue in f32 and an
+    f32 result."""
+    from ..archs.arch_util import float32_precision
+
+    parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
+    count_plain(_kernel_name(weight) + "_fast", parts[0])
+    xs = [p.to(torch.bfloat16).float() for p in parts]
+    with float32_precision(True):
+        return _conv_plain(xs, weight.to(torch.bfloat16).float(), bias, pre_add, out_scale,
+                           lrelu, residual)
+
+
+def pack_weight_fast(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
+    """The fast conv's weight: bf16(weight) in the bf16 kernel's layout
+    (``pack_index``, one block of channels a part); a shared weight's is
+    packed once (``packed_once``)."""
+    return packed_once(weight, ("fast",) + tuple(chans),
+                       lambda: pack_weight(weight.detach().to(torch.bfloat16), chans))
+
+
+def bf16_part(p: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """An f32 part rounded to bf16 in a buffer TMA can read, in one pass, and
+    its row pitch in elements (the width rounded up to 8; the pad columns
+    are never read: the map's extent is the width)."""
+    w = p.shape[-1]
+    pitch = w + (-w % 8)
+    if pitch == w:
+        return p.to(torch.bfloat16, memory_format=torch.contiguous_format), w
+    buf = torch.empty(p.shape[:-1] + (pitch,), dtype=torch.bfloat16, device=p.device)
+    buf[..., :w] = p
+    return buf, pitch
+
+
+def _launch_fast(k: int, parts: Sequence[torch.Tensor], weight: torch.Tensor, bias, pre_add,
+                 out_scale, lrelu, residual) -> torch.Tensor:
+    """One launch of the split kernel in its fast mode, ``savsr_conv_split``
+    with one K segment a part: the parts rounded to bf16 (``bf16_part``) as
+    TMA maps, against ``pack_weight_fast``; f32 epilogue operands and f32
+    output; counted once as conv3x3_fast / conv1x1_fast."""
+    x0 = parts[0]
+    b, _, h, w = x0.shape
+    dev = x0.device
+    require(k in (1, 3) and weight.shape[-2:] == (k, k), f"kernel size {tuple(weight.shape)}")
+    require(1 <= len(parts) <= SPLIT_MAPS, f"{len(parts)} parts (max {SPLIT_MAPS})")
+    for p in parts:
+        require(p.device == dev and p.dtype == torch.float32 and p.dim() == 4
+                and p.shape[0] == b and tuple(p.shape[2:]) == (h, w),
+                "fast parts must be f32 CUDA tensors of one size")
+    chans = [p.shape[1] for p in parts]
+    cout = weight.shape[-4]
+    per_sample = weight.dim() == 5
+    require(weight.device == dev and weight.dtype == torch.float32
+            and weight.shape[-3] == sum(chans) and (not per_sample or weight.shape[0] == b),
+            f"weight {tuple(weight.shape)} {weight.dtype} vs f32 input {b}x{sum(chans)}")
+    shape = (b, cout, h, w)
+    s_bstride, res, res_lo = _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual)
+
+    maps = [bf16_part(p) for p in parts]  # the rounding pass
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    _run_split(k, maps, list(range(len(maps))), pack_weight_fast(weight, chans), per_sample,
+               bias, pre_add, out_scale, s_bstride, lrelu, res, res_lo, out, None,
+               _kernel_name(weight) + "_fast")
+    return out
+
+
+def conv_fused_fast(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                    pre_add: Optional[torch.Tensor] = None,
+                    out_scale: Optional[torch.Tensor] = None,
+                    lrelu: Optional[Tuple[float, float]] = None,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fast conv of concat(parts): ``parts`` an f32 [B, Ci, H, W] tensor
+    or a list of them; ``weight`` f32 [Cout, Cin, K, K] or per sample [B,
+    Cout, Cin, K, K]; the epilogue operands f32. Returns f32. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise)."""
+    parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
+    if not parts[0].is_cuda:
+        return conv_fused_fast_plain(parts, weight, bias, pre_add, out_scale, lrelu, residual)
+    return _launch_fast(weight.shape[-1], parts, weight.contiguous(), bias, pre_add, out_scale,
+                        lrelu, residual)

@@ -30,6 +30,14 @@ Which kernel runs on a CUDA tensor is chosen by dtype and channel count:
   with K rounded to bf16 in the kernel (the TPU kernel's rounding point),
   and its f32 output is rounded once to bf16.
 
+The fast tier (``sta_conv_fused_fast``; f32 weights and carries at
+``matmul_precision: default``) is the TPU kernel's f32 mode at DEFAULT
+precision: the K product takes st and the weight rounded to bf16 (exact
+products, f32 sums), and K itself, the 25-tap filter of the f32 trunk and
+the output stay f32. It runs ``sta_f32_kernel`` without its K rounding on
+st rounded to bf16 (one pass before the launch) and the weight packed from
+its bf16 values; rounding commutes with the packing, so this is exact.
+
 A failed build or launch raises; nothing falls back to another kernel.
 """
 
@@ -57,6 +65,23 @@ def sta_conv_fused_plain(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor
     """Plain PyTorch version. x, st: [B, C, h, w]; weight: kernel_conv.0
     weight [25C, C, 1, 1] (output channel c*25 + t); bias: [25C]."""
     count_plain("sta", x)
+    return _sta_plain(x, st, weight, bias)
+
+
+def sta_conv_fused_fast_plain(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the fast STA: the plain version on bf16(st)
+    and bf16(weight) with f32 x, in f32 with TF32 off (every product of the
+    K product exact, K unrounded)."""
+    from ..archs.arch_util import float32_precision
+
+    count_plain("sta_fast", x)
+    with float32_precision(True):
+        return _sta_plain(x, st.to(torch.bfloat16).float(), weight.to(torch.bfloat16).float(),
+                          bias)
+
+
+def _sta_plain(x, st, weight, bias) -> torch.Tensor:
     b, c, h, w = x.shape
     kk = KSIZE * KSIZE
     k = F.conv2d(st.float(), weight.float().reshape(c * kk, c, 1, 1), bias.float())
@@ -117,16 +142,17 @@ def sta_f32_pack_index(c: int):
             torch.from_numpy(b_idx.reshape(-1).astype(np.int64)))
 
 
-def pack_sta_weights_f32(weight: torch.Tensor, bias: torch.Tensor):
+def pack_sta_weights_f32(weight: torch.Tensor, bias: torch.Tensor, fast: bool = False):
     """(packed weights, packed bias) of the CUDA-core kernel, both f32
-    (``sta_f32_pack_index``), packed once for a shared weight and bias
-    (``ops/conv.py packed_once``)."""
+    (``sta_f32_pack_index``; ``fast``: the weight's bf16 values), packed
+    once for a shared weight and bias (``ops/conv.py packed_once``)."""
     def pack():
         w_idx, b_idx = sta_f32_pack_index(weight.shape[1])
+        wt = weight.detach().to(torch.bfloat16) if fast else weight.detach()
         return tuple(F.pad(t.detach().reshape(-1).float(), (0, 1))[idx.to(t.device)]
-                     for t, idx in ((weight, w_idx), (bias, b_idx)))
+                     for t, idx in ((wt, w_idx), (bias, b_idx)))
 
-    return packed_once(weight, "sta_f32", pack, bias)
+    return packed_once(weight, "sta_fast" if fast else "sta_f32", pack, bias)
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,6 +170,19 @@ def _lib():
     return lib
 
 
+def _check(what: str, x, st, weight, bias, dt) -> None:
+    """The wrappers' operand checks: contiguous CUDA tensors of dtype ``dt``,
+    x and st [B, C, h, w], the kernel_conv weight [25C, C, 1, 1] and bias
+    [25C]."""
+    b, c, h, w = x.shape
+    for name, t, shape in (("x", x, (b, c, h, w)), ("st", st, (b, c, h, w)),
+                           ("weight", weight, (c * TAPS, c, 1, 1)),
+                           ("bias", bias, (c * TAPS,))):
+        require(t.is_cuda and t.dtype == dt and t.is_contiguous()
+                and tuple(t.shape) == shape,
+                f"{what}: {name} must be a contiguous {dt} {shape} CUDA tensor")
+
+
 def sta_conv_fused(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """lrelu_0.1(kernel_conv(st)) applied as per-pixel 5x5 filters to x.
@@ -154,12 +193,7 @@ def sta_conv_fused(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
         return sta_conv_fused_plain(x, st, weight, bias)
     b, c, h, w = x.shape
     dt = x.dtype
-    for name, t, shape in (("x", x, (b, c, h, w)), ("st", st, (b, c, h, w)),
-                           ("weight", weight, (c * TAPS, c, 1, 1)),
-                           ("bias", bias, (c * TAPS,))):
-        require(t.is_cuda and t.dtype == dt and t.is_contiguous()
-                and tuple(t.shape) == shape,
-                f"sta: {name} must be a contiguous {dt} {shape} CUDA tensor")
+    _check("sta", x, st, weight, bias, dt)
     out = torch.empty_like(x)
     lib = _lib()
     if dt == torch.bfloat16 and c in MMA_CHANNELS:
@@ -178,4 +212,25 @@ def sta_conv_fused(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
     launches["sta"] += 1
     if dt != torch.float32 and c not in MMA_CHANNELS:
         out.copy_(out_f)  # the widened route's one rounding of the output to bf16
+    return out
+
+
+def sta_conv_fused_fast(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """The fast STA, all f32 (see the module docstring). CPU tensors take the
+    plain version; CUDA tensors launch ``sta_f32_kernel`` (C <= 64) without
+    its K rounding, on st rounded to bf16."""
+    if not x.is_cuda:
+        return sta_conv_fused_fast_plain(x, st, weight, bias)
+    b, c, h, w = x.shape
+    _check("sta fast", x, st, weight, bias, torch.float32)
+    require(c <= 64, f"sta fast: the CUDA-core kernel takes C <= 64, got {c}")
+    packed, bias_p = pack_sta_weights_f32(weight, bias, fast=True)
+    st_r = st.to(torch.bfloat16).float()  # the rounding pass: st as the K product takes it
+    out = torch.empty_like(x)
+    lib = _lib()
+    rc = lib.savsr_sta_f32(ptr(x), ptr(st_r), ptr(packed), ptr(bias_p), ptr(out), b, c, h, w, 0,
+                           sm_count(x.device), stream_ptr(x))
+    check_rc(lib, rc, "sta_conv_fused_fast")
+    launches["sta_fast"] += 1
     return out

@@ -6,10 +6,19 @@ bilinear samples (zeros padding, align_corners=True, coordinates already in
 LR pixel units) of the trunk feature ``x`` at (fy_f, fx_f) -> f0 and of the
 STA feature at (fy_s, fx_s) -> sa; expert mixing
 ``fea = f0 + sum_n r_n We_n (sum_m r_m Wc_m f0)``; then the 1x1 fusion
-``Wfus [sa; fea] + bias``. Rounding points follow the TPU kernel (f0, sa,
-r_n*fc and fea are rounded to the I/O dtype). The TPU kernel's hat-matrix
-sampling over precomputed LR row bands (j0/g0) becomes a 4-tap gather in
-the CUDA kernels (csrc/stau.cu).
+``Wfus [sa; fea] + bias``. Rounding points follow the TPU kernel (the hat
+x-weights, f0, sa, r_n*fc and fea are rounded to the I/O dtype; the
+y-weights stay f32). The TPU kernel's hat-matrix sampling over precomputed
+LR row bands (j0/g0) becomes a 4-tap gather in the CUDA kernels
+(csrc/stau.cu).
+
+The fast tier (``stau_upsample_fused_fast``; f32 weights and carries at
+``matmul_precision: default``) is the TPU kernel's f32 mode at DEFAULT
+precision: every product takes bf16 operands (the inputs, the hat
+x-weights, f0 into the compress, r_n*fc, sa and fea into the fusion, the
+weights) with f32 sums, while f0 stays f32 in the residual and the output
+is f32. It runs the bf16 kernel in its fast mode (``stau_mma_kernel<CB,
+true>``) on the inputs rounded to bf16 and on the bf16 kernel's plan.
 
 Both kernels have two layout steps in Python, replayed on the CPU by the
 tests: ``stau_window_plan``, the LR box each tile reads (the sampling
@@ -41,9 +50,11 @@ from . import (check_rc, count_plain, dtype_code, f32_channels, launches, ptr, r
                stream_ptr)
 
 
-def bilinear_gather(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
+def bilinear_gather(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
+                    col_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Sample [B, C, h, w] at unnormalized coords [H, W] with zeros outside
-    the image (grid_sample bilinear, align_corners=True). Returns f32."""
+    the image (grid_sample bilinear, align_corners=True), the x-weights
+    rounded to ``col_dtype`` (the TPU kernel's hat matrix). Returns f32."""
     b, c, h, w = x.shape
     flat = x.float().reshape(b, c, h * w)
     y0, x0 = torch.floor(fy), torch.floor(fx)
@@ -51,6 +62,7 @@ def bilinear_gather(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torc
     out = torch.zeros((b, c) + tuple(fy.shape), dtype=torch.float32, device=x.device)
     for dy, wy in ((0, 1.0 - wy1), (1, wy1)):
         for dx, wx in ((0, 1.0 - wx1), (1, wx1)):
+            wx = wx.to(col_dtype).float()
             yy, xx = y0 + dy, x0 + dx
             ok = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
             idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long().reshape(-1)
@@ -62,21 +74,40 @@ def bilinear_gather(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torc
 def stau_upsample_fused_plain(x, sta, pix, wc, we, wfus, bias) -> torch.Tensor:
     """Plain PyTorch version (see module docstring)."""
     count_plain("stau", x)
-    dt = x.dtype
+    return _stau_plain(x, sta, pix, wc, we, wfus, bias, fast=False)
+
+
+def stau_upsample_fused_fast_plain(x, sta, pix, wc, we, wfus, bias) -> torch.Tensor:
+    """Plain PyTorch version of the fast STAU (f32 in and out; see the module
+    docstring), in f32 with TF32 off: every product of bf16 values exact."""
+    from ..archs.arch_util import float32_precision
+
+    count_plain("stau_fast", x)
+    with float32_precision(True):
+        return _stau_plain(x, sta, pix, wc, we, wfus, bias, fast=True)
+
+
+def _stau_plain(x, sta, pix, wc, we, wfus, bias, fast: bool) -> torch.Tensor:
+    """The STAU with the TPU kernel's rounding points at the I/O dtype (bf16
+    for ``fast``, whose inputs and weights are rounded too and whose f0
+    stays f32 in the residual); returns the I/O dtype (f32 for ``fast``)."""
+    dt = torch.bfloat16 if fast else x.dtype
     n = wc.shape[0]
 
-    def rnd(t):  # the TPU kernel's rounding points (no-op in f32)
+    def rnd(t):  # a rounding point (no-op in f32)
         return t.to(dt).float()
 
-    f0 = rnd(bilinear_gather(x, pix[0], pix[1]))
-    sa = rnd(bilinear_gather(sta, pix[2], pix[3]))
+    xs, stas = (rnd(x), rnd(sta)) if fast else (x, sta)
+    f0 = bilinear_gather(xs, pix[0], pix[1], dt)
+    f0r = rnd(f0)
+    sa = rnd(bilinear_gather(stas, pix[2], pix[3], dt))
     r = pix[4:4 + n]                                          # [n, H, W]
-    z = torch.einsum("noc,bchw->bnohw", wc.float()[..., 0, 0], f0)
+    z = torch.einsum("noc,bchw->bnohw", rnd(wc)[..., 0, 0], f0r)
     fc = (r[None, :, None] * z).sum(1)                        # [B, C/8, H, W]
     stk = rnd(r[None, :, None] * fc[:, None])                 # [B, n, C/8, H, W]
-    fea = rnd(torch.einsum("nco,bnohw->bchw", we.float()[..., 0, 0], stk) + f0)
-    out = torch.einsum("ok,bkhw->bohw", wfus.float()[:, :, 0, 0], torch.cat([sa, fea], 1))
-    return (out + bias.float().view(1, -1, 1, 1)).to(dt)
+    fea = rnd(torch.einsum("nco,bnohw->bchw", rnd(we)[..., 0, 0], stk) + (f0 if fast else f0r))
+    out = torch.einsum("ok,bkhw->bohw", rnd(wfus)[:, :, 0, 0], torch.cat([sa, fea], 1))
+    return (out + bias.float().view(1, -1, 1, 1)).to(torch.float32 if fast else dt)
 
 
 # the bf16 kernel's tile (HR rows x HR columns) and staging capacity (LR
@@ -89,11 +120,12 @@ F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP = 2, 64, 320
 NE_PAD = 4
 
 
-def plan_geometry(dtype: torch.dtype) -> tuple:
+def plan_geometry(dtype: torch.dtype, fast: bool = False) -> tuple:
     """(tile rows, tile columns, staging capacity, column alignment) of the
-    kernel that runs ``dtype``: the f32 kernel's for float32, the bf16
-    kernel's otherwise."""
-    if dtype == torch.float32:
+    kernel that runs ``dtype``: the f32 kernel's for float32 (the strict and
+    split tiers), the bf16 kernel's otherwise and for the fast tier
+    (``fast``: f32 on the bf16 kernel's fast mode)."""
+    if dtype == torch.float32 and not fast:
         return F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP, 1
     return PLAN_ROWS, PLAN_COLS, STAGE_CAP, 8
 
@@ -179,18 +211,22 @@ def stau_pack_index(n: int, c: int, cout: int) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([idx, fus.reshape(-1)]).astype(np.int64))
 
 
-def pack_stau_weights(wc: torch.Tensor, we: torch.Tensor, wfus: torch.Tensor) -> torch.Tensor:
-    """The bf16 kernel's B fragments (``stau_pack_index``), kept on ``wfus``
-    as ``_savsr_stau_packed`` while the three weights' storages and version
-    counters stay the same."""
+def pack_stau_weights(wc: torch.Tensor, we: torch.Tensor, wfus: torch.Tensor,
+                      fast: bool = False) -> torch.Tensor:
+    """The bf16 kernel's B fragments (``stau_pack_index``; ``fast``: of the
+    f32 weights' bf16 values), kept on ``wfus`` as ``_savsr_stau_packed``
+    (``_savsr_stau_packed_fast``) while the three weights' storages and
+    version counters stay the same."""
+    attr = "_savsr_stau_packed_fast" if fast else "_savsr_stau_packed"
     key = tuple((t.data_ptr(), t._version) for t in (wc, we, wfus))
-    hit = getattr(wfus, "_savsr_stau_packed", None)
+    hit = getattr(wfus, attr, None)
     if hit is not None and hit[0] == key:
         return hit[1]
     n, c, cout = wc.shape[0], wc.shape[2], wfus.shape[0]
-    flat = torch.cat([t.detach().reshape(-1) for t in (wc, we, wfus)] + [wc.new_zeros(1)])
+    ts = [t.detach().to(torch.bfloat16) if fast else t.detach() for t in (wc, we, wfus)]
+    flat = torch.cat([t.reshape(-1) for t in ts] + [ts[0].new_zeros(1)])
     packed = flat[stau_pack_index(n, c, cout).to(flat.device)]
-    wfus._savsr_stau_packed = (key, packed)
+    setattr(wfus, attr, (key, packed))
     return packed
 
 
@@ -250,9 +286,40 @@ def _lib():
     lib = load("stau")
     lib.savsr_stau_f32.restype = ctypes.c_int
     lib.savsr_stau_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.savsr_stau_mma.restype = ctypes.c_int
-    lib.savsr_stau_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    for fn in (lib.savsr_stau_mma, lib.savsr_stau_fast):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return lib
+
+
+def _check(what: str, x, sta, pix, wc, we, wfus, dt):
+    """The wrappers' operand checks: x, sta [B, C, h, w], the weights in the
+    torch layouts, all of dtype ``dt`` on the card, and pix contiguous f32
+    [4 + n, H, W]. Returns (B, C, h, w, experts, Cout)."""
+    b, c, h, w = x.shape
+    n, cout = wc.shape[0], wfus.shape[0]
+    for name, t, shape in (("x", x, (b, c, h, w)), ("sta", sta, (b, c, h, w)),
+                           ("wc", wc, (n, c // 8, c, 1, 1)),
+                           ("we", we, (n, c, c // 8, 1, 1)),
+                           ("wfus", wfus, (cout, 2 * c, 1, 1))):
+        require(t.is_cuda and t.dtype == dt and tuple(t.shape) == shape,
+                f"{what}: {name} must be a {dt} {shape} CUDA tensor")
+    require(pix.dtype == torch.float32 and pix.is_contiguous()
+            and pix.shape[0] >= 4 + n, f"{what}: pix must be contiguous f32 [4+n, H, W]")
+    return b, c, h, w, n, cout
+
+
+def _plan(what: str, plan, pix, h: int, w: int, geometry) -> torch.Tensor:
+    """``plan``, or the window plan of ``pix`` at the kernel's ``geometry``
+    (``plan_geometry``) when it is None; checked against that geometry."""
+    rows, cols, cap, align = geometry
+    H, W = pix.shape[1:]
+    nst = -(-H // rows) * -(-W // cols)
+    if plan is None:
+        plan = stau_window_plan(pix, h, w, rows, cols, cap, align)
+    require(plan.is_cuda and plan.dtype == torch.int32 and plan.is_contiguous()
+            and tuple(plan.shape) == (nst, 8), f"{what}: plan must be int32 [{nst}, 8]")
+    return plan
 
 
 def stau_upsample_fused(x: torch.Tensor, sta: torch.Tensor, pix: torch.Tensor,
@@ -266,29 +333,14 @@ def stau_upsample_fused(x: torch.Tensor, sta: torch.Tensor, pix: torch.Tensor,
     kernel (C in 16, 32, 64, Cout = C, at most 4 experts)."""
     if not x.is_cuda:
         return stau_upsample_fused_plain(x, sta, pix, wc, we, wfus, bias)
-    b, c, h, w = x.shape
-    n = wc.shape[0]
-    _, H, W = pix.shape
-    cout = wfus.shape[0]
     dt = x.dtype
     dtype_code(x)
-    for name, t, shape in (("x", x, (b, c, h, w)), ("sta", sta, (b, c, h, w)),
-                           ("wc", wc, (n, c // 8, c, 1, 1)),
-                           ("we", we, (n, c, c // 8, 1, 1)),
-                           ("wfus", wfus, (cout, 2 * c, 1, 1))):
-        require(t.is_cuda and t.dtype == dt and tuple(t.shape) == shape,
-                f"stau: {name} must be a {dt} {shape} CUDA tensor")
-    require(pix.dtype == torch.float32 and pix.is_contiguous()
-            and pix.shape[0] >= 4 + n, "stau: pix must be contiguous f32 [4+n, H, W]")
+    b, c, h, w, n, cout = _check("stau", x, sta, pix, wc, we, wfus, dt)
+    H, W = pix.shape[1:]
+    plan = _plan("stau", plan, pix, h, w, plan_geometry(dt))
     bias_f = bias.float().contiguous()
     xk, sk = x.contiguous(), sta.contiguous()
     out = torch.empty((b, cout, H, W), dtype=dt, device=x.device)
-    rows, cols, cap, align = plan_geometry(dt)
-    nst = -(-H // rows) * -(-W // cols)
-    if plan is None:
-        plan = stau_window_plan(pix, h, w, rows, cols, cap, align)
-    require(plan.is_cuda and plan.dtype == torch.int32 and plan.is_contiguous()
-            and tuple(plan.shape) == (nst, 8), f"stau: plan must be int32 [{nst}, 8]")
     lib = _lib()
     if dt == torch.float32:
         require(c % 8 == 0 and c <= 64 and cout % 4 == 0 and cout <= 64 and n <= NE_PAD,
@@ -309,4 +361,35 @@ def stau_upsample_fused(x: torch.Tensor, sta: torch.Tensor, pix: torch.Tensor,
                                 stream_ptr(x))
     check_rc(lib, rc, "stau_upsample_fused")
     launches["stau"] += 1
+    return out
+
+
+def stau_upsample_fused_fast(x: torch.Tensor, sta: torch.Tensor, pix: torch.Tensor,
+                             wc: torch.Tensor, we: torch.Tensor, wfus: torch.Tensor,
+                             bias: torch.Tensor, plan: torch.Tensor = None) -> torch.Tensor:
+    """The fast STAU: f32 x, sta [B, C, h, w] and f32 weights -> f32 [B, C,
+    H, W]. CPU tensors take the plain version; CUDA tensors launch the bf16
+    kernel's fast mode (C in 16, 32, 64, Cout = C, at most 4 experts) on x
+    and sta rounded to bf16, on ``plan`` (``stau_window_plan`` at
+    ``plan_geometry(torch.float32, fast=True)``, made here when not
+    given)."""
+    if not x.is_cuda:
+        return stau_upsample_fused_fast_plain(x, sta, pix, wc, we, wfus, bias)
+    b, c, h, w, n, cout = _check("stau fast", x, sta, pix, wc, we, wfus, torch.float32)
+    H, W = pix.shape[1:]
+    require(c in (16, 32, 64) and cout == c and n <= NE_PAD,
+            f"stau fast: C in 16, 32, 64, Cout = C and at most {NE_PAD} experts, "
+            f"got C={c}, Cout={cout}, {n} experts")
+    plan = _plan("stau fast", plan, pix, h, w, plan_geometry(torch.float32, fast=True))
+    # the rounding pass: the inputs as the products take them
+    xk = x.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    sk = sta.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    bias_f = bias.float().contiguous()
+    out = torch.empty((b, cout, H, W), dtype=torch.float32, device=x.device)
+    wpk = pack_stau_weights(wc, we, wfus, fast=True)
+    lib = _lib()
+    rc = lib.savsr_stau_fast(ptr(xk), ptr(sk), ptr(pix), ptr(plan), ptr(wpk), ptr(bias_f),
+                             ptr(out), b, c, n, h, w, H, W, int(w % 8 == 0), 0, stream_ptr(x))
+    check_rc(lib, rc, "stau_upsample_fused_fast")
+    launches["stau_fast"] += 1
     return out

@@ -23,6 +23,15 @@ chosen by dtype and channel count:
   centre frame and the column weights rounded to bf16); its f32 output is
   rounded once to bf16.
 
+The fast tier (``tail_fused_fast``; f32 weights and carries at
+``matmul_precision: default``) is the TPU kernel's f32 mode at DEFAULT
+precision: the conv takes sr and the weight rounded to bf16, the ``up``
+product the row-mixed centre frame and the column weights rounded to bf16
+(exact products, f32 sums), and the bias, the row mix itself and the output
+stay f32. It runs ``tail_f32_kernel`` with its rounding points on (sr
+rounded as it is loaded) and the weight packed from its bf16 values, with
+an f32 output.
+
 A failed build or launch raises; nothing falls back to another kernel.
 """
 
@@ -48,7 +57,26 @@ def tail_fused_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias):
     """Plain PyTorch version. sr: [B, C, H, W]; xc: [B, 3, h0, w0];
     rows_j0/rows_wy: [H]; cols_c0: [W]; cols_w: [2, W]; weight: [3, C, 3, 3]."""
     count_plain("tail", sr)
-    dt = sr.dtype
+    return _tail_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias, sr.dtype,
+                       sr.dtype)
+
+
+def tail_fused_fast_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias):
+    """Plain PyTorch version of the fast tail: the conv of bf16(sr) by
+    bf16(weight) and the skip with its bf16 rounding points, in f32 with
+    TF32 off (every product of bf16 values exact); f32 out."""
+    from ..archs.arch_util import float32_precision
+
+    count_plain("tail_fast", sr)
+    with float32_precision(True):
+        return _tail_plain(sr.to(torch.bfloat16).float(), xc, rows_j0, rows_wy, cols_c0, cols_w,
+                           weight.to(torch.bfloat16).float(), bias, torch.bfloat16,
+                           torch.float32)
+
+
+def _tail_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias, dt, out_dt):
+    """The tail with the TPU kernel's skip rounding points at ``dt`` (the row
+    mix and the column weights), returned as ``out_dt``."""
     y = F.conv2d(sr.float(), weight.float(), bias.float(), padding=1)
     xf = xc.float()
     j0 = rows_j0.long()
@@ -57,7 +85,7 @@ def tail_fused_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias):
     c0 = cols_c0.long()
     cw = cols_w.to(dt).float()
     up = cw[0] * lr[..., c0] + cw[1] * lr[..., c0 + 1]
-    return (y + up).to(dt)
+    return (y + up).to(out_dt)
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,17 +126,19 @@ def pack_tail_weights(weight: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-def pack_tail_weights_f32(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def pack_tail_weights_f32(weight: torch.Tensor, bias: torch.Tensor,
+                          fast: bool = False) -> torch.Tensor:
     """The CUDA-core kernel's weights and bias, f32: [C][F32_SLOTS], slot
-    9 dy + 3 dx + k holding weight[k, c, dy, dx] and slot 27 zero, then
-    bias[0..2] and a zero; packed once for a shared weight and bias
-    (``ops/conv.py packed_once``)."""
+    9 dy + 3 dx + k holding weight[k, c, dy, dx] (``fast``: its bf16 value)
+    and slot 27 zero, then bias[0..2] and a zero; packed once for a shared
+    weight and bias (``ops/conv.py packed_once``)."""
     def pack():
         c = weight.shape[1]
-        rows = F.pad(weight.detach().float().permute(1, 2, 3, 0).reshape(c, 27), (0, 1))
+        wt = weight.detach().to(torch.bfloat16) if fast else weight.detach()
+        rows = F.pad(wt.float().permute(1, 2, 3, 0).reshape(c, 27), (0, 1))
         return F.pad(torch.cat([rows.reshape(-1), bias.detach().float().reshape(-1)]), (0, 1))
 
-    return packed_once(weight, "tail_f32", pack, bias)
+    return packed_once(weight, "tail_fast" if fast else "tail_f32", pack, bias)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +155,22 @@ def _lib():
     return lib
 
 
+def _check(what: str, sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias, dt) -> None:
+    """The wrappers' operand checks: contiguous CUDA tensors, sr [B, C, H,
+    W], xc [B, 3, h0, w0], weight [3, C, 3, 3] and bias [3] of dtype ``dt``,
+    the resize rows and columns int32 / f32."""
+    b, c, H, W = sr.shape
+    h0, w0 = xc.shape[2:]
+    for name, t, shape, tdt in (
+        ("sr", sr, (b, c, H, W), dt), ("xc", xc, (b, 3, h0, w0), dt),
+        ("weight", weight, (3, c, 3, 3), dt), ("bias", bias, (3,), dt),
+        ("rows_j0", rows_j0, (H,), torch.int32), ("rows_wy", rows_wy, (H,), torch.float32),
+        ("cols_c0", cols_c0, (W,), torch.int32), ("cols_w", cols_w, (2, W), torch.float32),
+    ):
+        require(t.is_cuda and t.dtype == tdt and t.is_contiguous() and tuple(t.shape) == shape,
+                f"{what}: {name} must be a contiguous {tdt} {shape} CUDA tensor")
+
+
 def tail_fused(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch.Tensor:
     """Tail conv + bilinear skip -> [B, 3, H, W]. CPU tensors take the plain
     version; CUDA tensors launch a kernel: bf16 at C in 16, 32, 48, 64 the
@@ -136,14 +182,7 @@ def tail_fused(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch
     h0, w0 = xc.shape[2:]
     dt = sr.dtype
     dtype_code(sr)
-    for name, t, shape, tdt in (
-        ("sr", sr, (b, c, H, W), dt), ("xc", xc, (b, 3, h0, w0), dt),
-        ("weight", weight, (3, c, 3, 3), dt), ("bias", bias, (3,), dt),
-        ("rows_j0", rows_j0, (H,), torch.int32), ("rows_wy", rows_wy, (H,), torch.float32),
-        ("cols_c0", cols_c0, (W,), torch.int32), ("cols_w", cols_w, (2, W), torch.float32),
-    ):
-        require(t.is_cuda and t.dtype == tdt and t.is_contiguous() and tuple(t.shape) == shape,
-                f"tail: {name} must be a contiguous {tdt} {shape} CUDA tensor")
+    _check("tail", sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias, dt)
     out = torch.empty((b, 3, H, W), dtype=dt, device=sr.device)
     lib = _lib()
     tensor_cores = dt == torch.bfloat16 and c in MMA_CHANNELS
@@ -164,4 +203,25 @@ def tail_fused(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch
     launches["tail"] += 1
     if not tensor_cores and dt != torch.float32:
         out.copy_(out_f)  # the widened route's one rounding of the output to bf16
+    return out
+
+
+def tail_fused_fast(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias) -> torch.Tensor:
+    """The fast tail, all f32 (see the module docstring) -> f32 [B, 3, H, W].
+    CPU tensors take the plain version; CUDA tensors launch
+    ``tail_f32_kernel`` with its bf16 rounding points."""
+    if not sr.is_cuda:
+        return tail_fused_fast_plain(sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias)
+    b, c, H, W = sr.shape
+    h0, w0 = xc.shape[2:]
+    _check("tail fast", sr, xc, rows_j0, rows_wy, cols_c0, cols_w, weight, bias, torch.float32)
+    srk, pitch = tma_part(sr)  # TMA reads rows at a padded pitch
+    out = torch.empty((b, 3, H, W), dtype=torch.float32, device=sr.device)
+    lib = _lib()
+    wpk = pack_tail_weights_f32(weight, bias, fast=True)
+    rc = lib.savsr_tail_f32(ptr(srk), pitch, ptr(xc), ptr(wpk), ptr(rows_j0), ptr(rows_wy),
+                            ptr(cols_c0), ptr(cols_w), ptr(out), b, c, H, W, h0, w0, 1,
+                            sm_count(sr.device), stream_ptr(sr))
+    check_rc(lib, rc, "tail_fused_fast")
+    launches["tail_fast"] += 1
     return out

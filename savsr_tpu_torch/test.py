@@ -11,7 +11,9 @@ and with ``val: save_img`` the SR frames under
 version); asking for CUDA without a card is an error.
 
 ``network_g: conv_precision: split`` evaluates on the split serving tier
-(the split conv's pair carries; STA, STAU and the tail in f32). Not ported
+(the split conv's pair carries; STA, STAU and the tail in f32), and
+``network_g: matmul_precision: default`` on the fast tier (every product
+one bf16 pass with f32 sums, the fast kernels). Not ported
 yet, each raising NotImplementedError with the option's name: ``val:
 bucket_eval`` / ``bucket_auto``, the NIQE metric, the recurrent test sets
 and models.

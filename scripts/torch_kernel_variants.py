@@ -18,7 +18,10 @@ kernel on the f32 plan) and the tail in f32 (``tail_f32``: the CUDA-core
 f32 (``sta_f32``: the CUDA-core kernel); the
 f32 OSConv weight gradient at 8 x 60x60, 192 -> 64, k = 3, padding 1; the
 f32 conv (csrc/conv.cu conv_f32_kernel) at 8 windows of 180x320, 3x3 64 ->
-64 and 1x1 3x64 -> 64. The
+64 and 1x1 3x64 -> 64; the fast tier's conv (``conv_fast``: the split
+kernel with one K segment, csrc/conv.cu conv_wgmma_kernel<3, true>, behind
+the rounding pass of its f32 input) at 8 windows of 180x320, 3x3 64 -> 64
+with an f32 residual. The
 edited variants compute wrong results: their error against the plain
 version is printed only to show which part was switched off. The time a
 variant saves is an upper bound on what that part costs, since the parts
@@ -62,6 +65,15 @@ CONV_F32_COMMON = {
     "no barrier": [("    __syncthreads();  // ... everyone's; and every warp is done with stage t - 1's buffer\n",
                     "")],
 }
+def _rounded_once(p, made={}):
+    """ops/conv.py bf16_part with the input's bf16 copy made at its first
+    call and reused: the fast conv without its rounding pass."""
+    key = (p.data_ptr(), p._version)
+    if key not in made:
+        made[key] = (p.bfloat16(), p.shape[-1])
+    return made[key]
+
+
 VARIANTS = {
     "conv_f32": {**CONV_F32_COMMON, "FMAs and weights of 3 of 9 taps": [
         ("      for (int tap = 0; tap < KS * KS; ++tap) {",
@@ -69,7 +81,7 @@ VARIANTS = {
     "conv_f32_1x1": CONV_F32_COMMON,
     "stau": {
         "full": [],
-        "no bilinear taps": [("    if (!ok[t]) continue;", "    if (true) continue;")],
+        "no bilinear taps": [("    if (!tp.ok[t]) continue;", "    if (true) continue;")],
         "no staging copies": [("    if (p.nrf == 0) return;\n    const long long off = (t % B) * chw;\n"
                                "    stage_issue<CB>",
                                "    if (true) return;\n    const long long off = (t % B) * chw;\n"
@@ -105,11 +117,11 @@ VARIANTS = {
                       '            asm volatile("" ::"f"(w[9 * dy + 3 * dx + k]), "f"(v[j >> 2][(j & 3) + dx]));')],
         "no shared loads in the FMAs": [
             ("    const float4 v = wq[i];", "    const float4 v = make_float4(lane, i, 0.25f, 0.125f);"),
-            ("    const float4 a = *reinterpret_cast<const float4*>(ra + r * TF_BW);\n"
-             "    const float4 q = *reinterpret_cast<const float4*>(rb + r * TF_BW);\n"
-             "    const float e = re[r * TF_BW];",
-             "    const float4 a = make_float4(lane, r, 2.f, 3.f), q = make_float4(r, lane, 4.f, 5.f);\n"
-             "    const float e = 6.f;")],
+            ("    float4 a = *reinterpret_cast<const float4*>(ra + r * TF_BW);\n"
+             "    float4 q = *reinterpret_cast<const float4*>(rb + r * TF_BW);\n"
+             "    float e = re[r * TF_BW];",
+             "    float4 a = make_float4(lane, r, 2.f, 3.f), q = make_float4(r, lane, 4.f, 5.f);\n"
+             "    float e = 6.f;")],
         "no shuffles": [("    const float al = __shfl_sync(~0u, a.w, up);\n"
                          "    const float ar = __shfl_sync(~0u, lane == 0 ? q.x : a.x, down);\n"
                          "    const float bl = __shfl_sync(~0u, lane == 31 ? a.w : q.w, up);\n"
@@ -181,6 +193,37 @@ VARIANTS = {
         "3 of 25 taps": [("    for (int t = 0; t < TAPS; ++t, ++step) {",
                           "    for (int t = 0; t < 3; ++t, ++step) {")],
     },
+    "conv_fast": {
+        "full": [],
+        "no rounding pass": {"bf16_part": lambda p: _rounded_once(p)},
+        "no f32 output stores": [
+            ("        *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);",
+             "        if (v[0] == 12345.f)\n"
+             "          *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);")],
+        "no f32 residual loads": [
+            ("          const float2 q = *reinterpret_cast<const float2*>(res_f + idx);\n"
+             "          r[0] = q.x, r[1] = q.y;",
+             "          r[0] = 0.25f, r[1] = 0.5f;")],
+        "no f32 residual loads or output stores": [
+            ("        *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);",
+             "        if (v[0] == 12345.f)\n"
+             "          *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);"),
+            ("          const float2 q = *reinterpret_cast<const float2*>(res_f + idx);\n"
+             "          r[0] = q.x, r[1] = q.y;",
+             "          r[0] = 0.25f, r[1] = 0.5f;")],
+        "epilogue pointers __restrict__": [
+            ("    const float* bias, const float* pre, const float* scale, long long s_bstride, "
+             "int lrelu,\n"
+             "    float la, float lb, const __nv_bfloat16* res_hi, const __nv_bfloat16* res_lo,\n"
+             "    const float* res_f, __nv_bfloat16* out_hi, __nv_bfloat16* out_lo, float* out_f) {",
+             "    const float* __restrict__ bias, const float* __restrict__ pre,\n"
+             "    const float* __restrict__ scale, long long s_bstride, int lrelu, float la, float lb,\n"
+             "    const __nv_bfloat16* __restrict__ res_hi, const __nv_bfloat16* __restrict__ res_lo,\n"
+             "    const float* __restrict__ res_f, __nv_bfloat16* __restrict__ out_hi,\n"
+             "    __nv_bfloat16* __restrict__ out_lo, float* __restrict__ out_f) {")],
+        "no epilogue": [("      split_epilogue(acc, tl, warp, lane, wg,",
+                         "      if (acc[0] == 12345.f) split_epilogue(acc, tl, warp, lane, wg,")],
+    },
     "osconv_dagg": {
         "full": [],
         "no staging copies": [
@@ -203,7 +246,8 @@ VARIANTS = {
 }
 
 
-SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv", "stau_f32": "stau",
+SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv", "conv_fast": "conv",
+          "stau_f32": "stau",
           "sta_f32": "sta", "tail_f32": "tail"}
 
 
@@ -317,6 +361,11 @@ def main(argv=None) -> int:
             [cs._rand(rng, (b, c, h, w), torch.float32, device) for _ in range(3)],
             cs._rand(rng, (c, 3 * c, 1, 1), torch.float32, device, (3 * c) ** -0.5),
             cs._rand(rng, (c,), torch.float32, device, 0.1)), {}),
+        "conv_fast": (conv, "conv_fused_fast", (
+            [cs._rand(rng, (b, c, h, w), torch.float32, device)],
+            cs._rand(rng, (c, c, 3, 3), torch.float32, device, (9 * c) ** -0.5),
+            cs._rand(rng, (c,), torch.float32, device, 0.1)),
+            {"lrelu": (0.6, 0.4), "residual": cs._rand(rng, (b, c, h, w), torch.float32, device)}),
         "osconv_dagg": (osconv, "osconv_dagg", (
             cs._rand(rng, (tb, 192, th, tw), torch.float32, device),
             cs._rand(rng, (tb, 64, th, tw), torch.float32, device), 3, 3, 1), {}),
@@ -329,7 +378,8 @@ def main(argv=None) -> int:
             mod, fn_name, fn_args, kw = calls[kern]
             real = mod._lib()
             fn = getattr(mod, fn_name)
-            want = getattr(mod, fn_name + "_plain")(*fn_args).float()
+            want = getattr(mod, fn_name + "_plain")(
+                *fn_args, **{k: v for k, v in kw.items() if k != "plan"}).float()
             first = fn_args[0][0] if isinstance(fn_args[0], list) else fn_args[0]
             print(f"[variants] {kern} reference: one read of its {tuple(first.shape)} "
                   f"{str(first.dtype)[6:]} input (torch.Tensor.sum) ms "

@@ -8,7 +8,12 @@ machine with a card:
 
 (``--noconftest``: the repo's conftest imports JAX, which the port's
 machines need not have). Tolerances as in chip_smoke.py: f32 1e-4 x
-max|plain| (summation order), bf16 2e-2 x max|plain| (one bf16 rounding).
+max|plain| (summation order), bf16 2e-2 x max|plain| (one bf16 rounding);
+the fast tier's kernels f32's where they round only their inputs (the
+convs, STA), and where they round values inside (STAU, the tail) max abs one
+bf16 ulp of the output's scale, 2^-8, and mean abs 1e-5 of it (a rounding
+point misplaced for every value passes the first and fails the second:
+scripts/fast_fault_check.py).
 """
 
 import os
@@ -21,12 +26,16 @@ from savsr_tpu_torch import ops
 from savsr_tpu_torch.archs.arch_util import float32_precision
 from savsr_tpu_torch.archs.savsr_arch import (SAVSR, STAUpsample, _stau_head, get_hw,
                                               stau_sampler_planes, tail_operands)
-from savsr_tpu_torch.ops.conv import (Pair, conv_fused, conv_fused_plain, conv_fused_split,
+from savsr_tpu_torch.ops.conv import (Pair, conv_fused, conv_fused_fast, conv_fused_fast_plain,
+                                      conv_fused_plain, conv_fused_split,
                                       conv_fused_split_plain, pair_merge, pair_split)
-from savsr_tpu_torch.ops.sta import sta_conv_fused, sta_conv_fused_plain
+from savsr_tpu_torch.ops.sta import (sta_conv_fused, sta_conv_fused_fast,
+                                     sta_conv_fused_fast_plain, sta_conv_fused_plain)
 from savsr_tpu_torch.ops.stau import (plan_geometry, stau_upsample_fused,
+                                      stau_upsample_fused_fast, stau_upsample_fused_fast_plain,
                                       stau_upsample_fused_plain, stau_window_plan)
-from savsr_tpu_torch.ops.tail import tail_fused, tail_fused_plain
+from savsr_tpu_torch.ops.tail import (tail_fused, tail_fused_fast, tail_fused_fast_plain,
+                                      tail_fused_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -51,7 +60,9 @@ def _rand(rng, shape, dtype, dev, std=1.0):
 
 
 @torch.no_grad()
-def _agree(kernel_fn, plain_fn, dtype, name):
+def _agree(kernel_fn, plain_fn, dtype, name, tol=None, mean_tol=None):
+    """``tol`` (relative to max|plain|) overrides TOL[dtype] for the max abs
+    error; ``mean_tol`` (relative too) also bounds the mean abs error."""
     before = ops.launches[name]
     got = kernel_fn().float()
     torch.cuda.synchronize()
@@ -59,8 +70,11 @@ def _agree(kernel_fn, plain_fn, dtype, name):
     want = plain_fn().float()
     assert got.shape == want.shape
     assert torch.isfinite(got).all()
-    err = float((got - want).abs().max())
-    assert err <= TOL[dtype] * float(want.abs().max()), err
+    diff, scale = (got - want).abs(), float(want.abs().max())
+    err = float(diff.max())
+    assert err <= (TOL[dtype] if tol is None else tol) * scale, err
+    if mean_tol is not None:
+        assert float(diff.mean()) <= mean_tol * scale, float(diff.mean())
     return got
 
 
@@ -787,3 +801,122 @@ def test_osconv_agg_f32_training_shape_splits(dev):
     from savsr_tpu_torch.ops.conv import f32_chunks
 
     assert f32_chunks(8, [192], 64, 60, 60, 3, sm_count(dev))[0] > 1
+
+
+# ---------------------------------------------------------------------------
+# the fast tier's kernels (f32 at default precision: one bf16 pass)
+# ---------------------------------------------------------------------------
+
+FAST_INNER_TOL, FAST_INNER_MEAN_TOL = 2.0 ** -8, 1e-5
+
+
+@pytest.mark.parametrize("case", CONV, ids=[f"k{c[0]}-{sum(c[1])}to{c[2]}" for c in CONV])
+def test_fast_conv_kernel_matches_plain(dev, case):
+    """The fast conv (the split kernel, one K segment a part, on the parts
+    rounded to bf16) against its plain version at the bf16 conv's ragged
+    shapes, f32 tolerance, and a second launch bit for bit."""
+    k, chans, cout, per_sample, full, h, w, frames = case
+    rng = np.random.default_rng(sum(chans) + cout + 1)
+    b, f32 = 2, torch.float32
+    cin = sum(chans)
+    if frames:
+        clip = _rand(rng, (b, len(chans), chans[0], h, w), f32, dev)
+        parts = [clip[:, i] for i in range(len(chans))]
+    else:
+        parts = [_rand(rng, (b, c, h, w), f32, dev) for c in chans]
+    weight = _rand(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), f32, dev,
+                   (cin * k * k) ** -0.5)
+    kw = dict(bias=_rand(rng, (cout,), f32, dev, 0.1))
+    if full:
+        kw.update(pre_add=_rand(rng, (b, cout, h, w), f32, dev),
+                  out_scale=torch.from_numpy(rng.uniform(0.5, 1.5, (b, cout))
+                                             .astype(np.float32)).to(dev),
+                  lrelu=(0.6, 0.4), residual=_rand(rng, (b, cout, h, w), f32, dev))
+    name = "conv3x3_fast" if k == 3 else "conv1x1_fast"
+    got = _agree(lambda: conv_fused_fast(parts, weight, **kw),
+                 lambda: conv_fused_fast_plain(parts, weight, **kw), f32, name)
+    with torch.no_grad():
+        assert torch.equal(got, conv_fused_fast(parts, weight, **kw))
+
+
+@pytest.mark.parametrize("c,h,w", [(16, 5, 7), (32, 9, 18), (64, 6, 33)])
+def test_fast_sta_kernel_matches_plain(dev, c, h, w):
+    rng = np.random.default_rng(c + h + 1)
+    f32 = torch.float32
+    x, st = _rand(rng, (2, c, h, w), f32, dev), _rand(rng, (2, c, h, w), f32, dev)
+    wk = _rand(rng, (25 * c, c, 1, 1), f32, dev, c ** -0.5)
+    bk = _rand(rng, (25 * c,), f32, dev, 0.1)
+    _agree(lambda: sta_conv_fused_fast(x, st, wk, bk),
+           lambda: sta_conv_fused_fast_plain(x, st, wk, bk), f32, "sta_fast")
+
+
+def _stau_fast_case(dev, b, c, hw, scale, seed, large=False):
+    m = STAUpsample(c)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * 0.3))
+    m.to(dev)
+    h, w = hw
+    with torch.no_grad():
+        pix = stau_sampler_planes(_stau_head(m, h, w, scale, torch.float32, dev), scale, h, w)
+    if large:
+        off = torch.from_numpy(rng.uniform(-24, 24, (4, 16, 64)).astype(np.float32)).to(dev)
+        pix[:4, :16, :64] += off
+    plan = stau_window_plan(pix, h, w, *plan_geometry(torch.float32, fast=True))
+    x, sta = (_rand(rng, (b, c, h, w), torch.float32, dev) for _ in range(2))
+    args = (x, sta, pix, m.weight_compress, m.weight_expand, m.fusion.weight, m.fusion.bias)
+    got = _agree(lambda: stau_upsample_fused_fast(*args, plan=plan),
+                 lambda: stau_upsample_fused_fast_plain(*args), torch.float32, "stau_fast",
+                 tol=FAST_INNER_TOL, mean_tol=FAST_INNER_MEAN_TOL)
+    with torch.no_grad():
+        assert torch.equal(got, stau_upsample_fused_fast(*args, plan=plan))
+    return plan
+
+
+@pytest.mark.parametrize("case", STAU_BF16, ids=[f"b{c[0]}-c{c[1]}-{c[2][0]}x{c[2][1]}-x{c[3][0]}"
+                                                 for c in STAU_BF16])
+def test_fast_stau_kernel_matches_plain(dev, case):
+    """The fast STAU (the bf16 kernel's fast mode: f32 f0 in the residual,
+    sampled again per k-block; f32 output) at the bf16 kernel's shapes."""
+    plan = _stau_fast_case(dev, *case, seed=sum(case[2]) + case[1] + 1)
+    assert bool((plan[:, 4] > 0).all())
+
+
+@pytest.mark.parametrize("b,c", [(1, 64), (8, 32)])
+def test_fast_stau_kernel_direct_tiles(dev, b, c):
+    plan = _stau_fast_case(dev, b, c, (20, 40), (4.0, 4.0), seed=c + 1, large=True)
+    assert 0 < int((plan[:, 4] == 0).sum()) < plan.shape[0]
+
+
+@pytest.mark.parametrize("case", TAIL_F32, ids=[f"b{c[0]}-c{c[1]}-{c[2]}x{c[3]}"
+                                                for c in TAIL_F32])
+def test_fast_tail_kernel_matches_plain(dev, case):
+    args = _tail_args(dev, *case, torch.float32, seed=case[1] + case[2] + 1)
+    got = _agree(lambda: tail_fused_fast(*args), lambda: tail_fused_fast_plain(*args),
+                 torch.float32, "tail_fast", tol=FAST_INNER_TOL, mean_tol=FAST_INNER_MEAN_TOL)
+    assert got.dtype == torch.float32
+
+
+def test_small_fast_forward_on_the_card(dev):
+    """The small config's fast forward on the card runs the five fast kernels
+    and nothing else, no plain version on the card, and lands within the
+    tier's floor of the CPU's fast forward (plain versions): max 2e-3,
+    mean 3e-4 (tests/test_torch_fast.py measures the floor, a reversed sum
+    order, at 5.3e-4 / 1.1e-4)."""
+    io = np.load(os.path.join(GOLDEN_DIR, "savsr_small_forward.npz"))
+    state = {k: torch.from_numpy(v) for k, v in
+             np.load(os.path.join(GOLDEN_DIR, "savsr_small_state.npz")).items()}
+    x = torch.from_numpy(io["x"])
+    model = SAVSR(**SMALL_CFG, matmul_precision="default").eval()
+    model.load_state_dict(state)
+    cpu = model(x, (1.5, 3.5))
+    model.to(dev)
+    ops.reset_counts()
+    y = model(x.to(dev), (1.5, 3.5)).cpu()
+    fast = ("conv3x3_fast", "conv1x1_fast", "sta_fast", "stau_fast", "tail_fast")
+    assert all(ops.launches[k] > 0 for k in fast), ops.launches
+    assert not any(v for k, v in ops.launches.items() if k not in fast), ops.launches
+    assert not any(ops.plain_cuda_calls.values()), ops.plain_cuda_calls
+    err = (y - cpu).abs()
+    assert float(err.max()) <= 2e-3 and float(err.mean()) <= 3e-4, (err.max(), err.mean())

@@ -16,6 +16,16 @@ TINY = dict(num_feat=16, w1_num_block=2, w2_num_block=1, n_resgroups=1, n_resblo
 SCALES = {"Vid4_x2": (2.0, 2.0), "Vid4_x1.5_x3.5": (1.5, 3.5)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's small CPU tensors: beside the
+    suite's other workers more threads only contend for the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Two 4-frame clips of 36x44 (GT) and their 9x11 LR frames, and a

@@ -13,6 +13,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(num_feat=16, w1_num_block=2, w2_num_block=1, n_resgroups=1, n_resblocks=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's small CPU tensors: beside the
+    suite's other workers more threads only contend for the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def clip_dir(tmp_path_factory):
     import cv2

@@ -32,6 +32,16 @@ SMALL_CFG = dict(num_in_ch=3, num_feat=16, num_frame=7, slid_win=3, fusion_win=5
 SCALE = (1.5, 3.5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's small CPU tensors: beside the
+    suite's other workers more threads only contend for the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _state():
     return dict(np.load(os.path.join(GOLDEN_DIR, "savsr_small_state.npz")))
 
