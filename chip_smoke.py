@@ -7,7 +7,8 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. build    nvcc compiles the port's CUDA sources (savsr_tpu_torch/csrc/*.cu,
             one process per source, all at once) for sm_90a; prints ptxas's
-            registers and spills and the tensor-core instructions in the
+            registers, spills and any serialised-wgmma line (C7514 /
+            C7518), and the tensor-core instructions in the
             SASS of the libraries with bf16 tensor-core kernels: HGMMA
             (wgmma) in conv, osconv and sta (the bf16 conv, which also runs
             the bf16 OSConv forward and dx, the bf16 OSConv weight gradient
@@ -105,8 +106,8 @@ Phases (each prints its lines; any failure exits non-zero):
             of phase 9).
 11. fast    the fast serving tier (f32 weights and carries at
             matmul_precision: default: every product one bf16 pass, f32
-            sums; the convs on conv_wgmma_kernel<K, true> with one K segment
-            a part, STA and the tail on their CUDA-core kernels with the
+            sums; the convs on conv_fast_kernel<K, RES>, which rounds its f32
+            parts itself, STA and the tail on their CUDA-core kernels with the
             tier's rounding points, STAU on stau_mma_kernel<CB, true>): each
             fast kernel against its plain version at 8 x 180x320, C = 64
             (the 3x3 64->64 with an f32 residual, the 3-part merge, the 1x1
@@ -117,7 +118,8 @@ Phases (each prints its lines; any failure exits non-zero):
             scale and mean abs 1e-5 of it, which a rounding point misplaced
             for every value exceeds;
             the library time of the convs is F.conv2d in bf16 on the rounded
-            input, the nearest single call); the flagship fast forward on
+            input, the nearest single call, printed beside the rounding of
+            the parts plus that call); the flagship fast forward on
             the 45x80 golden input at x4, x(1.5,3.5), x3.05 against the
             strict forward on the card (deviation PSNR at least the bf16
             tier's, max abs at least 10x the split tier's of phase 10) with
@@ -126,7 +128,9 @@ Phases (each prints its lines; any failure exits non-zero):
             zeroed just before, read just after; every fast kernel launched
             as often as the bf16 run launches its own, no other kernel and
             no plain version); one profiled fast forward of 8 windows
-            (device busy, the fast conv's share, the rounding passes); and
+            (device busy, the fast conv's share, PyTorch's copy kernels by
+            what they copy: the conv parts, STA's st, STAU's inputs, the
+            tail's pitch copy, the rest); and
             the shipped Vid4 config with matmul_precision: default on its
             x4, x1.1 and x(1.5,3.5) datasets (psnr_y and ssim_y against the
             strict sweep of phase 9).
@@ -139,6 +143,7 @@ the line before it holds the per-kernel results as one JSON object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -240,8 +245,8 @@ CUDA_KERNELS = {
     ("osconv_agg", "bf16"): "conv_wgmma_kernel<3, false>",
     ("osconv_agg", "f32"): "conv_f32_kernel<3, 1> + conv_f32_reduce_kernel",
     ("osconv_dagg", "bf16"): "osconv_dagg_wgmma_kernel<3> + dagg_reduce_kernel",
-    ("conv3x3_fast", "fast"): "conv_wgmma_kernel<3, true>",
-    ("conv1x1_fast", "fast"): "conv_wgmma_kernel<1, true>",
+    ("conv3x3_fast", "fast"): "conv_fast_kernel<3, true>",
+    ("conv1x1_fast", "fast"): "conv_fast_kernel<1, false>",
     ("sta_fast", "fast"): "sta_f32_kernel<64, false>",
     ("stau_fast", "fast"): "stau_mma_kernel<4, true>",
     ("tail_fast", "fast"): "tail_f32_kernel<true>",
@@ -863,6 +868,58 @@ def device_rows(prof) -> list:
                   key=lambda r: -r[1])
 
 
+@contextlib.contextmanager
+def copy_ranges():
+    """Profiler ranges around what makes PyTorch copies in a fast forward:
+    the fast conv's part maps (ops/conv.py tma_part: pitch-padded copies of
+    widths off a multiple of 4), STA's wrapper (its rounding pass of st),
+    STAU's wrapper (its inputs rounded to bf16) and the tail's pitch copy
+    (ops/tail.py tma_part)."""
+    from savsr_tpu_torch.archs import savsr_arch
+    from savsr_tpu_torch.ops import conv as conv_ops, tail as tail_ops
+
+    targets = [(conv_ops, "tma_part", "conv parts"),
+               (savsr_arch, "sta_conv_fused_fast", "STA st"),
+               (savsr_arch, "stau_upsample_fused_fast", "STAU inputs"),
+               (tail_ops, "tma_part", "tail pitch")]
+    saved = []
+    for mod, name, label in targets:
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _label=f"copies: {label}", **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def copies_by_source(prof) -> dict:
+    """{what is copied: (device ms, launches)} of a profile's PyTorch copy
+    kernels: each is credited to the innermost ``copy_ranges`` range around
+    the op that launched it, else to "other" (the architecture's own casts,
+    concats and contiguous copies)."""
+    out = {}
+    for e in prof.events():
+        ks = [k for k in e.kernels if "copy" in k.name.lower()]
+        if not ks:
+            continue
+        label, p = "other", e.cpu_parent
+        while p is not None:
+            if p.name.startswith("copies: "):
+                label = p.name[len("copies: "):]
+                break
+            p = p.cpu_parent
+        ms, n = out.get(label, (0.0, 0))
+        out[label] = (ms + sum(k.duration for k in ks) / 1e3, n + len(ks))
+    return out
+
+
 def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dict:
     """Device time by kernel over one serving forward of ``windows`` windows
     at ``tier`` (torch.profiler), against the forward's unprofiled time; for
@@ -879,7 +936,8 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
     statics = model.stau_statics(LR_HW, SCALE, dtype=dt, device=device)
     fwd_ms = timed_ms(lambda: model(x, SCALE, stau_statics=statics), device, reps=3, iters=1)
     ops.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            (copy_ranges() if tier == "fast" else contextlib.nullcontext()):
         model(x, SCALE, stau_statics=statics)
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -892,7 +950,7 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
     for name, ms, count in rows[:12]:
         log(f"[profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} {name[:90]}")
     port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
-        "conv_f32", "conv_f32_reduce", "conv_wgmma", "sta_f32", "sta_mma", "stau_f32", "stau_mma",
+        "conv_f32", "conv_f32_reduce", "conv_wgmma", "conv_fast", "sta_f32", "sta_mma", "stau_f32", "stau_mma",
         "tail_f32", "tail_mma"))]
     result = {"tier": tier, "launches": launches}
     port_ms = sum(r[1] for r in port)
@@ -901,21 +959,24 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
         f"device events")
     result.update(forward_ms=fwd_ms, device_ms=total, port_ms=port_ms)
     if tier == "fast":
-        fc = [r for r in rows if "conv_wgmma" in r[0]]
+        fc = [r for r in rows if "conv_fast" in r[0]]
         fc_ms = sum(r[1] for r in fc)
-        # the rounding passes: each fast conv's parts cast to bf16 (ops/conv.py
-        # bf16_part), STA's st and STAU's inputs; PyTorch's copy kernels
-        casts = [r for r in rows if "copy" in r[0].lower()]
-        cast_ms = sum(r[1] for r in casts)
         log(f"[profile] fast: the fast conv kernels {fc_ms:.2f} ms = "
             f"{100 * fc_ms / max(total, 1e-9):.1f}% of device busy {total:.2f} ms, in "
             f"{sum(r[2] for r in fc)} device launches (wrapper calls conv3x3_fast "
             f"{launches['conv3x3_fast']}, conv1x1_fast {launches['conv1x1_fast']}): "
             + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in fc))
-        log(f"[profile] fast: copy kernels (the bf16 rounding passes and the pitch copies) "
-            f"{cast_ms:.2f} ms in {sum(r[2] for r in casts)} launches: "
-            + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in casts[:4]))
-        result.update(fast_conv_ms=fc_ms, copy_ms=cast_ms)
+        # PyTorch's copy kernels, by what they copy: the fast conv's parts
+        # (pitch copies only: the kernel rounds its f32 parts itself), STA's
+        # st and STAU's inputs (their rounding passes), the tail's pitch copy,
+        # and the architecture's own
+        copies = copies_by_source(prof)
+        cast_ms = sum(ms for ms, _ in copies.values())
+        log(f"[profile] fast: copy kernels {cast_ms:.2f} ms in "
+            f"{sum(n for _, n in copies.values())} launches: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in sorted(copies.items())))
+        result.update(fast_conv_ms=fc_ms, copy_ms=cast_ms,
+                      copies={k: {"ms": ms, "launches": n} for k, (ms, n) in copies.items()})
         return result
     if tier == "strict":
         f32 = [r for r in rows if "conv_f32" in r[0]]
@@ -1592,7 +1653,9 @@ def fast_conv_case(rng, label, k, chans, cout, per_sample, act, res, device, b=W
     parts, weight, residual and output, the products of their bf16 values.
     Bound: the bf16 conv's operations at the bf16 tensor-core rate against
     the f32 bytes (parts, weight, residual in; output out). Library: F.conv2d
-    in bf16 on the inputs rounded to bf16, the nearest single call."""
+    in bf16 on the inputs rounded to bf16, the nearest single call; and
+    ``library_round_ms``, the rounding of the f32 parts to bf16 and that
+    call, the yardstick for a conv that takes f32 inputs."""
     h, w = hw
     cin = sum(chans)
     f32 = torch.float32
@@ -1612,14 +1675,26 @@ def fast_conv_case(rng, label, k, chans, cout, per_sample, act, res, device, b=W
                             padding=k // 2, groups=b)
         return F.conv2d(x_b, w_b, b_b, padding=k // 2)
 
+    def library_round():
+        xs = [p.to(torch.bfloat16) for p in parts]
+        x = torch.cat(xs, 1) if len(xs) > 1 else xs[0]
+        if per_sample:
+            return F.conv2d(x.reshape(1, b * cin, h, w), w_b.reshape(b * cout, cin, k, k),
+                            padding=k // 2, groups=b)
+        return F.conv2d(x, w_b, b_b, padding=k // 2)
+
     name = "conv3x3_fast" if k == 3 else "conv1x1_fast"
     flops = 2.0 * k * k * cin * cout * h * w * b
     io = nbytes(*parts, weight, bias, residual) + b * cout * h * w * 4
-    return check(name, label,
-                 lambda: conv_fused_fast(parts, weight, bias, lrelu=lrelu, residual=residual),
-                 lambda: conv_fused_fast_plain(parts, weight, bias, lrelu=lrelu,
-                                               residual=residual),
-                 library, flops, io, torch.bfloat16, device, tol=TOL[f32], dt_name="fast")
+    row = check(name, label,
+                lambda: conv_fused_fast(parts, weight, bias, lrelu=lrelu, residual=residual),
+                lambda: conv_fused_fast_plain(parts, weight, bias, lrelu=lrelu,
+                                              residual=residual),
+                library, flops, io, torch.bfloat16, device, tol=TOL[f32], dt_name="fast")
+    row["library_round_ms"] = timed_ms(library_round, device)
+    log(f"[kernels]     the parts rounded to bf16 + the library call: "
+        f"{row['library_round_ms']:.4f} ms")
+    return row
 
 
 def fast_sta_case(rng, model, device, b=WINDOWS, hw=LR_HW):
@@ -1797,7 +1872,9 @@ def phase_build() -> None:
         if os.path.isfile(log_path):
             with open(log_path) as f:
                 for line in f:
-                    if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    # C7514 / C7518: ptxas serialised a kernel's wgmmas
+                    if ("registers" in line or "spill" in line or "Compiling entry" in line
+                            or "wgmma" in line or "C751" in line):
                         log(f"[build] {name}: {line.strip()}")
     for name, op in TENSOR_CORE_OPS.items():
         n = tensor_core_count(build.library_path(name))

@@ -24,7 +24,8 @@
 // the ridge (~290 FLOP per byte) and the wider convs are bound by
 // operations.
 //
-// Two kernels, one per type:
+// Three kernels: one per type, and one for the fast tier's f32 at one bf16
+// pass:
 //
 // * f32 (conv_f32_kernel, CUDA cores): an implicit GEMM whose aim is to keep
 //   the FMA pipe issuing. A block computes 64 output channels x 4 rows x 64
@@ -113,10 +114,26 @@
 //   64->64 at 8x180x320: 0.103 ms of operations, 0.070 ms of bytes, 0.106
 //   with a pair residual).
 //
+// * fast (conv_fast_kernel): the fast serving tier's conv (f32 weights and
+//   carries at matmul_precision: default), the TPU kernels' f32 mode at
+//   DEFAULT precision: the parts and the weight rounded to bf16 (round to
+//   nearest even), exact products summed in f32, the epilogue and the
+//   output in f32. The bf16 kernel's tiles and wgmmas, fed from f32: the
+//   producer brings each chunk's f32 slab and halo boxes by TMA into an f32
+//   ring, three converter warps round them into the bf16 stage's three
+//   shifted B buffers, and the consumers read the f32 residual into
+//   registers as a tile starts. Bound: the bf16 conv's operations against
+//   the f32 bytes; at 64->64 that is bytes (3x3 at 8x180x320 with an f32
+//   residual: 0.106 ms of bytes, 0.034 of operations), so the design keeps
+//   device memory streaming: input chunks in flight ahead of the MMAs,
+//   residual loads under them, no bf16 copy of any input, an epilogue that
+//   is one short run of code.
+//
 // Layout: NCHW. Input channel parts are read through separate pointers (f32)
-// or tensor maps (bf16, split), each with its own batch stride, so a channel
-// concat is never copied. Weights come packed by the wrapper (ops/conv.py
-// pack_weight_f32 / pack_weight), shared or per sample.
+// or tensor maps (bf16, split, fast), each with its own batch stride, so a
+// channel concat is never copied. Weights come packed by the wrapper
+// (ops/conv.py pack_weight_f32 / pack_weight / pack_weight_split /
+// pack_weight_fast), shared or per sample.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -583,9 +600,13 @@ __device__ __forceinline__ uint32_t straddle(uint32_t lo, uint32_t hi) {
 
 // The split conv's epilogue on a consumer warpgroup's fragments (the layout
 // of the bf16 epilogue below), in f32, in the TPU order: + bias, + pre_add,
-// x out_scale, abs-form LeakyReLU, + residual (a pair's hi + lo, or f32);
-// written as a pair (hi = bf16(v), lo = bf16(v - hi)) or, with out_lo
-// null, as f32. Null pointers switch a term off.
+// x out_scale, abs-form LeakyReLU, + residual (RES 2: a pair's hi + lo, 1:
+// f32, 0: none); written as a pair (PAIR_OUT: hi = bf16(v), lo = bf16(v -
+// hi)) or as f32. Null pointers switch the other terms off. The kernel
+// picks the (RES, PAIR_OUT) instance by a uniform branch, so a launch runs
+// one short body, not one that holds every path (9.3k SASS instructions,
+// whose fetching cost the fast route ~0.1 ms a call).
+template <int RES, bool PAIR_OUT>
 __device__ __forceinline__ void split_epilogue(
     const float (&acc)[64], const Tile& tl, int warp, int lane, int wg, int H, int W, int Cout,
     const float* bias, const float* pre, const float* scale, long long s_bstride, int lrelu,
@@ -615,11 +636,11 @@ __device__ __forceinline__ void split_epilogue(
           const float2 q = *reinterpret_cast<const float2*>(pre + idx);
           p[0] = q.x, p[1] = q.y;
         }
-        if (res_lo) {
+        if (RES == 2) {
           const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res_hi + idx));
           const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res_lo + idx));
           r[0] = h.x + l.x, r[1] = h.y + l.y;
-        } else if (res_f) {
+        } else if (RES == 1) {
           const float2 q = *reinterpret_cast<const float2*>(res_f + idx);
           r[0] = q.x, r[1] = q.y;
         }
@@ -628,8 +649,8 @@ __device__ __forceinline__ void split_epilogue(
         for (int c = 0; c < 2; ++c) {
           if (c == nv) break;
           if (pre) p[c] = pre[idx + c];
-          if (res_lo) r[c] = __bfloat162float(res_hi[idx + c]) + __bfloat162float(res_lo[idx + c]);
-          else if (res_f) r[c] = res_f[idx + c];
+          if (RES == 2) r[c] = __bfloat162float(res_hi[idx + c]) + __bfloat162float(res_lo[idx + c]);
+          else if (RES == 1) r[c] = res_f[idx + c];
         }
       }
 #pragma unroll
@@ -637,9 +658,9 @@ __device__ __forceinline__ void split_epilogue(
         if (pre) v[c] += p[c];
         v[c] *= sv;
         if (lrelu) v[c] = la * v[c] + lb * fabsf(v[c]);
-        if (res_lo || res_f) v[c] += r[c];
+        if (RES) v[c] += r[c];
       }
-      if (out_lo) {
+      if (PAIR_OUT) {
         if (vec) {
           const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
           const float2 hf = __bfloat1622float2(hi);
@@ -853,11 +874,25 @@ conv_wgmma_kernel(const __grid_constant__ typename std::conditional<SPLIT, Split
     // 16*(warp%4) + lane/4 + 8j, pixel n = 8i + 2*(lane%4) + c of the
     // warpgroup's 2 x 64 tile (row n / 64, column n % 64)
     if constexpr (SPLIT) {
-      split_epilogue(acc, tl, warp, lane, wg, H, W, Cout, static_cast<const float*>(bias_),
-                     static_cast<const float*>(pre_), scale, s_bstride, lrelu, la, lb,
-                     static_cast<const __nv_bfloat16*>(res_), res_lo,
-                     static_cast<const float*>(res_), static_cast<__nv_bfloat16*>(out_), out_lo,
-                     static_cast<float*>(out_));
+      const float* bias = static_cast<const float*>(bias_);
+      const float* pre = static_cast<const float*>(pre_);
+      const __nv_bfloat16* res_hi = static_cast<const __nv_bfloat16*>(res_);
+      const float* res_f = static_cast<const float*>(res_);
+      __nv_bfloat16* out_hi = static_cast<__nv_bfloat16*>(out_);
+      float* out_f = static_cast<float*>(out_);
+#define SPLIT_EPILOGUE(R, P)                                                                   \
+  split_epilogue<R, P>(acc, tl, warp, lane, wg, H, W, Cout, bias, pre, scale, s_bstride, lrelu, \
+                       la, lb, res_hi, res_lo, res_f, out_hi, out_lo, out_f)
+      if (out_lo) {
+        if (res_lo) SPLIT_EPILOGUE(2, true);
+        else if (res_) SPLIT_EPILOGUE(1, true);
+        else SPLIT_EPILOGUE(0, true);
+      } else {
+        if (res_lo) SPLIT_EPILOGUE(2, false);
+        else if (res_) SPLIT_EPILOGUE(1, false);
+        else SPLIT_EPILOGUE(0, false);
+      }
+#undef SPLIT_EPILOGUE
       continue;
     }
     const long long HW = (long long)H * W;
@@ -912,6 +947,381 @@ conv_wgmma_kernel(const __grid_constant__ typename std::conditional<SPLIT, Split
           }
         }
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fast: f32 in and out, one bf16 pass (conv_fast_kernel)
+// ---------------------------------------------------------------------------
+
+// The tiles, the K walk and the consumers' wgmmas are the bf16 kernel's;
+// the parts arrive in f32 and are rounded to bf16 in shared memory. Per
+// 16-channel chunk the producer warp brings the f32 slab [SLAB rows][16
+// ch][64 px] (and, 3x3, a 4-pixel f32 halo box on each side) by TMA into an
+// f32 ring; three converter warps round it to nearest even into the bf16
+// stage's three B-operand buffers (dx = 0, 1, 2: the lines shifted by one
+// pixel each way, neighbours by warp shuffles, the ends from the halos),
+// each line written in the 128-byte swizzle TMA would have given it, and
+// bring the chunk's weights into the stage by a bulk copy. The f32 ring runs
+// ahead of the bf16 ring, so device memory stays busy through the
+// consumers' epilogue; the residual tile is loaded into registers when a
+// tile starts, under its MMAs.
+constexpr int FAST_MAPS = 10;                            // parts a launch
+constexpr int FX_PRODUCER_WARP = TC_CONSUMERS * 4;       // warp 8
+constexpr int FX_CONVERTERS = 3;                         // warps 9-11
+constexpr int FX_THREADS = (FX_PRODUCER_WARP + 1 + FX_CONVERTERS) * 32;
+constexpr int FX_HALO_PX = 4;                            // TMA's 16-byte granule in f32
+constexpr int F32_ROW = TC_CI * TC_COLS * 4;             // 4 KB: one f32 slab row
+constexpr int FX_CONSUMER_REGS = 224, FX_OTHER_REGS = 56;  // setmaxnreg split of 65,536
+static_assert(TC_CONSUMERS * 128 * FX_CONSUMER_REGS + 128 * FX_OTHER_REGS <= 65536,
+              "the register split fits the SM");
+
+// Per part, the f32 maps (W, C, H, B): the slab (box 64 x 16 x SLAB) and,
+// 3x3, the halo (box 4 x 16 x SLAB); no swizzle.
+struct FastParts {
+  CUtensorMap center[FAST_MAPS];
+  CUtensorMap halo[FAST_MAPS];
+  int c[FAST_MAPS];
+  int n;
+};
+
+template <int KS>
+struct FxCfg {
+  static constexpr int HALO = KS / 2;
+  static constexpr int SLAB = TC_ROWS + 2 * HALO;
+  static constexpr int KK = KS * KS;
+  static constexpr int LINES = SLAB * TC_CI;  // f32 lines of 64 px in a chunk
+  // bf16 stage: the B buffers (dx = 1, 0, 2) and the weights, as TcCfg
+  static constexpr int BUF = SLAB * ROW_BYTES;
+  static constexpr int SHIFT0 = BUF, SHIFT2 = 2 * BUF;
+  static constexpr int W_OFF = KS == 3 ? 3 * BUF : BUF;
+  static constexpr int W_BYTES = KK * TAP_BYTES;
+  static constexpr int BF_BYTES = W_OFF + W_BYTES;
+  // f32 stage: the slab, then (3x3) the left and right halo boxes
+  static constexpr int HALO_OFF = SLAB * F32_ROW;
+  static constexpr int HALO_SIDE = LINES * FX_HALO_PX * 4;
+  static constexpr int F32_BYTES = HALO_OFF + (KS == 3 ? 2 * HALO_SIDE : 0);
+  // 3x3: 2 x 54 KB + 2 x 27 KB; 1x1: 4 x 10 KB + 4 x 16 KB (more f32 stages
+  // leave L1 less room for the residual loads in flight and ran slower)
+  static constexpr int BF_STAGES = KS == 3 ? 2 : 4;
+  static constexpr int F32_STAGES = KS == 3 ? 2 : 4;
+  static constexpr int F32_BASE = BF_STAGES * BF_BYTES;
+  static constexpr int SMEM = F32_BASE + F32_STAGES * F32_BYTES + 1024;  // + alignment slack
+  static_assert(BF_BYTES % 1024 == 0, "bf16 stages keep the 1024-byte swizzle alignment");
+  static_assert(F32_BYTES % 128 == 0, "f32 stages are 128-byte aligned TMA destinations");
+  static_assert(SMEM <= 232448, "fits the 227 KB a block may use");
+};
+
+// Round one chunk: f32 stage ``f`` -> the bf16 stage's B buffers at ``b``.
+// A warp takes two lines (channel c of slab row r) a step, a half-warp a
+// line, a lane 4 pixels: one 16-byte load, one 8-byte store a buffer.
+template <int KS>
+__device__ __forceinline__ void fast_round(const float* __restrict__ f, uint8_t* b, int cw,
+                                           int lane, bool left, bool right) {
+  using C = FxCfg<KS>;
+  const int l = lane % 16;
+#pragma unroll 2
+  for (int pi = cw; pi < C::LINES / 2; pi += FX_CONVERTERS) {
+    const int line = 2 * pi + lane / 16, c = line % TC_CI;
+    const float4 v = *reinterpret_cast<const float4*>(f + line * TC_COLS + 4 * l);
+    // 8-pixel chunk l / 2 of the 128-byte line sits at (l / 2) ^ (c % 8)
+    const int off =
+        (line / TC_CI) * ROW_BYTES + c * 128 + (((l >> 1) ^ (c & 7)) << 4) + ((l & 1) << 3);
+    *reinterpret_cast<uint2*>(b + off) =
+        make_uint2(hopper::pack_bf16x2(v.x, v.y), hopper::pack_bf16x2(v.z, v.w));
+    if constexpr (KS == 3) {
+      float prev = __shfl_up_sync(~0u, v.w, 1, 16), next = __shfl_down_sync(~0u, v.x, 1, 16);
+      const float* h = f + C::HALO_OFF / 4 + line * FX_HALO_PX;
+      if (l == 0) prev = left ? h[FX_HALO_PX - 1] : 0.f;
+      if (l == 15) next = right ? h[C::HALO_SIDE / 4] : 0.f;
+      *reinterpret_cast<uint2*>(b + C::SHIFT0 + off) =
+          make_uint2(hopper::pack_bf16x2(prev, v.x), hopper::pack_bf16x2(v.y, v.z));
+      *reinterpret_cast<uint2*>(b + C::SHIFT2 + off) =
+          make_uint2(hopper::pack_bf16x2(v.y, v.z), hopper::pack_bf16x2(v.w, next));
+    }
+  }
+}
+
+// The fragment's output (the bf16 kernel's epilogue layout): acc[4i + 2j +
+// c] is channel ct*64 + 16*(warp%4) + lane/4 + 8j, row y0 + 2wg + i/8,
+// column x0 + 8*(i%8) + 2*(lane%4) + c.
+struct FxFrag {
+  int co0, y0, x0;  // this thread's first channel, row and column
+  __device__ FxFrag(const Tile& tl, int warp, int lane, int wg)
+      : co0(tl.ct * TC_CO + 16 * (warp % 4) + lane / 4),
+        y0(tl.y0 + wg * (TC_ROWS / TC_CONSUMERS)),
+        x0(tl.x0 + 2 * (lane % 4)) {}
+};
+
+// The f32 residual of this thread's fragment, into registers (0 outside the
+// output). VEC: W even, so each pixel pair is one 8-byte load.
+template <bool VEC>
+__device__ __forceinline__ void fast_residual(float (&r)[64], const float* __restrict__ res,
+                                              const FxFrag& fr, int b, int H, int W, int Cout) {
+  const long long HW = (long long)H * W;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int co = fr.co0 + 8 * j;
+    const float* rp = res + ((long long)b * Cout + (co < Cout ? co : 0)) * HW;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int y = fr.y0 + i / 8, x = fr.x0 + 8 * (i % 8);
+      const bool ok = co < Cout && y < H && x < W;
+      const float* q = rp + (ok ? y * W + x : 0);
+      float2 v = make_float2(0.f, 0.f);
+      if (VEC) {
+        if (ok) v = __ldg(reinterpret_cast<const float2*>(q));
+      } else {
+        if (ok) v.x = __ldg(q);
+        if (ok && x + 1 < W) v.y = __ldg(q + 1);
+      }
+      r[4 * i + 2 * j] = v.x;
+      r[4 * i + 2 * j + 1] = v.y;
+    }
+  }
+}
+
+// The epilogue of this thread's fragment in the TPU order: + bias, +
+// pre_add, x out_scale, abs-form LeakyReLU (LRELU), + residual (RES). One
+// short straight run of code per (VEC, LRELU, RES): the kernel picks it by
+// a uniform branch, so the instructions a tile executes stay few and
+// contiguous (the split epilogue's every path in one unrolled body is 9.3k
+// SASS instructions, and fetching them costs the fast conv ~0.1 ms a call).
+template <bool VEC, bool LRELU, bool RES>
+__device__ __forceinline__ void fast_epilogue(float (&acc)[64], const float (&r)[RES ? 64 : 1],
+                                              const FxFrag& fr, int b, int H, int W, int Cout,
+                                              const float* __restrict__ bias,
+                                              const float* __restrict__ pre,
+                                              const float* __restrict__ scale, long long s_bstride,
+                                              float la, float lb, float* __restrict__ out) {
+  const long long HW = (long long)H * W;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int co = fr.co0 + 8 * j;
+    const bool cok = co < Cout;
+    const int cc = cok ? co : 0;
+    const long long plane = ((long long)b * Cout + cc) * HW;
+    float bv = bias ? bias[cc] : 0.f;
+    const float sv = scale ? scale[b * s_bstride + cc] : 1.f;
+    if (pre) {  // v = (acc + bias) + pre_add, ahead of the main run (off the main path)
+#pragma unroll 1
+      for (int i = 0; i < 16; ++i) {
+        const int y = fr.y0 + i / 8, x = fr.x0 + 8 * (i % 8);
+        const long long o = plane + (long long)y * W + x;
+        const bool ok = cok && y < H && x < W;
+        const float p0 = ok ? pre[o] : 0.f, p1 = ok && x + 1 < W ? pre[o + 1] : 0.f;
+        // a runtime index into acc would move it to local memory: select
+#pragma unroll
+        for (int m = 0; m < 16; ++m) {
+          if (m == i) {
+            acc[4 * m + 2 * j] = (acc[4 * m + 2 * j] + bv) + p0;
+            acc[4 * m + 2 * j + 1] = (acc[4 * m + 2 * j + 1] + bv) + p1;
+          }
+        }
+      }
+      bv = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int y = fr.y0 + i / 8, x = fr.x0 + 8 * (i % 8);
+      const bool ok = cok && y < H && x < W;
+      float* o = out + plane + (ok ? y * W + x : 0);
+      float v[2] = {acc[4 * i + 2 * j] + bv, acc[4 * i + 2 * j + 1] + bv};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        v[c] *= sv;
+        if (LRELU) v[c] = la * v[c] + lb * fabsf(v[c]);
+        if (RES) v[c] += r[4 * i + 2 * j + c];
+      }
+      if (VEC) {
+        if (ok) *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+      } else {
+        if (ok) o[0] = v[0];
+        if (ok && x + 1 < W) o[1] = v[1];
+      }
+    }
+  }
+}
+
+// Persistent, one block per SM walking tiles i, i + gridDim.x, ... (64
+// output channels x 4 rows x 64 columns). Warps 0-7: two consumer
+// warpgroups (2 rows each, as the bf16 kernel's); warp 8: the producer
+// (TMA of the f32 chunks); warps 9-11: the converters. The epilogue in f32,
+// in the TPU order: + bias, + pre_add, x out_scale, abs-form LeakyReLU, +
+// residual (RES); null pointers switch a term off.
+template <int KS, bool RES>
+__global__ void __launch_bounds__(FX_THREADS, 1)
+conv_fast_kernel(const __grid_constant__ FastParts parts, int nchunk, int ntiles, int nx, int ny,
+                 int nct, int H, int W, int Cout, const __nv_bfloat16* __restrict__ wpk,
+                 long long w_bstride, const float* __restrict__ bias,
+                 const float* __restrict__ pre, const float* __restrict__ scale,
+                 long long s_bstride, int lrelu, float la, float lb,
+                 const float* __restrict__ res, float* __restrict__ out) {
+  using C = FxCfg<KS>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  // f_full: a chunk's f32 copies landed; f_empty: the converters are done
+  // with it; full: a bf16 stage is built and its weights landed; empty: the
+  // consumers are done with it
+  __shared__ __align__(8) uint64_t f_full[C::F32_STAGES], f_empty[C::F32_STAGES];
+  __shared__ __align__(8) uint64_t full[C::BF_STAGES], empty[C::BF_STAGES];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* f32s = smem + C::F32_BASE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wgi = __shfl_sync(~0u, static_cast<int>(threadIdx.x) / 128, 0);  // warp-uniform
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::F32_STAGES; ++s) {
+      mbar_init(&f_full[s], 1);              // the producer's expect_tx
+      mbar_init(&f_empty[s], FX_CONVERTERS);  // one per converter warp
+    }
+    for (int s = 0; s < C::BF_STAGES; ++s) {
+      mbar_init(&full[s], FX_CONVERTERS + 1);  // the converter warps and the weights' expect_tx
+      mbar_init(&empty[s], TC_CONSUMERS * 4);  // one per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == TC_CONSUMERS) {
+    setmaxnreg_dec<FX_OTHER_REGS>();
+    int fs = 0;
+    uint32_t fph = 0;
+    if (warp == FX_PRODUCER_WARP) {
+      // one thread issues each chunk's copies (TMA takes warp-uniform
+      // operands): the slab and the halo boxes that are inside the image
+      if (lane != 0) return;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const Tile tl = tile_of(t, nx, ny, nct);
+        const bool left = KS == 3 && tl.x0 > 0, right = KS == 3 && tl.x0 + TC_COLS < W;
+        const uint32_t bytes = C::HALO_OFF + (int(left) + int(right)) * C::HALO_SIDE;
+        const int y = tl.y0 - C::HALO;
+        for (int p = 0; p < parts.n; ++p) {
+          for (int c0 = 0; c0 < parts.c[p]; c0 += TC_CI) {
+            mbar_wait(&f_empty[fs], fph ^ 1);
+            mbar_arrive_expect_tx(&f_full[fs], bytes);
+            uint8_t* st = f32s + fs * C::F32_BYTES;
+            tma_load_4d(st, &parts.center[p], &f_full[fs], tl.x0, c0, y, tl.b);
+            if (left)
+              tma_load_4d(st + C::HALO_OFF, &parts.halo[p], &f_full[fs], tl.x0 - FX_HALO_PX, c0,
+                          y, tl.b);
+            if (right)
+              tma_load_4d(st + C::HALO_OFF + C::HALO_SIDE, &parts.halo[p], &f_full[fs],
+                          tl.x0 + TC_COLS, c0, y, tl.b);
+            if (++fs == C::F32_STAGES) {
+              fs = 0;
+              fph ^= 1;
+            }
+          }
+        }
+      }
+      return;
+    }
+    // converters: per chunk, a free bf16 stage (its weights by one bulk
+    // copy), then the landed f32 chunk rounded into it
+    const int cw = warp - FX_PRODUCER_WARP - 1;
+    int bs = 0;
+    uint32_t bph = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const Tile tl = tile_of(t, nx, ny, nct);
+      const bool left = KS == 3 && tl.x0 > 0, right = KS == 3 && tl.x0 + TC_COLS < W;
+      const uint8_t* wsrc = reinterpret_cast<const uint8_t*>(
+          wpk + tl.b * w_bstride + (long long)tl.ct * nchunk * C::KK * TC_CO * TC_CI);
+      for (int k = 0; k < nchunk; ++k) {
+        mbar_wait(&empty[bs], bph ^ 1);
+        uint8_t* bst = smem + bs * C::BF_BYTES;
+        if (cw == 0 && lane == 0) {
+          mbar_arrive_expect_tx(&full[bs], C::W_BYTES);
+          bulk_load(bst + C::W_OFF, wsrc + (long long)k * C::W_BYTES, C::W_BYTES, &full[bs]);
+        }
+        mbar_wait(&f_full[fs], fph);
+        fast_round<KS>(reinterpret_cast<const float*>(f32s + fs * C::F32_BYTES), bst, cw, lane,
+                       left, right);
+        // the generic-proxy writes must be visible to wgmma's async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&f_empty[fs]);
+          mbar_arrive(&full[bs]);
+        }
+        if (++fs == C::F32_STAGES) {
+          fs = 0;
+          fph ^= 1;
+        }
+        if (++bs == C::BF_STAGES) {
+          bs = 0;
+          bph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: wg takes output rows y0 + 2*wg, y0 + 2*wg + 1 of
+  // each tile
+  setmaxnreg_inc<FX_CONSUMER_REGS>();
+  const int wg = wgi;
+  int bs = 0;
+  uint32_t bph = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const Tile tl = tile_of(t, nx, ny, nct);
+    const FxFrag fr(tl, warp, lane, wg);
+    float r[RES ? 64 : 1];
+    if constexpr (RES) {  // in flight under the tile's MMAs
+      if (W & 1)
+        fast_residual<false>(r, res, fr, tl.b, H, W, Cout);
+      else
+        fast_residual<true>(r, res, fr, tl.b, H, W, Cout);
+    }
+    float acc[64];
+    int held = -1;  // the stage whose MMAs may still be running
+    for (int k = 0; k < nchunk; ++k) {
+      mbar_wait(&full[bs], bph);
+      const uint32_t st = smem_u32(smem + bs * C::BF_BYTES);
+      const uint32_t a0 = st + C::W_OFF;
+      const uint32_t b0 = st + wg * (TC_ROWS / TC_CONSUMERS) * ROW_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int dy = 0; dy < KS; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < KS; ++dx) {
+          const uint32_t buf = KS == 1 ? 0 : dx == 0 ? C::SHIFT0 : dx == 1 ? 0 : C::SHIFT2;
+          const uint64_t da = make_desc(a0 + (dy * KS + dx) * TAP_BYTES, 128, 256, kInterleave);
+          const uint64_t db = make_desc(b0 + buf + dy * ROW_BYTES, ROW_BYTES, 1024, kSwizzle128);
+          // the tile's first product overwrites the accumulators
+          wgmma_m64n128k16_bf16(acc, da, db, (k | (dy * KS + dx)) != 0);
+        }
+      }
+      wgmma_commit();
+      // keep this stage's MMAs in flight; release the one before it
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+      held = bs;
+      if (++bs == C::BF_STAGES) {
+        bs = 0;
+        bph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[held]);
+
+    if (W & 1) {
+      if (lrelu)
+        fast_epilogue<false, true, RES>(acc, r, fr, tl.b, H, W, Cout, bias, pre, scale,
+                                        s_bstride, la, lb, out);
+      else
+        fast_epilogue<false, false, RES>(acc, r, fr, tl.b, H, W, Cout, bias, pre, scale,
+                                         s_bstride, la, lb, out);
+    } else if (lrelu) {
+      fast_epilogue<true, true, RES>(acc, r, fr, tl.b, H, W, Cout, bias, pre, scale, s_bstride,
+                                     la, lb, out);
+    } else {
+      fast_epilogue<true, false, RES>(acc, r, fr, tl.b, H, W, Cout, bias, pre, scale, s_bstride,
+                                      la, lb, out);
     }
   }
 }
@@ -972,6 +1382,60 @@ int encode_maps(hopper::EncodeTiledFn encode, CUtensorMap* center, CUtensorMap* 
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return ERR_ENCODE;
   return 0;
+}
+
+// The f32 maps of one part (FastParts): rows at pitch ``pitch`` elements (a
+// multiple of 4), 16-byte aligned base and batch stride.
+int encode_f32_maps(hopper::EncodeTiledFn encode, CUtensorMap* center, CUtensorMap* halo,
+                    int ksize, const void* ptr, int ch, long long bstride, long long pitch, int B,
+                    int H, int W) {
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)ch, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)pitch * H * 4, (cuuint64_t)pitch * 4,
+                                 (cuuint64_t)bstride * 4};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const cuuint32_t slab = TC_ROWS + ksize - 1;
+  const cuuint32_t box_center[4] = {TC_COLS, TC_CI, slab, 1};
+  const cuuint32_t box_halo[4] = {FX_HALO_PX, TC_CI, slab, 1};
+  void* base = const_cast<void*>(ptr);
+  if (encode(center, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box_center, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_ENCODE;
+  if (ksize == 3 &&
+      encode(halo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box_halo, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_ENCODE;
+  return 0;
+}
+
+template <int KS, bool RES>
+int launch_fast(const FastParts& parts, int nchunk, int B, int H, int W, int Cout, const void* wt,
+                long long w_bstride, const float* bias, const float* pre, const float* scale,
+                long long s_bstride, int lrelu, float la, float lb, const float* res, float* out,
+                cudaStream_t stream) {
+  using C = FxCfg<KS>;
+  static int sms = 0;
+  if (!sms) {
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(conv_fast_kernel<KS, RES>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) {
+      sms = 0;
+      return static_cast<int>(e);
+    }
+  }
+  const int nct = (Cout + TC_CO - 1) / TC_CO;
+  const int nx = (W + TC_COLS - 1) / TC_COLS, ny = (H + TC_ROWS - 1) / TC_ROWS;
+  const int ntiles = nx * ny * nct * B;
+  const int grid = ntiles < sms ? ntiles : sms;
+  conv_fast_kernel<KS, RES><<<grid, FX_THREADS, C::SMEM, stream>>>(
+      parts, nchunk, ntiles, nx, ny, nct, H, W, Cout, static_cast<const __nv_bfloat16*>(wt),
+      w_bstride, bias, pre, scale, s_bstride, lrelu, la, lb, res, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1123,4 +1587,48 @@ extern "C" int savsr_conv_split(int ksize, int nmaps, const void* const* map_ptr
                     : launch_wgmma<1, true>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
                                             pre, sc, s_bstride, lrelu, la, lb, res, res_lo, out,
                                             out_lo, s);
+}
+
+// The fast conv on the tensor cores (conv_fast_kernel): f32 parts (row pitch
+// a multiple of 4 elements, 16-byte aligned base and batch stride, for TMA),
+// rounded to bf16 in the kernel, against the bf16 weight packed as
+// ops/conv.py pack_weight_fast lays it out (w_bstride elements per sample);
+// f32 bias, pre, scale, res and out [B, Cout, H, W]. Null pointers switch an
+// epilogue term off.
+extern "C" int savsr_conv_fast(int ksize, int nparts, const void* const* part_ptrs,
+                               const int* part_ch, const long long* part_bstride,
+                               const long long* part_pitch, int B, int H, int W, int Cout,
+                               const void* wt, long long w_bstride, const void* bias,
+                               const void* pre, const void* scale, long long s_bstride,
+                               int lrelu, float la, float lb, const void* res, void* out,
+                               void* stream) {
+  if (nparts < 1 || nparts > FAST_MAPS || (ksize != 1 && ksize != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hopper::EncodeTiledFn encode = hopper::encode_tiled();
+  if (!encode) return ERR_NO_ENCODER;
+  FastParts parts{};
+  int nchunk = 0;
+  for (int i = 0; i < nparts; ++i) {
+    const int e = encode_f32_maps(encode, &parts.center[i], &parts.halo[i], ksize, part_ptrs[i],
+                                  part_ch[i], part_bstride[i], part_pitch[i], B, H, W);
+    if (e) return e;
+    parts.c[i] = part_ch[i];
+    nchunk += (part_ch[i] + TC_CI - 1) / TC_CI;
+  }
+  parts.n = nparts;
+  const float* bi = static_cast<const float*>(bias);
+  const float* pr = static_cast<const float*>(pre);
+  const float* sc = static_cast<const float*>(scale);
+  const float* rs = static_cast<const float*>(res);
+  float* o = static_cast<float*>(out);
+  if (ksize == 3)
+    return rs ? launch_fast<3, true>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bi, pr, sc,
+                                     s_bstride, lrelu, la, lb, rs, o, s)
+              : launch_fast<3, false>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bi, pr, sc,
+                                      s_bstride, lrelu, la, lb, rs, o, s);
+  return rs ? launch_fast<1, true>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bi, pr, sc,
+                                   s_bstride, lrelu, la, lb, rs, o, s)
+            : launch_fast<1, false>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bi, pr, sc,
+                                    s_bstride, lrelu, la, lb, rs, o, s);
 }

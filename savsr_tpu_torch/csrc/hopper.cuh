@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels: shared
-// memory addresses, mbarriers, TMA tensor and bulk copies, wgmma descriptors
+// memory addresses, mbarriers, TMA tensor and bulk copies, setmaxnreg, wgmma descriptors
 // and the bf16 wgmmas (m64n128k16 with B MN-major; m64n64k16 and m64n192k16
 // with both operands K-major; m64nNk16 with A from registers), each one PTX
 // instruction (or a short loop of one); the warp-level mma.sync m16n8k16,
@@ -87,6 +87,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// ---- registers ------------------------------------------------------------------
+
+// hand registers from one warpgroup to another in a warp-specialised kernel:
+// every warp of a warpgroup lowers (or raises) its per-thread count to N (a
+// multiple of 8); a raise waits until lowered warps have freed enough
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---- wgmma ----------------------------------------------------------------------
 
 enum Layout : uint32_t { kInterleave = 0, kSwizzle128 = 1 };
@@ -128,9 +142,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // D[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major: tnspB = 1),
 // bf16 operands from shared memory, f32 accumulators. Thread t of the
 // warpgroup holds rows 16*(t/32) + (t%32)/4 (+8) and columns 8*i + 2*(t%4)
-// (+1): d[4i + 2j + c] is row (+8*j), column 8*i + 2*(t%4) + c.
+// (+1): d[4i + 2j + c] is row (+8*j), column 8*i + 2*(t%4) + c. With
+// accumulate = 0 the product overwrites D (D's old values unread).
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a,
-                                                      uint64_t desc_b) {
+                                                      uint64_t desc_b, int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -157,7 +172,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 

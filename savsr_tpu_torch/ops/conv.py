@@ -43,9 +43,10 @@ per-sample weight, once for a shared one (``pack_weight_split``).
 The fast conv (``conv_fused_fast``, the fast serving tier: f32 weights and
 carries at ``matmul_precision: default``) is the TPU kernels' f32 mode at
 DEFAULT precision, one bf16 pass: the inputs and the weight rounded to bf16,
-exact products summed in f32, the epilogue and the output in f32. It runs on
-the split conv's kernel with one K segment a part (each part rounded to bf16
-by one pass before the launch, the weight by its packing, ``pack_weight_fast``).
+exact products summed in f32, the epilogue and the output in f32. Its kernel
+reads the f32 parts through TMA and rounds them to bf16 in shared memory
+(in place where W % 4 == 0, else a pitch-padded f32 copy, ``tma_part``);
+the weight is rounded by its packing (``pack_weight_fast``).
 """
 
 from __future__ import annotations
@@ -229,16 +230,18 @@ def f32_chunks(b: int, chans: Sequence[int], cout: int, ho: int, wo: int, k: int
     return -(-nst // per), per
 
 
-def tma_part(p: torch.Tensor) -> Tuple[torch.Tensor, int]:
+def tma_part(p: torch.Tensor, align: int = 8) -> Tuple[torch.Tensor, int]:
     """A part TMA can read, and its row pitch in elements. TMA needs 16-byte
-    aligned rows, channel planes and samples: a part whose width is not a
-    multiple of 8, or whose base or batch stride is off, is copied into a
-    buffer with the pitch rounded up to 8 (the kernel still reads only the
-    true width: the map's extent is W)."""
-    w = p.shape[-1]
-    if w % 8 == 0 and p.stride(0) % 8 == 0 and p.data_ptr() % 16 == 0:
+    aligned rows, channel planes and samples (``align`` elements: 8 in bf16,
+    4 in f32): a part whose width is not a multiple of ``align``, whose base
+    or batch stride is off, or whose channel planes are not contiguous, is
+    copied into a buffer with the pitch rounded up to ``align`` (the kernel
+    still reads only the true width: the map's extent is W)."""
+    h, w = p.shape[-2:]
+    if (w % align == 0 and p.stride(0) % align == 0 and p.data_ptr() % 16 == 0
+            and p.stride(-1) == 1 and p.stride(-2) == w and p.stride(-3) == h * w):
         return p, w
-    pitch = w + (-w % 8)
+    pitch = w + (-w % align)
     buf = p.new_zeros(p.shape[:-1] + (pitch,))
     buf[..., :w] = p
     return buf, pitch
@@ -347,6 +350,8 @@ def _lib():
         i, f, f,                                                 # lrelu, a, b
         p, p, p, i, i, p,                            # residual, out, partial, nchunks, per, stream
     ]
+    lib.savsr_conv_fast.restype = i
+    lib.savsr_conv_fast.argtypes = lib.savsr_conv_fused.argtypes
     lib.savsr_conv_split.restype = i
     lib.savsr_conv_split.argtypes = [
         i, i, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll),
@@ -420,8 +425,9 @@ def _launch(parts: List[torch.Tensor], weight, bias, pre_add, out_scale,
 
 def run_conv(k: int, parts, pitch, wt: torch.Tensor, w_bstride: int, out: torch.Tensor,
              counter: str, bias=None, pre_add=None, out_scale=None, s_bstride: int = 0,
-             lrelu=None, residual=None) -> None:
-    """One launch of the bf16 kernel, ``savsr_conv_fused`` (checked by the
+             lrelu=None, residual=None, entry: str = "savsr_conv_fused") -> None:
+    """One launch of the bf16 kernel, ``savsr_conv_fused`` (or, ``entry``
+    ``savsr_conv_fast``, the fast kernel on f32 parts; checked by the
     caller): conv_k of the channel parts, each read at its row pitch
     (``tma_part``), with the weight as ``pack_weight`` lays it out
     (``w_bstride`` elements per sample, 0 for a shared weight) into ``out``
@@ -431,10 +437,10 @@ def run_conv(k: int, parts, pitch, wt: torch.Tensor, w_bstride: int, out: torch.
     part_pitch = (ctypes.c_longlong * n)(*pitch)
     la, lb = lrelu if lrelu is not None else (1.0, 0.0)
     lib = _lib()
-    rc = lib.savsr_conv_fused(k, n, part_ptrs, part_ch, part_bs, part_pitch,
-                              b, h, w, cout, ptr(wt), w_bstride, ptr(bias), ptr(pre_add),
-                              ptr(out_scale), s_bstride, int(lrelu is not None), la, lb,
-                              ptr(residual), ptr(out), stream_ptr(out))
+    rc = getattr(lib, entry)(k, n, part_ptrs, part_ch, part_bs, part_pitch,
+                             b, h, w, cout, ptr(wt), w_bstride, ptr(bias), ptr(pre_add),
+                             ptr(out_scale), s_bstride, int(lrelu is not None), la, lb,
+                             ptr(residual), ptr(out), stream_ptr(out))
     check_rc(lib, rc, counter)
     launches[counter] += 1
 
@@ -481,10 +487,10 @@ def conv_fused(parts, weight: torch.Tensor,
     return _launch(parts, weight, bias, pre_add, out_scale, lrelu, residual)
 
 
-# the split kernel's TMA maps (two a pair) and K segments (three a pair):
-# csrc/conv.cu SPLIT_MAPS, SPLIT_SEGS
+# the split kernel's pairs (csrc/conv.cu SPLIT_MAPS: two maps a pair) and
+# the fast kernel's parts (FAST_MAPS)
 SPLIT_MAX_PAIRS = 5
-SPLIT_MAPS = 10
+FAST_MAX_PARTS = 10
 
 
 def _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual):
@@ -519,29 +525,6 @@ def _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual):
                 "out_scale")
         s_bstride = cout if out_scale.numel() == b * cout else 0
     return s_bstride, res, res_lo
-
-
-def _run_split(k: int, maps, seg_map, wt: torch.Tensor, per_sample: bool, bias, pre_add,
-               out_scale, s_bstride: int, lrelu, res, res_lo, o, o_lo, counter: str) -> None:
-    """One launch of ``savsr_conv_split``: the bf16 ``maps`` ((tensor, row
-    pitch) each) read as the K segments ``seg_map``, against the packed
-    weight ``wt``, into ``o`` (f32, or a pair's hi plane with ``o_lo``);
-    counted once as ``counter``."""
-    b, cout, h, w = o.shape
-    n, nsegs = len(maps), len(seg_map)
-    la, lb = lrelu if lrelu is not None else (1.0, 0.0)
-    lib = _lib()
-    rc = lib.savsr_conv_split(
-        k, n, (ctypes.c_void_p * n)(*[t.data_ptr() for t, _ in maps]),
-        (ctypes.c_int * n)(*[t.shape[1] for t, _ in maps]),
-        (ctypes.c_longlong * n)(*[t.stride(0) for t, _ in maps]),
-        (ctypes.c_longlong * n)(*[pitch for _, pitch in maps]),
-        nsegs, (ctypes.c_int * nsegs)(*seg_map), b, h, w, cout, ptr(wt),
-        wt.shape[1] if per_sample else 0, ptr(bias), ptr(pre_add), ptr(out_scale), s_bstride,
-        int(lrelu is not None), la, lb, ptr(res), ptr(res_lo), ptr(o), ptr(o_lo),
-        stream_ptr(o))
-    check_rc(lib, rc, counter)
-    launches[counter] += 1
 
 
 def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre_add,
@@ -582,8 +565,21 @@ def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre
     else:
         dst = o = torch.empty(shape, dtype=torch.float32, device=hi0.device)
         o_lo = None
-    _run_split(k, maps, seg_map, wt, per_sample, bias, pre_add, out_scale, s_bstride, lrelu,
-               res, res_lo, o, o_lo, _kernel_name(weight) + "_split")
+    n, nsegs = len(maps), len(seg_map)
+    la, lb = lrelu if lrelu is not None else (1.0, 0.0)
+    counter = _kernel_name(weight) + "_split"
+    lib = _lib()
+    rc = lib.savsr_conv_split(
+        k, n, (ctypes.c_void_p * n)(*[t.data_ptr() for t, _ in maps]),
+        (ctypes.c_int * n)(*[t.shape[1] for t, _ in maps]),
+        (ctypes.c_longlong * n)(*[t.stride(0) for t, _ in maps]),
+        (ctypes.c_longlong * n)(*[pitch for _, pitch in maps]),
+        nsegs, (ctypes.c_int * nsegs)(*seg_map), b, h, w, cout, ptr(wt),
+        wt.shape[1] if per_sample else 0, ptr(bias), ptr(pre_add), ptr(out_scale), s_bstride,
+        int(lrelu is not None), la, lb, ptr(res), ptr(res_lo), ptr(o), ptr(o_lo),
+        stream_ptr(o))
+    check_rc(lib, rc, counter)
+    launches[counter] += 1
     return dst
 
 
@@ -639,30 +635,19 @@ def pack_weight_fast(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor
                        lambda: pack_weight(weight.detach().to(torch.bfloat16), chans))
 
 
-def bf16_part(p: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """An f32 part rounded to bf16 in a buffer TMA can read, in one pass, and
-    its row pitch in elements (the width rounded up to 8; the pad columns
-    are never read: the map's extent is the width)."""
-    w = p.shape[-1]
-    pitch = w + (-w % 8)
-    if pitch == w:
-        return p.to(torch.bfloat16, memory_format=torch.contiguous_format), w
-    buf = torch.empty(p.shape[:-1] + (pitch,), dtype=torch.bfloat16, device=p.device)
-    buf[..., :w] = p
-    return buf, pitch
-
-
 def _launch_fast(k: int, parts: Sequence[torch.Tensor], weight: torch.Tensor, bias, pre_add,
                  out_scale, lrelu, residual) -> torch.Tensor:
-    """One launch of the split kernel in its fast mode, ``savsr_conv_split``
-    with one K segment a part: the parts rounded to bf16 (``bf16_part``) as
-    TMA maps, against ``pack_weight_fast``; f32 epilogue operands and f32
-    output; counted once as conv3x3_fast / conv1x1_fast."""
+    """One launch of the fast kernel, ``savsr_conv_fast``: the f32 parts as
+    TMA maps, rounded to bf16 in the kernel, against ``pack_weight_fast``;
+    f32 epilogue operands and f32 output; counted once as conv3x3_fast /
+    conv1x1_fast. A part is read in place where its rows are 16-byte
+    aligned (W % 4 == 0: every serving and parity width), else through a
+    pitch-padded f32 copy (``tma_part``)."""
     x0 = parts[0]
     b, _, h, w = x0.shape
     dev = x0.device
     require(k in (1, 3) and weight.shape[-2:] == (k, k), f"kernel size {tuple(weight.shape)}")
-    require(1 <= len(parts) <= SPLIT_MAPS, f"{len(parts)} parts (max {SPLIT_MAPS})")
+    require(1 <= len(parts) <= FAST_MAX_PARTS, f"{len(parts)} parts (max {FAST_MAX_PARTS})")
     for p in parts:
         require(p.device == dev and p.dtype == torch.float32 and p.dim() == 4
                 and p.shape[0] == b and tuple(p.shape[2:]) == (h, w),
@@ -673,14 +658,16 @@ def _launch_fast(k: int, parts: Sequence[torch.Tensor], weight: torch.Tensor, bi
     require(weight.device == dev and weight.dtype == torch.float32
             and weight.shape[-3] == sum(chans) and (not per_sample or weight.shape[0] == b),
             f"weight {tuple(weight.shape)} {weight.dtype} vs f32 input {b}x{sum(chans)}")
+    require(not isinstance(residual, Pair), "the fast conv's residual is an f32 tensor")
     shape = (b, cout, h, w)
-    s_bstride, res, res_lo = _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual)
+    s_bstride, res, _ = _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual)
 
-    maps = [bf16_part(p) for p in parts]  # the rounding pass
+    bufs, pitch = zip(*(tma_part(p, 4) for p in parts))  # 16 bytes: 4 f32
+    wt = pack_weight_fast(weight, chans)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    _run_split(k, maps, list(range(len(maps))), pack_weight_fast(weight, chans), per_sample,
-               bias, pre_add, out_scale, s_bstride, lrelu, res, res_lo, out, None,
-               _kernel_name(weight) + "_fast")
+    run_conv(k, bufs, pitch, wt, wt.shape[1] if per_sample else 0, out,
+             _kernel_name(weight) + "_fast", bias, pre_add, out_scale, s_bstride, lrelu, res,
+             entry="savsr_conv_fast")
     return out
 
 

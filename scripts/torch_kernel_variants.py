@@ -3,7 +3,7 @@
 again with one part switched off, timed at its main-path shape on one CUDA
 card.
 
-    python3 scripts/torch_kernel_variants.py [--kernels K [K ...]] [--out FILE]
+    python3 scripts/torch_kernel_variants.py [--kernels K [K ...]] [--sass DIR] [--out FILE]
 
 A variant is a text edit of a copy of ``savsr_tpu_torch/csrc/<source>.cu``
 in a temporary directory (the edit must match the source, or the script
@@ -18,10 +18,11 @@ kernel on the f32 plan) and the tail in f32 (``tail_f32``: the CUDA-core
 f32 (``sta_f32``: the CUDA-core kernel); the
 f32 OSConv weight gradient at 8 x 60x60, 192 -> 64, k = 3, padding 1; the
 f32 conv (csrc/conv.cu conv_f32_kernel) at 8 windows of 180x320, 3x3 64 ->
-64 and 1x1 3x64 -> 64; the fast tier's conv (``conv_fast``: the split
-kernel with one K segment, csrc/conv.cu conv_wgmma_kernel<3, true>, behind
-the rounding pass of its f32 input) at 8 windows of 180x320, 3x3 64 -> 64
-with an f32 residual. The
+64 and 1x1 3x64 -> 64; the fast tier's conv (csrc/conv.cu
+conv_fast_kernel, which rounds its f32 parts itself) at 8 windows of
+180x320, 3x3 64 -> 64 with an f32 residual (``conv_fast``) and 1x1 3x64 ->
+64 (``conv_fast_1x1``). ``--sass DIR`` also prints each variant's ptxas
+lines and SASS counts and writes the full variant's SASS into DIR. The
 edited variants compute wrong results: their error against the plain
 version is printed only to show which part was switched off. The time a
 variant saves is an upper bound on what that part costs, since the parts
@@ -34,6 +35,8 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -65,13 +68,46 @@ CONV_F32_COMMON = {
     "no barrier": [("    __syncthreads();  // ... everyone's; and every warp is done with stage t - 1's buffer\n",
                     "")],
 }
-def _rounded_once(p, made={}):
-    """ops/conv.py bf16_part with the input's bf16 copy made at its first
-    call and reused: the fast conv without its rounding pass."""
-    key = (p.data_ptr(), p._version)
-    if key not in made:
-        made[key] = (p.bfloat16(), p.shape[-1])
-    return made[key]
+# the fast conv (csrc/conv.cu conv_fast_kernel), a part switched off at a time
+FAST_RINGS = ("  static constexpr int BF_STAGES = KS == 3 ? 2 : 4;\n"
+              "  static constexpr int F32_STAGES = KS == 3 ? 2 : 4;")
+
+
+def _rings(bf3, f3, bf1, f1):
+    return (FAST_RINGS, f"  static constexpr int BF_STAGES = KS == 3 ? {bf3} : {bf1};\n"
+                        f"  static constexpr int F32_STAGES = KS == 3 ? {f3} : {f1};")
+
+
+CONV_FAST_COMMON = {
+    "full": [],
+    # the f32 chunks still land, the converters write nothing
+    "no rounding": [("  for (int pi = cw; pi < C::LINES / 2; pi += FX_CONVERTERS) {",
+                     "  for (int pi = cw; pi < 0; pi += FX_CONVERTERS) {")],
+    "no f32 input loads": [
+        ("        const uint32_t bytes = C::HALO_OFF + (int(left) + int(right)) * C::HALO_SIDE;",
+         "        const uint32_t bytes = 0;"),
+        ("            tma_load_4d(st, &parts.center[p], &f_full[fs], tl.x0, c0, y, tl.b);\n"
+         "            if (left)",
+         "            if (bytes) tma_load_4d(st, &parts.center[p], &f_full[fs], tl.x0, c0, y, tl.b);\n"
+         "            if (bytes && left)"),
+        ("            if (right)\n              tma_load_4d(st + C::HALO_OFF + C::HALO_SIDE",
+         "            if (bytes && right)\n              tma_load_4d(st + C::HALO_OFF + C::HALO_SIDE")],
+    "no output stores": [("        if (ok) *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);",
+                          "        if (ok && v[0] == 12345.f) *reinterpret_cast<float2*>(o) = "
+                          "make_float2(v[0], v[1]);")],
+    "no epilogue": [("    if (W & 1) {\n      if (lrelu)\n        fast_epilogue<false, true, RES>",
+                     "    if (acc[0] != 12345.f) {\n    } else if (W & 1) {\n      if (lrelu)\n"
+                     "        fast_epilogue<false, true, RES>")],
+}
+CONV_FAST_3X3 = {
+    **CONV_FAST_COMMON,
+    "no residual loads": [("    if constexpr (RES) {  // in flight under the tile's MMAs",
+                           "    if constexpr (false) {")],
+    "f32 ring 3": [_rings(2, 3, 4, 4)],
+    "f32 ring 4": [_rings(2, 4, 4, 4)],
+}
+CONV_FAST_1X1 = {**CONV_FAST_COMMON, "f32 ring 2": [_rings(2, 2, 4, 2)],
+                 "f32 ring 8": [_rings(2, 2, 4, 8)], "bf16 ring 2": [_rings(2, 2, 2, 4)]}
 
 
 VARIANTS = {
@@ -193,37 +229,8 @@ VARIANTS = {
         "3 of 25 taps": [("    for (int t = 0; t < TAPS; ++t, ++step) {",
                           "    for (int t = 0; t < 3; ++t, ++step) {")],
     },
-    "conv_fast": {
-        "full": [],
-        "no rounding pass": {"bf16_part": lambda p: _rounded_once(p)},
-        "no f32 output stores": [
-            ("        *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);",
-             "        if (v[0] == 12345.f)\n"
-             "          *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);")],
-        "no f32 residual loads": [
-            ("          const float2 q = *reinterpret_cast<const float2*>(res_f + idx);\n"
-             "          r[0] = q.x, r[1] = q.y;",
-             "          r[0] = 0.25f, r[1] = 0.5f;")],
-        "no f32 residual loads or output stores": [
-            ("        *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);",
-             "        if (v[0] == 12345.f)\n"
-             "          *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);"),
-            ("          const float2 q = *reinterpret_cast<const float2*>(res_f + idx);\n"
-             "          r[0] = q.x, r[1] = q.y;",
-             "          r[0] = 0.25f, r[1] = 0.5f;")],
-        "epilogue pointers __restrict__": [
-            ("    const float* bias, const float* pre, const float* scale, long long s_bstride, "
-             "int lrelu,\n"
-             "    float la, float lb, const __nv_bfloat16* res_hi, const __nv_bfloat16* res_lo,\n"
-             "    const float* res_f, __nv_bfloat16* out_hi, __nv_bfloat16* out_lo, float* out_f) {",
-             "    const float* __restrict__ bias, const float* __restrict__ pre,\n"
-             "    const float* __restrict__ scale, long long s_bstride, int lrelu, float la, float lb,\n"
-             "    const __nv_bfloat16* __restrict__ res_hi, const __nv_bfloat16* __restrict__ res_lo,\n"
-             "    const float* __restrict__ res_f, __nv_bfloat16* __restrict__ out_hi,\n"
-             "    __nv_bfloat16* __restrict__ out_lo, float* __restrict__ out_f) {")],
-        "no epilogue": [("      split_epilogue(acc, tl, warp, lane, wg,",
-                         "      if (acc[0] == 12345.f) split_epilogue(acc, tl, warp, lane, wg,")],
-    },
+    "conv_fast": CONV_FAST_3X3,
+    "conv_fast_1x1": CONV_FAST_1X1,
     "osconv_dagg": {
         "full": [],
         "no staging copies": [
@@ -247,6 +254,7 @@ VARIANTS = {
 
 
 SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv", "conv_fast": "conv",
+          "conv_fast_1x1": "conv",
           "stau_f32": "stau",
           "sta_f32": "sta", "tail_f32": "tail"}
 
@@ -255,10 +263,75 @@ def _edits(variant):
     return [] if isinstance(variant, dict) else variant
 
 
-def build_variants(tmp: str, build, variants: dict) -> dict:
+# the kernels whose ptxas lines and SASS ``--sass`` reports (default: the
+# source's name)
+SASS_FUNCS = {"conv_fast": ("conv_fast_kernel",), "conv_fast_1x1": ("conv_fast_kernel",)}
+# SASS opcodes counted per kernel: tensor-core products, the warpgroup
+# waits ptxas places (one per product group unless it serialises the
+# wgmmas), local-memory traffic (spills), and global loads and stores
+SASS_OPS = ("HGMMA", "WARPGROUP.DEPBAR", "WARPGROUP.ARRIVE", "LDL", "STL", "LDG", "STG",
+            "UTMALDG", "UTMASTG", "UBLKCP", "LDS", "STS", "SHFL", "F2FP")
+
+
+def demangle(names):
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not os.path.isfile(tool):
+        tool = shutil.which("c++filt")
+    if not tool:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True).stdout
+    return out.splitlines() if out.count("\n") >= len(names) - 1 else list(names)
+
+
+def ptxas_report(log: str, funcs) -> list:
+    """ptxas's lines for the kernels named by ``funcs`` (registers, spills,
+    stack) and every line on wgmma (C7514 / C7518: serialised wgmmas)."""
+    keep, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+            continue
+        if "Function properties for" in line:
+            cur = line.split()[-1]
+            continue
+        if "wgmma" in line or "C751" in line:
+            keep.append(line.strip())
+        elif cur and any(f in cur for f in funcs) and ("registers" in line or "spill" in line):
+            keep.append(f"{demangle([cur])[0][:90]}: {line.strip()}")
+    return keep
+
+
+def sass_report(lib: str, funcs, dump: str = None) -> list:
+    """Per kernel named by ``funcs``: its SASS instruction count and the
+    counts of SASS_OPS; the SASS itself written to ``dump`` (a file) too."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return ["no cuobjdump"]
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    sections = re.split(r"\n\s*Function : ", sass)[1:]
+    rows, texts = [], []
+    for sec in sections:
+        name = sec.split("\n", 1)[0].strip()
+        if not any(f in name for f in funcs):
+            continue
+        ins = [l for l in sec.splitlines() if re.match(r"\s*/\*[0-9a-f]{4,}\*/", l)]
+        counts = {op: sum(1 for l in ins if re.search(rf"\b{re.escape(op)}\b", l))
+                  for op in SASS_OPS}
+        pretty = demangle([name])[0]
+        rows.append(f"{pretty[:90]}: {len(ins)} instructions; "
+                    + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        texts.append(f"Function : {pretty}\n{sec}")
+    if dump:
+        with open(dump, "w") as f:
+            f.write("\n".join(texts))
+    return rows
+
+
+def build_variants(tmp: str, build, variants: dict, logs: dict = None) -> dict:
     """Compile every variant with edits at once (one nvcc each; a variant
     without edits uses the package's own library); {(kernel, variant):
-    library path}."""
+    library path}; ``logs`` gets each build's compiler output."""
     procs = {}
     for kern, vs in variants.items():
         source = SOURCE.get(kern, kern)
@@ -285,6 +358,8 @@ def build_variants(tmp: str, build, variants: dict) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{log[-3000:]}")
         libs[key] = lib
+        if logs is not None:
+            logs[key] = log
     return libs
 
 
@@ -294,6 +369,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", nargs="+", default=["stau", "tail", "sta", "osconv_dagg"],
                     help="the kernels to vary")
     ap.add_argument("--out", default=None, help="also write the times here as JSON")
+    ap.add_argument("--sass", default=None, metavar="DIR",
+                    help="print each variant's ptxas lines (registers, spills, serialised "
+                         "wgmmas) and SASS counts, and write its SASS into DIR")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -366,6 +444,10 @@ def main(argv=None) -> int:
             cs._rand(rng, (c, c, 3, 3), torch.float32, device, (9 * c) ** -0.5),
             cs._rand(rng, (c,), torch.float32, device, 0.1)),
             {"lrelu": (0.6, 0.4), "residual": cs._rand(rng, (b, c, h, w), torch.float32, device)}),
+        "conv_fast_1x1": (conv, "conv_fused_fast", (
+            [cs._rand(rng, (b, c, h, w), torch.float32, device) for _ in range(3)],
+            cs._rand(rng, (c, 3 * c, 1, 1), torch.float32, device, (3 * c) ** -0.5),
+            cs._rand(rng, (c,), torch.float32, device, 0.1)), {"lrelu": (0.6, 0.4)}),
         "osconv_dagg": (osconv, "osconv_dagg", (
             cs._rand(rng, (tb, 192, th, tw), torch.float32, device),
             cs._rand(rng, (tb, 64, th, tw), torch.float32, device), 3, 3, 1), {}),
@@ -373,7 +455,26 @@ def main(argv=None) -> int:
     variants = {k: VARIANTS[k] for k in args.kernels}
     results = []
     with tempfile.TemporaryDirectory() as tmp, torch.no_grad(), cs.float32_precision(True):
-        libs = build_variants(tmp, build, variants)
+        logs = {}
+        libs = build_variants(tmp, build, variants, logs)
+        build.build_all()
+        if args.sass:
+            os.makedirs(args.sass, exist_ok=True)
+            for kern, vs in variants.items():
+                source = SOURCE.get(kern, kern)
+                funcs = SASS_FUNCS.get(kern, (source,))
+                for i, name in enumerate(vs):
+                    if (kern, name) in libs:
+                        lib, log = libs[(kern, name)], logs[(kern, name)]
+                    elif i == 0 or name == "full":
+                        lib = build.library_path(source)
+                        with open(lib + ".log") as f:
+                            log = f.read()
+                    else:
+                        continue
+                    dump = os.path.join(args.sass, f"{kern}.sass") if name == "full" else None
+                    for line in ptxas_report(log, funcs) + sass_report(lib, funcs, dump):
+                        print(f"[sass] {kern} {name}: {line}", flush=True)
         for kern, vs in variants.items():
             mod, fn_name, fn_args, kw = calls[kern]
             real = mod._lib()

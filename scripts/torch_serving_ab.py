@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""The bf16 STA, STAU and tail kernels of the PyTorch port (savsr_tpu_torch)
-and the serving forward's device time, for one or more checkouts of the repo,
-on one CUDA card; with ``--strict`` also the f32 conv kernels and the
-strict tier's forward.
+"""The bf16 conv (rows 1-2), STA, STAU and tail kernels of the PyTorch port
+(savsr_tpu_torch) and the serving forward's device time, for one or more
+checkouts of the repo, on one CUDA card; with ``--tier`` also another tier's
+kernels and forward: ``strict`` (or ``--strict``) the f32 conv kernels and
+the strict tier's forward, ``split`` the split convs and the split forward,
+``fast`` the fast convs and the fast forward.
 
-    python3 scripts/torch_serving_ab.py [--strict] [--out FILE] ROOT [ROOT ...]
+    python3 scripts/torch_serving_ab.py [--tier strict split fast] [--out FILE] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repo (this one, or a ``git archive`` of
 another commit unpacked into a directory; it needs ``savsr_tpu_torch/`` and
@@ -15,7 +17,8 @@ one call reads ``A B B A``. The flagship weights come from this checkout's
 
 Per checkout:
 
-- the checkout's own ``chip_smoke.sta_case``, ``chip_smoke.stau_case`` and
+- the checkout's own ``chip_smoke.conv_case`` of rows 1-2's headline cases
+  (3x3 64->64, 1x1 3x64->64), ``chip_smoke.sta_case``, ``chip_smoke.stau_case`` and
   ``chip_smoke.tail_case`` in bf16 at the serving shape (8 windows of 180x320 LR, x4, C = 64): the
   kernel against its plain version, ``ms`` from back-to-back calls between
   CUDA events (the method of every kernel row of chip_smoke.py), the plain
@@ -32,7 +35,12 @@ Per checkout:
   back-to-back ms, ``F.conv2d`` with TF32 off, bound), and the same profile
   of one strict-tier (f32) forward of 8 windows, with the device time of
   the f32 conv kernels (``conv_f32_kernel`` and its reduce pass, or an older
-  checkout's ``conv_fused_kernel``) and of the STA, STAU and tail kernels.
+  checkout's ``conv_fused_kernel``) and of the STA, STAU and tail kernels;
+- with ``--tier split`` / ``fast``: every ``chip_smoke.SPLIT_CASES`` /
+  ``FAST_CASES`` row (the checkout's own ``split_conv_case`` /
+  ``fast_conv_case``) and the profile of one forward of 8 windows at that
+  tier, with the device time of its conv kernels and of PyTorch's copy
+  kernels.
 """
 
 from __future__ import annotations
@@ -67,14 +75,22 @@ def profile(cs, model, device, dtype) -> dict:
     rows = cs.device_rows(prof)
     kernels = {cs.short_name(name): ms for name, ms, _ in rows
                if cs.short_name(name).startswith(("sta", "tail", "conv_f32", "conv_fused",
-                                                  "conv_wgmma"))}
+                                                  "conv_wgmma", "conv_fast"))}
     f32 = [(ms, n) for name, ms, n in rows
            if cs.short_name(name).startswith(("conv_f32", "conv_fused"))]
+    tc = [(ms, n) for name, ms, n in rows
+          if cs.short_name(name).startswith(("conv_wgmma", "conv_fast"))]
+    copies = [(ms, n) for name, ms, n in rows if "copy" in name.lower()]
     return {"forward_ms": fwd_ms, "device_ms": sum(r[1] for r in rows), "kernels": kernels,
-            "f32_conv_ms": sum(ms for ms, _ in f32), "f32_conv_launches": sum(n for _, n in f32)}
+            "f32_conv_ms": sum(ms for ms, _ in f32), "f32_conv_launches": sum(n for _, n in f32),
+            "tc_conv_ms": sum(ms for ms, _ in tc), "tc_conv_launches": sum(n for _, n in tc),
+            "copy_ms": sum(ms for ms, _ in copies), "copy_launches": sum(n for _, n in copies)}
 
 
-def child(root: str, out_path: str, strict: bool) -> None:
+HEADLINES = ("conv0 64->64 lrelu", "conv1 3x64->64 lrelu")
+
+
+def child(root: str, out_path: str, tiers) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -98,11 +114,18 @@ def child(root: str, out_path: str, strict: bool) -> None:
     load_into(model, sd)
     model.to(device)
     rng = np.random.default_rng(0)
+    strict = "strict" in tiers
     with cs.float32_precision(True):
         statics = model.stau_statics(cs.LR_HW, cs.SCALE, dtype=torch.float32, device=device)
-        rows = [cs.sta_case(rng, model, torch.bfloat16, device),
-                cs.stau_case(rng, model, statics, torch.bfloat16, device),
-                cs.tail_case(rng, model, torch.bfloat16, device)]
+        rows = [cs.conv_case(rng, *case, torch.bfloat16, device) for case in cs.CONV_CASES
+                if case[0] in HEADLINES]
+        rows += [cs.sta_case(rng, model, torch.bfloat16, device),
+                 cs.stau_case(rng, model, statics, torch.bfloat16, device),
+                 cs.tail_case(rng, model, torch.bfloat16, device)]
+        if "split" in tiers:
+            rows += [cs.split_conv_case(rng, *case, device) for case in cs.SPLIT_CASES]
+        if "fast" in tiers:
+            rows += [cs.fast_conv_case(rng, *case, device) for case in cs.FAST_CASES]
         if strict:
             rows += [cs.sta_case(rng, model, torch.float32, device),
                      cs.stau_case(rng, model, statics, torch.float32, device),
@@ -110,7 +133,8 @@ def child(root: str, out_path: str, strict: bool) -> None:
             rows += [cs.conv_case(rng, *case, torch.float32, device) for case in cs.CONV_CASES]
     del model
     profiles = {}
-    for tier, dtype in (("bf16", torch.bfloat16), ("strict", torch.float32))[:1 + strict]:
+    for tier in ("bf16",) + tuple(t for t in ("strict", "split", "fast") if t in tiers):
+        dtype = torch.bfloat16 if tier == "bf16" else torch.float32
         model = build_serving_model(tier)  # as chip_smoke.phase_profile builds it
         load_into(model, sd)
         model.to(device=device, dtype=dtype)
@@ -119,11 +143,13 @@ def child(root: str, out_path: str, strict: bool) -> None:
         torch.cuda.empty_cache()
         log(f"serving forward {tier}, {cs.WINDOWS} windows {cs.LR_HW[0]}x{cs.LR_HW[1]} x4: "
             f"{prof['forward_ms']:.2f} ms unprofiled, device busy {prof['device_ms']:.2f} ms "
-            f"(f32 conv {prof['f32_conv_ms']:.2f} ms in {prof['f32_conv_launches']} launches); "
+            f"(f32 conv {prof['f32_conv_ms']:.2f} ms in {prof['f32_conv_launches']} launches; "
+            f"tensor-core conv {prof['tc_conv_ms']:.2f} ms in {prof['tc_conv_launches']}; "
+            f"copies {prof['copy_ms']:.2f} ms in {prof['copy_launches']}); "
             + "; ".join(f"{k} {v:.4f} ms" for k, v in prof["kernels"].items()))
     with open(out_path, "w") as f:
         json.dump({"root": root, "cases": rows, "profile": profiles["bf16"],
-                   "strict_profile": profiles.get("strict")}, f)
+                   "strict_profile": profiles.get("strict"), "profiles": profiles}, f)
     if not all(r["ok"] for r in rows):
         raise AssertionError(f"{root}: a kernel disagrees with its plain version")
 
@@ -133,12 +159,15 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("roots", nargs="+", help="checkouts of the repo, run in this order")
     ap.add_argument("--strict", action="store_true",
-                    help="also the f32 conv rows and the strict tier's forward")
+                    help="also the f32 conv rows and the strict tier's forward (--tier strict)")
+    ap.add_argument("--tier", nargs="+", default=[], choices=("strict", "split", "fast"),
+                    help="also these tiers' conv rows and forwards")
     ap.add_argument("--out", default=None, help="write every checkout's results here as JSON")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    tiers = sorted(set(args.tier) | ({"strict"} if args.strict else set()))
     if args.child:
-        child(os.path.abspath(args.roots[0]), args.child, args.strict)
+        child(os.path.abspath(args.roots[0]), args.child, tiers)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -149,10 +178,17 @@ def main(argv=None) -> int:
             path = os.path.join(tmp, f"{i}.json")
             root = os.path.abspath(root)
             subprocess.run([sys.executable, os.path.abspath(__file__), root, "--child", path]
-                           + ["--strict"] * args.strict, check=True, cwd=root)
+                           + (["--tier", *tiers] if tiers else []), check=True, cwd=root)
             with open(path) as f:
                 results.append(json.load(f))
     for r in results:
+        for tier, prof in r["profiles"].items():
+            rows = [c for c in r["cases"] if c["dtype"] == tier and c["name"].startswith("conv")]
+            print(f"[ab] {r['root']}: {tier} forward device busy {prof['device_ms']:.2f} ms "
+                  f"(tensor-core conv {prof['tc_conv_ms']:.2f} ms, copies {prof['copy_ms']:.2f} "
+                  f"ms in {prof['copy_launches']}); conv rows ms (library): "
+                  + "; ".join(f"{c['case']} {c['ms']:.4f} ({c['library_ms']:.4f})" for c in rows),
+                  flush=True)
         by = {c["name"]: c for c in r["cases"] if c["dtype"] == "bf16"}
         print(f"[ab] {r['root']}: sta {by['sta']['ms']:.4f} ms (bound {by['sta']['bound_ms']:.4f}), "
               f"stau {by['stau']['ms']:.4f} ms, tail {by['tail']['ms']:.4f} ms "

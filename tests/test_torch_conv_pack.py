@@ -3,7 +3,10 @@ the weight repack into the kernel's A-operand stages (``pack_index`` /
 ``pack_weight``) and the pitch-padded copy of a part TMA cannot address
 (``tma_part``); and those of the f32 CUDA-core conv: its weight repack
 (``pack_weight_f32``), its stages and its split of the Cin reduction
-(``f32_stages``, ``f32_chunks``).
+(``f32_stages``, ``f32_chunks``); and those of the fast conv: the f32 part
+maps (``tma_part`` at a 4-element pitch) and the kernel's tiling, replayed with its rounding of
+each f32 box to bf16 and the one-pixel shifts it builds from the box and
+its halo columns (``_replay_fast``).
 
 The kernel itself runs only on the card (chip_smoke.py, tests/test_torch_cuda.py).
 Here its decomposition is replayed in PyTorch on the CPU from the packed
@@ -25,8 +28,9 @@ import torch.nn.functional as F
 
 from savsr_tpu.ops.pallas.chw_conv import chw_to_nhwc, conv3x3_chw, nhwc_to_chw, pack_w3
 from savsr_tpu_torch.ops.conv import (CI_STEP, CO_TILE, F32_BLOCKS_PER_SM, F32_STAGE_CH,
-                                      F32_TILE, conv_fused_plain, f32_chunks, f32_stages,
-                                      pack_index, pack_weight, pack_weight_f32, tma_part)
+                                      F32_TILE, conv_fused_fast_plain, conv_fused_plain,
+                                      f32_chunks, f32_stages, pack_index, pack_weight,
+                                      pack_weight_f32, pack_weight_fast, tma_part)
 
 
 def _unpack(packed: torch.Tensor, cout: int, chans, k: int) -> torch.Tensor:
@@ -327,3 +331,118 @@ def test_f32_chunks_fill_one_wave_at_the_training_shape(cin):
     co, rows, cols = F32_TILE
     blocks = 8 * -(-64 // co) * -(-60 // rows) * -(-60 // cols) * n
     assert n > 1 and 132 <= blocks <= F32_BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("shape,view,copied", [
+    ((2, 3, 5, 64), None, False),        # W % 4 == 0: read in place
+    ((2, 3, 5, 68), None, False),        # a multiple of 4, not of 8: in place in f32
+    ((2, 3, 5, 66), None, True),         # off a multiple of 4: pitch 68
+    ((2, 3, 5, 65), None, True),         # odd: pitch 68
+    ((2, 7, 3, 6, 320), 2, False),       # a frame view: its own batch stride
+    ((2, 7, 3, 6, 45), 4, True),         # a frame view of a ragged width
+])
+def test_fast_part_pitch(shape, view, copied):
+    """The fast kernel's f32 maps: a part is read in place where TMA can
+    address its rows (16-byte pitch, base and batch stride, contiguous
+    channel planes), else through a pitch-padded f32 copy (pitch a multiple
+    of 4, the pad columns zero and never read)."""
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x = _t(rng, shape)
+    p = x[:, view] if view is not None else x
+    buf, pitch = tma_part(p, 4)
+    h, w = p.shape[-2:]
+    assert pitch == w + (-w % 4) and buf.shape[-1] == pitch and buf.dtype == torch.float32
+    assert buf.stride(-1) == 1 and buf.stride(-2) == pitch and buf.stride(1) == h * pitch
+    assert buf.stride(0) % 4 == 0 and buf.data_ptr() % 16 == 0
+    assert (buf.data_ptr() != p.data_ptr()) == copied
+    assert torch.equal(buf[..., :w], p) and not buf[..., w:].any()
+    odd = torch.zeros(p.numel() + 1)[1:].view(p.shape).copy_(p)  # a base 4 bytes off
+    for q in (odd, p.contiguous(memory_format=torch.channels_last)):
+        buf, pitch = tma_part(q, 4)
+        assert buf.data_ptr() != q.data_ptr() and buf.data_ptr() % 16 == 0
+        assert buf.stride(-2) == pitch and torch.equal(buf[..., :w], p)
+
+
+def _replay_fast(parts, weight, bias=None, pre_add=None, out_scale=None, lrelu=None,
+                 residual=None) -> torch.Tensor:
+    """The fast kernel's arithmetic (csrc/conv.cu conv_fast_kernel), tile by
+    tile: per 64-column x 4-row tile and 16-channel chunk of each part, the
+    f32 box of the slab (rows y0 - k//2 .. , zero outside the image as TMA
+    fills it) and its halo columns x0 - 1 and x0 + 64 (zero at the borders),
+    rounded to bf16; the dx = 0 and dx = 2 buffers the box shifted one pixel
+    right and left with the halo column at the end; per tap, the packed
+    bf16 weight block times the buffer's rows dy.., summed in f32 in chunk
+    and tap order, then the epilogue."""
+    b, _, h, w = parts[0].shape
+    k = weight.shape[-1]
+    halo, kk, slab = k // 2, k * k, 4 + 2 * (k // 2)
+    chans = [p.shape[1] for p in parts]
+    cout = weight.shape[-4]
+    nct = -(-cout // CO_TILE)
+    packed = pack_weight_fast(weight, chans).float()
+    packed = packed.reshape(-1, packed.shape[-1])
+    blocks = packed.view(packed.shape[0], nct, -1, kk, 8, 2, 8, 8).permute(
+        0, 2, 3, 1, 4, 6, 5, 7).reshape(packed.shape[0], -1, kk, nct * CO_TILE, CI_STEP)
+    hp, wp = -(-h // 4) * 4, -(-w // 64) * 64
+    y = torch.zeros(b, nct * CO_TILE, hp, wp)
+    chunk = 0
+    for p in parts:
+        buf, pitch = tma_part(p, 4)
+        # the image as TMA sees it: the true width, zero around it
+        img = torch.zeros(b, p.shape[1] + CI_STEP, hp + 2 * halo, wp + 2)
+        img[:, :p.shape[1], halo:halo + h, 1:1 + w] = buf[..., :w]
+        for c0 in range(0, p.shape[1], CI_STEP):
+            for y0 in range(0, h, 4):
+                for x0 in range(0, w, 64):
+                    box = img[:, c0:c0 + CI_STEP, y0:y0 + slab, x0:x0 + 66]  # halos at 0, 65
+                    r = box.to(torch.bfloat16).float()
+                    bufs = {0: r[..., 0:64], 1: r[..., 1:65], 2: r[..., 2:66]}
+                    for tap in range(kk):
+                        dy, dx = divmod(tap, k)
+                        a = blocks[:, chunk, tap].expand(b, -1, -1)
+                        src = bufs[dx if k == 3 else 1][:, :, dy:dy + 4]
+                        y[:, :, y0:y0 + 4, x0:x0 + 64] += torch.einsum("bok,bkhw->bohw", a, src)
+            chunk += 1
+    y = y[:, :cout, :h, :w]
+    if bias is not None:
+        y = y + bias.view(1, -1, 1, 1)
+    if pre_add is not None:
+        y = y + pre_add
+    if out_scale is not None:
+        y = y * out_scale.reshape(-1, cout, 1, 1)
+    if lrelu is not None:
+        y = lrelu[0] * y + lrelu[1] * y.abs()
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+# (kernel size, parts' channels, Cout, per-sample weights, h, w, parts as
+# frame views): one to three column tiles, widths on and off a multiple of
+# 4, Cin off the 16-channel step, Cout past one 64-channel tile
+FAST_REPLAY = [(3, [64], 64, False, 9, 130, False), (3, [3, 3], 64, False, 6, 66, True),
+               (1, [16, 3], 24, True, 5, 65, False), (3, [5, 11], 72, True, 7, 7, False),
+               (1, [64] * 3, 128, False, 4, 68, False)]
+
+
+@pytest.mark.parametrize("case", FAST_REPLAY, ids=str)
+def test_replayed_fast_kernel_matches_plain(case):
+    """The replayed tiling against ``conv_fused_fast_plain`` (bf16 inputs
+    and weight, f32 sums in another order): max abs <= 1e-5 of the output's
+    scale, with every epilogue term."""
+    k, chans, cout, per_sample, h, w, frames = case
+    rng = np.random.default_rng(sum(chans) + cout + w)
+    b = 2
+    if frames:
+        clip = _t(rng, (b, len(chans), chans[0], h, w))
+        parts = [clip[:, i] for i in range(len(chans))]
+    else:
+        parts = [_t(rng, (b, c, h, w)) for c in chans]
+    weight = _t(rng, ((b,) if per_sample else ()) + (cout, sum(chans), k, k),
+                (sum(chans) * k * k) ** -0.5)
+    epi = dict(bias=_t(rng, (cout,), 0.1), pre_add=_t(rng, (b, cout, h, w)),
+               out_scale=torch.from_numpy(rng.uniform(0.5, 1.5, (b, cout)).astype(np.float32)),
+               lrelu=(0.6, 0.4), residual=_t(rng, (b, cout, h, w)))
+    want = conv_fused_fast_plain(parts, weight, **epi)
+    got = _replay_fast(parts, weight, **epi)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

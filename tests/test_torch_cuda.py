@@ -839,6 +839,85 @@ def test_fast_conv_kernel_matches_plain(dev, case):
         assert torch.equal(got, conv_fused_fast(parts, weight, **kw))
 
 
+def _fast_conv_agree(dev, k, chans, cout, per_sample, epi, b, h, w, seed, frames=False):
+    """The fast kernel (csrc/conv.cu conv_fast_kernel) against its plain
+    version at f32's tolerance, and a second launch bit for bit."""
+    parts, weight, kw = _conv_f32_case(dev, k, chans, cout, per_sample, epi, b, h, w, seed,
+                                       frames=frames)
+    name = "conv3x3_fast" if k == 3 else "conv1x1_fast"
+    got = _agree(lambda: conv_fused_fast(parts, weight, **kw),
+                 lambda: conv_fused_fast_plain(parts, weight, **kw), torch.float32, name)
+    with torch.no_grad():
+        assert torch.equal(got, conv_fused_fast(parts, weight, **kw))
+
+
+# widths read in place by the f32 TMA maps (W % 4 == 0: 64, 68, 320, 132)
+# and through a pitch-padded copy (66: even, the 8-byte epilogue; 65 and 7:
+# odd, the scalar one), one to five column tiles
+FAST_WIDTHS = [64, 68, 320, 132, 66, 65, 7]
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("w", FAST_WIDTHS)
+def test_fast_conv_widths(dev, k, w):
+    _fast_conv_agree(dev, k, [64], 64, False, ("bias", "lrelu", "residual"), 2, 6, w, w + k)
+
+
+@pytest.mark.parametrize("k,w", [(3, 320), (3, 45), (1, 64)])
+def test_fast_conv_frames_view_parts(dev, k, w):
+    """Parts that are frame views of one clip (batch stride T*C*h*w), as the
+    window's raw frames reach conv_sup."""
+    _fast_conv_agree(dev, k, [3, 3], 64, False, ("bias", "lrelu"), 2, 9, w, w + 1,
+                     frames=True)
+
+
+@pytest.mark.parametrize("cout,w", [(64, 96), (128, 72)])
+def test_fast_conv_five_parts(dev, cout, w):
+    """Five 64-channel parts (the WindowUnit_l2 merge and OSConv)."""
+    _fast_conv_agree(dev, 3, [64] * 5, cout, False, ("bias",), 2, 8, w, cout + w)
+
+
+@pytest.mark.parametrize("k,chans", [(3, [64] * 3), (3, [64]), (1, [64, 64])])
+def test_fast_conv_per_sample_weight(dev, k, chans):
+    _fast_conv_agree(dev, k, chans, 64, True, ("lrelu",), 3, 7, 70, sum(chans) + k)
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("term", ALL_TERMS + ("shared_scale",))
+def test_fast_conv_epilogue_terms(dev, k, term):
+    """Each epilogue term on its own (at an even and an odd width)."""
+    for w in (70, 33):
+        _fast_conv_agree(dev, k, [40, 24], 64, False, (term,), 2, 5, w, 7 + w)
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("w", [130, 67])
+def test_fast_conv_rounds_ties_to_nearest_even(dev, k, w):
+    """Inputs on bf16 rounding ties (the low 16 bits 0x8000, with the kept
+    bit odd and even), next to them (0x7fff, 0x8001) and exact, through a
+    weight whose every output channel is one tap of one input channel times
+    1: each output is one rounded input, shifted by its tap, with no sum to
+    reorder, so the kernel's in-kernel rounding must equal .to(bfloat16) in
+    the plain version bit for bit (halo columns and borders included)."""
+    rng = np.random.default_rng(w + k)
+    b, c, h = 2, 16, 6
+    hi = rng.integers(0x3c00, 0x4200, (b, c, h, w)) | (rng.integers(0, 2, (b, c, h, w)) << 15)
+    lo = rng.choice(np.array([0x8000, 0x8000, 0x7fff, 0x8001, 0, 0x1234]), (b, c, h, w))
+    x = torch.from_numpy(((hi << 16) | lo).astype(np.uint32).view(np.float32)).to(dev)
+    kk = k * k
+    weight = torch.zeros(kk * c, c, k, k)
+    for t in range(kk):
+        for ci in range(c):
+            weight[t * c + ci, ci, t // k, t % k] = 1.0
+    weight = weight.to(dev)
+    got = conv_fused_fast([x], weight)
+    want = conv_fused_fast_plain([x], weight)
+    assert torch.equal(got, want)
+    center = (kk // 2) * c
+    assert torch.equal(got[:, center:center + c], x.to(torch.bfloat16).float())
+    assert not torch.equal(got[:, center:center + c], x)  # the ties did round
+
+
 @pytest.mark.parametrize("c,h,w", [(16, 5, 7), (32, 9, 18), (64, 6, 33)])
 def test_fast_sta_kernel_matches_plain(dev, c, h, w):
     rng = np.random.default_rng(c + h + 1)

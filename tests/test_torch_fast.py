@@ -140,7 +140,8 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
 def _conv_case(label):
     """(jax fn, port fn) of a conv case, NHWC out."""
     rng = np.random.default_rng(sum(map(ord, label)))
-    b, h, w = 2, 10, 17
+    # 17 and 66: widths off a multiple of 4 (the kernel's pitch-padded f32 copy)
+    b, h, w = 2, 10, 66 if label.endswith("width 66") else 17
     if label == "conv1x1 3 parts":
         cin, cout = 48, 16
         x = rng.standard_normal((b, h, w, cin), dtype=np.float32)
@@ -274,6 +275,7 @@ def _tail_case():
 KERNEL_CASES = {
     "conv3x3 shared, full epilogue": lambda: _conv_case("conv3x3 shared, full epilogue"),
     "conv3x3 per-sample": lambda: _conv_case("conv3x3 per-sample"),
+    "conv3x3 shared, width 66": lambda: _conv_case("conv3x3 shared, width 66"),
     "conv1x1 3 parts": lambda: _conv_case("conv1x1 3 parts"),
     "sta": _sta_case,
     "stau": _stau_case,
