@@ -87,7 +87,8 @@ Phases (each prints its lines; any failure exits non-zero):
 
 10. split   the split serving tier (conv_precision: split: pair-carried
             bf16 hi/lo convs on the tensor cores, csrc/conv.cu
-            conv_wgmma_kernel<K, true>; STA, STAU and the tail on their f32
+            conv_split_kernel<K>, a stage one chunk of one pair; STA, STAU
+            and the tail on their f32
             kernels): the split conv against its plain version at 8 x
             180x320 (64->64 3x3 with a pair residual, the 3-pair merge, the
             1x1 conv1, the WindowUnit_l1 OSConv's per-sample weight; f32's
@@ -100,7 +101,9 @@ Phases (each prints its lines; any failure exits non-zero):
             split on the serving clip (the split main-path run: counts
             zeroed just before, read just after; every split and f32 serving
             kernel launched, no native conv); one profiled split forward of
-            8 windows (device busy, the split conv's share); and the shipped
+            8 windows (device busy, the split conv's share, every split conv
+            on conv_split_kernel<K> and none on conv_wgmma_kernel, the
+            device time outside the port's kernels by kernel); and the shipped
             Vid4 config with conv_precision: split on its x4, x1.1 and
             x(1.5,3.5) datasets (psnr_y and ssim_y against the strict sweep
             of phase 9).
@@ -233,16 +236,16 @@ TIER_KERNELS = {"bf16": SERVING_KERNELS, "split": SPLIT_SERVING_KERNELS, "fast":
 # the CUDA kernels behind each row of the JSON kernels line, by dtype (the
 # flagship widths: C = 64, 4 experts; W % 4 == 0)
 CUDA_KERNELS = {
-    ("conv3x3", "bf16"): "conv_wgmma_kernel<3, false>",
+    ("conv3x3", "bf16"): "conv_wgmma_kernel<3>",
     ("conv3x3", "f32"): "conv_f32_kernel<3, 1>",
-    ("conv1x1", "bf16"): "conv_wgmma_kernel<1, false>",
+    ("conv1x1", "bf16"): "conv_wgmma_kernel<1>",
     ("conv1x1", "f32"): "conv_f32_kernel<1, 0>",
-    ("conv3x3_split", "split"): "conv_wgmma_kernel<3, true>",
-    ("conv1x1_split", "split"): "conv_wgmma_kernel<1, true>",
+    ("conv3x3_split", "split"): "conv_split_kernel<3>",
+    ("conv1x1_split", "split"): "conv_split_kernel<1>",
     ("sta", "bf16"): "sta_mma_kernel<64>", ("sta", "f32"): "sta_f32_kernel<64, false>",
     ("stau", "bf16"): "stau_mma_kernel<4, false>", ("stau", "f32"): "stau_f32_kernel<64>",
     ("tail", "bf16"): "tail_mma_kernel<4>", ("tail", "f32"): "tail_f32_kernel<false>",
-    ("osconv_agg", "bf16"): "conv_wgmma_kernel<3, false>",
+    ("osconv_agg", "bf16"): "conv_wgmma_kernel<3>",
     ("osconv_agg", "f32"): "conv_f32_kernel<3, 1> + conv_f32_reduce_kernel",
     ("osconv_dagg", "bf16"): "osconv_dagg_wgmma_kernel<3> + dagg_reduce_kernel",
     ("conv3x3_fast", "fast"): "conv_fast_kernel<3, true>",
@@ -950,8 +953,8 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
     for name, ms, count in rows[:12]:
         log(f"[profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} {name[:90]}")
     port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
-        "conv_f32", "conv_f32_reduce", "conv_wgmma", "conv_fast", "sta_f32", "sta_mma", "stau_f32", "stau_mma",
-        "tail_f32", "tail_mma"))]
+        "conv_f32", "conv_f32_reduce", "conv_wgmma", "conv_fast", "conv_split", "sta_f32", "sta_mma",
+        "stau_f32", "stau_mma", "tail_f32", "tail_mma"))]
     result = {"tier": tier, "launches": launches}
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
@@ -989,14 +992,34 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
         result["f32_conv_ms"] = f32_ms
         return result
     if tier == "split":
-        sp = [r for r in rows if "conv_wgmma" in r[0]]
+        sp = [r for r in rows if "conv_wgmma" in r[0] or "conv_split" in r[0]]
         sp_ms = sum(r[1] for r in sp)
         log(f"[profile] split: the split conv kernels {sp_ms:.2f} ms = "
             f"{100 * sp_ms / max(total, 1e-9):.1f}% of device busy {total:.2f} ms, in "
             f"{sum(r[2] for r in sp)} device launches (wrapper calls conv3x3_split "
             f"{launches['conv3x3_split']}, conv1x1_split {launches['conv1x1_split']}): "
             + "; ".join(f"{short_name(n)} {ms:.2f} ms x{c}" for n, ms, c in sp))
-        result["split_conv_ms"] = sp_ms
+        # every split conv runs the pair kernel (conv_split_kernel<K>), none
+        # the bf16 kernel (conv_wgmma_kernel); the profiler's counts run a
+        # few short of the wrapper calls over a whole forward (391 + 9 of 402
+        # + 10 here, as for the fast convs), so kernels are held, not counts
+        if device.type == "cuda" and ({short_name(n) for n, _, _ in sp}
+                                      != {"conv_split_kernel<3>", "conv_split_kernel<1>"}):
+            raise AssertionError(f"split profile: conv3x3_split {launches['conv3x3_split']}, "
+                                 f"conv1x1_split {launches['conv1x1_split']} calls; kernels {sp}")
+        # the device time outside the port's kernels, by kernel: the pairs'
+        # elementwise passes (adds, splits, casts) and copies
+        other = {}
+        for name, ms, count in rows:
+            if (name, ms, count) not in port:
+                prev = other.get(short_name(name), (0.0, 0))
+                other[short_name(name)] = (prev[0] + ms, prev[1] + count)
+        other = sorted(other.items(), key=lambda kv: -kv[1][0])
+        log(f"[profile] split: outside the port's kernels {sum(v[0] for _, v in other):.2f} ms "
+            f"in {sum(v[1] for _, v in other)} launches, by kernel: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in other[:12]))
+        result.update(split_conv_ms=sp_ms,
+                      other_kernels={k: {"ms": ms, "launches": n} for k, (ms, n) in other})
     # the bf16 conv's weight repack (ops/conv.py pack_weight: a zero pad and
     # an index_select, whose CUDA kernel is PyTorch's gather, for each
     # per-sample OSConv weight, split into hi and lo first in the split tier;

@@ -93,26 +93,27 @@
 //   cores fed: loads, shifts and the epilogue all overlap the MMAs of
 //   another stage or tile.
 //
-// * split (the same conv_wgmma_kernel, SPLIT = true): the split serving
-//   tier's conv (conv_precision: split), the pair-carry mode of the TPU
-//   kernels (chw_conv.py _body3 / _body1 with in_pair, out_pair, res_pair).
-//   A feature travels between convs as a pair of bf16 planes, hi = bf16(y)
-//   and lo = bf16(y - hi), whose f32 sum is its value; the weight splits
-//   alike into Whi = bf16(W) and Wlo = bf16(W - Whi). The conv contracts
-//   [Xhi; Xlo; Xhi] against [Whi, Whi, Wlo] (the lo*lo term, ~2^-16
-//   relative, is dropped): a bf16 contraction over 3 Cin channels, each
-//   product exact in the f32 accumulators. So the kernel is the bf16 one
-//   walking three K segments per input part, hi, lo and hi again, each a
-//   TMA map of its plane (hi's map serves two segments; it is read twice,
-//   the second time mostly from L2), against the weight the wrapper splits
-//   and packs (ops/conv.py pack_weight_split). Only the epilogue differs:
-//   f32 bias, pre_add and out_scale, a residual in f32 or as a pair (hi +
-//   lo), and the result written as a pair (hi = bf16(v), lo = bf16(v -
-//   hi)) or in f32. Bound: three times the bf16 conv's operations against
-//   the pair bytes (2 bf16 in, 2 bf16 out per channel and pixel): the wider
-//   main-path convs are bound by operations, 64->64 sits at the ridge (3x3
-//   64->64 at 8x180x320: 0.103 ms of operations, 0.070 ms of bytes, 0.106
-//   with a pair residual).
+// * split: the split serving tier's conv (conv_precision: split), the
+//   pair-carry mode of the TPU kernels (chw_conv.py _body3 / _body1 with
+//   in_pair, out_pair, res_pair). A feature travels between convs as a pair
+//   of bf16 planes, hi = bf16(y) and lo = bf16(y - hi), whose f32 sum is its
+//   value; the weight splits alike into Whi = bf16(W) and Wlo = bf16(W -
+//   Whi). The conv contracts [Xhi; Xlo; Xhi] against [Whi, Whi, Wlo] (the
+//   lo*lo term, ~2^-16 relative, is dropped): a bf16 contraction over 3 Cin
+//   channels, each product exact in the f32 accumulators. It runs
+//   conv_split_kernel<K>: the bf16 kernel's tiles with a stage that holds
+//   one 16-channel chunk of one pair (both planes' slabs, each shifted
+//   once, and the chunk's [Whi | Wlo] weights, ops/conv.py
+//   pack_weight_pair) and 3 x K*K wgmmas on it, where the TPU kernel's
+//   im2col duplicates hi in VMEM; two consumer warpgroups take whole tiles
+//   in turn, so that one's epilogue runs under the other's MMAs. The
+//   epilogue: f32 bias, pre_add and out_scale, a residual in f32 or as a
+//   pair (hi + lo), and the result written as a pair (hi = bf16(v), lo =
+//   bf16(v - hi)) or in f32. Bound: three times the bf16 conv's operations
+//   against the pair bytes (2 bf16 in, 2 bf16 out per channel and pixel):
+//   the wider main-path convs are bound by operations, 64->64 sits at the
+//   ridge (3x3 64->64 at 8x180x320: 0.103 ms of operations, 0.070 ms of
+//   bytes, 0.106 with a pair residual).
 //
 // * fast (conv_fast_kernel): the fast serving tier's conv (f32 weights and
 //   carries at matmul_precision: default), the TPU kernels' f32 mode at
@@ -132,15 +133,13 @@
 // Layout: NCHW. Input channel parts are read through separate pointers (f32)
 // or tensor maps (bf16, split, fast), each with its own batch stride, so a
 // channel concat is never copied. Weights come packed by the wrapper
-// (ops/conv.py pack_weight_f32 / pack_weight / pack_weight_split /
+// (ops/conv.py pack_weight_f32 / pack_weight / pack_weight_pair /
 // pack_weight_fast), shared or per sample.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -537,25 +536,6 @@ struct TmaParts {
   CUtensorMap halo[MAXP];
   int c[MAXP];
   int n;
-  __device__ const CUtensorMap* center_of(int p) const { return &center[p]; }
-  __device__ const CUtensorMap* halo_of(int p) const { return &halo[p]; }
-};
-
-// The split conv's K segments: segment p reads the planes of map map[p]
-// (each pair's hi and lo planes are one map each; a pair is the three
-// segments hi, lo, hi). 5 pairs (the WindowUnit_l2 merge and OSConv over 5
-// features) are 10 maps and 15 segments; the kernel's parameters stay under
-// 4 KB.
-constexpr int SPLIT_MAPS = 10;
-constexpr int SPLIT_SEGS = 16;
-struct SplitParts {
-  CUtensorMap center[SPLIT_MAPS];
-  CUtensorMap halo[SPLIT_MAPS];
-  int c[SPLIT_SEGS];
-  int map[SPLIT_SEGS];
-  int n;
-  __device__ const CUtensorMap* center_of(int p) const { return &center[map[p]]; }
-  __device__ const CUtensorMap* halo_of(int p) const { return &halo[map[p]]; }
 };
 
 // One pipeline stage: 16 input channels of the (TC_ROWS + KS - 1)-row slab
@@ -598,117 +578,161 @@ __device__ __forceinline__ uint32_t straddle(uint32_t lo, uint32_t hi) {
   return __byte_perm(lo, hi, 0x5432);
 }
 
-// The split conv's epilogue on a consumer warpgroup's fragments (the layout
-// of the bf16 epilogue below), in f32, in the TPU order: + bias, + pre_add,
-// x out_scale, abs-form LeakyReLU, + residual (RES 2: a pair's hi + lo, 1:
-// f32, 0: none); written as a pair (PAIR_OUT: hi = bf16(v), lo = bf16(v -
-// hi)) or as f32. Null pointers switch the other terms off. The kernel
-// picks the (RES, PAIR_OUT) instance by a uniform branch, so a launch runs
-// one short body, not one that holds every path (9.3k SASS instructions,
-// whose fetching cost the fast route ~0.1 ms a call).
-template <int RES, bool PAIR_OUT>
-__device__ __forceinline__ void split_epilogue(
-    const float (&acc)[64], const Tile& tl, int warp, int lane, int wg, int H, int W, int Cout,
-    const float* bias, const float* pre, const float* scale, long long s_bstride, int lrelu,
-    float la, float lb, const __nv_bfloat16* res_hi, const __nv_bfloat16* res_lo,
-    const float* res_f, __nv_bfloat16* out_hi, __nv_bfloat16* out_lo, float* out_f) {
-  const long long HW = (long long)H * W;
-  const bool pairs = (W & 1) == 0;  // x is even: 8-byte f32 and 4-byte bf16 pairs
+// The split conv's epilogue operands: f32 bias, pre_add and out_scale; a
+// residual as a pair (res_hi + res_lo) or in f32 (res_f); the result as a
+// pair (out_hi, out_lo) or in f32 (out_f). Null pointers switch a term off.
+struct SplitEpi {
+  const float* bias;
+  const float* pre;
+  const float* scale;
+  long long s_bstride;
+  int lrelu;
+  float la, lb;
+  const __nv_bfloat16* res_hi;
+  const __nv_bfloat16* res_lo;
+  const float* res_f;
+  __nv_bfloat16* out_hi;
+  __nv_bfloat16* out_lo;
+  float* out_f;
+};
+
+// Pixel pair i (0..31) of a consumer thread's fragment of a whole tile (the
+// m64n256k16 layout: acc[4i + 2j + c] is output channel 16*(warp%4) + lane/4
+// + 8j of the tile, row y0 + i / 8, column x0 + 8*(i%8) + c): at offset o
+// from the thread's (row y0, column x0) of a channel plane, inside the
+// output (ok), both columns inside (two; always where W is even, VEC).
+#define SPLIT_PIXEL(i)                                                 \
+  const int x = x0 + 8 * ((i) % 8);                                    \
+  const bool ok = y0 + (i) / 8 < H && x < W, two = VEC || x + 1 < W;   \
+  const int o = ((i) / 8) * W + 8 * ((i) % 8)
+
+// The split conv's epilogue on a consumer thread's fragment of a tile, in
+// f32, in the TPU order: + bias, + pre_add, x out_scale, abs-form
+// LeakyReLU, + residual (RES 2: a pair's hi + lo, 1: f32, 0: none); written
+// as a pair (PAIR_OUT: hi = bf16(v), lo = bf16(v - hi)) or as f32; VEC: W
+// even, so each pixel pair is one 4-byte bf16 or 8-byte f32 access. One
+// short straight run of code per (RES, PAIR_OUT, VEC), picked by uniform
+// branches as the consumers start (every runtime path in one body, 9.3k
+// SASS instructions, cost the fast route ~0.1 ms a call in instruction
+// fetch). Per output channel and pair of rows (16 pixel pairs), every
+// residual load is issued before the first store: a load behind a store
+// that may alias it waits for it, so loads and stores taken pixel pair by
+// pixel pair wait a round trip to memory each (0.245 of 0.418 ms for the
+// 3x3 64->64 with a pair residual at 8 x 180x320, H100 at 700 W). Addresses
+// are 32-bit offsets from one base a channel. pre_add, which no main-path
+// conv takes, is folded in ahead.
+template <int RES, bool PAIR_OUT, bool VEC>
+__device__ __forceinline__ void split_epilogue(float (&acc)[128], const SplitEpi& e,
+                                               const Tile& tl, int warp, int lane, int H, int W,
+                                               int Cout) {
+  const int y0 = tl.y0, x0 = tl.x0 + 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int co = tl.ct * TC_CO + 16 * (warp % 4) + lane / 4 + 8 * j;
     if (co >= Cout) continue;
-    const float bv = bias ? bias[co] : 0.f;
-    const float sv = scale ? scale[tl.b * s_bstride + co] : 1.f;
-    const long long cbase = ((long long)tl.b * Cout + co) * HW;
+    float bv = e.bias ? e.bias[co] : 0.f;
+    const float sv = e.scale ? e.scale[tl.b * e.s_bstride + co] : 1.f;
+    const long long base = ((long long)tl.b * Cout + co) * H * W + (long long)y0 * W + x0;
+    if (e.pre) {  // v = (acc + bias) + pre_add (off the main path)
+      const float* p = e.pre + base;
+#pragma unroll 1
+      for (int i = 0; i < 32; ++i) {
+        SPLIT_PIXEL(i);
+        const float p0 = ok ? p[o] : 0.f, p1 = ok && two ? p[o + 1] : 0.f;
+        // a runtime index into acc would move it to local memory: select
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int y = tl.y0 + wg * (TC_ROWS / TC_CONSUMERS) + i / 8;
-      const int x = tl.x0 + 8 * (i % 8) + 2 * (lane % 4);
-      if (y >= H || x >= W) continue;
-      const long long idx = cbase + (long long)y * W + x;
-      const int nv = x + 1 < W ? 2 : 1;
-      const bool vec = pairs && nv == 2;
-      float v[2] = {acc[4 * i + 2 * j] + bv, acc[4 * i + 2 * j + 1] + bv};
-      float p[2] = {0.f, 0.f}, r[2] = {0.f, 0.f};
-      if (vec) {
-        if (pre) {
-          const float2 q = *reinterpret_cast<const float2*>(pre + idx);
-          p[0] = q.x, p[1] = q.y;
-        }
-        if (RES == 2) {
-          const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res_hi + idx));
-          const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res_lo + idx));
-          r[0] = h.x + l.x, r[1] = h.y + l.y;
-        } else if (RES == 1) {
-          const float2 q = *reinterpret_cast<const float2*>(res_f + idx);
-          r[0] = q.x, r[1] = q.y;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (c == nv) break;
-          if (pre) p[c] = pre[idx + c];
-          if (RES == 2) r[c] = __bfloat162float(res_hi[idx + c]) + __bfloat162float(res_lo[idx + c]);
-          else if (RES == 1) r[c] = res_f[idx + c];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if (pre) v[c] += p[c];
-        v[c] *= sv;
-        if (lrelu) v[c] = la * v[c] + lb * fabsf(v[c]);
-        if (RES) v[c] += r[c];
-      }
-      if (PAIR_OUT) {
-        if (vec) {
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
-          const float2 hf = __bfloat1622float2(hi);
-          *reinterpret_cast<__nv_bfloat162*>(out_hi + idx) = hi;
-          *reinterpret_cast<__nv_bfloat162*>(out_lo + idx) =
-              __floats2bfloat162_rn(v[0] - hf.x, v[1] - hf.y);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            if (c == nv) break;
-            const __nv_bfloat16 hi = __float2bfloat16_rn(v[c]);
-            out_hi[idx + c] = hi;
-            out_lo[idx + c] = __float2bfloat16_rn(v[c] - __bfloat162float(hi));
+        for (int m = 0; m < 32; ++m) {
+          if (m == i) {
+            acc[4 * m + 2 * j] = (acc[4 * m + 2 * j] + bv) + p0;
+            acc[4 * m + 2 * j + 1] = (acc[4 * m + 2 * j + 1] + bv) + p1;
           }
         }
-      } else if (vec) {
-        *reinterpret_cast<float2*>(out_f + idx) = make_float2(v[0], v[1]);
-      } else {
+      }
+      bv = 0.f;
+    }
+    __nv_bfloat16* oh = e.out_hi + base;
+    __nv_bfloat16* ol = e.out_lo + base;
+    float* of = e.out_f + base;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows 2h, 2h + 1 of the tile
+      float2 r[16];
+      if (RES) {  // the loads, all in flight at once
+        const __nv_bfloat16* rh = e.res_hi + base;
+        const __nv_bfloat16* rl = e.res_lo + base;
+        const float* rf = e.res_f + base;
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          SPLIT_PIXEL(16 * h + n);
+          r[n] = make_float2(0.f, 0.f);
+          if (!ok) continue;
+          if (VEC && RES == 2) {
+            const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rh + o));
+            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rl + o));
+            r[n] = make_float2(hi.x + lo.x, hi.y + lo.y);
+          } else if (VEC) {
+            r[n] = *reinterpret_cast<const float2*>(rf + o);
+          } else {
+            r[n].x = RES == 2 ? __bfloat162float(rh[o]) + __bfloat162float(rl[o]) : rf[o];
+            if (two)
+              r[n].y = RES == 2 ? __bfloat162float(rh[o + 1]) + __bfloat162float(rl[o + 1])
+                                : rf[o + 1];
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int i = 16 * h + n;
+        SPLIT_PIXEL(i);
+        if (!ok) continue;
+        float v[2] = {acc[4 * i + 2 * j] + bv, acc[4 * i + 2 * j + 1] + bv};
+        const float rv[2] = {r[n].x, r[n].y};
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          if (c == nv) break;
-          out_f[idx + c] = v[c];
+          v[c] *= sv;
+          if (e.lrelu) v[c] = e.la * v[c] + e.lb * fabsf(v[c]);
+          if (RES) v[c] += rv[c];
+        }
+        if (PAIR_OUT) {
+          if (VEC) {
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
+            const float2 hf = __bfloat1622float2(hi);
+            *reinterpret_cast<__nv_bfloat162*>(oh + o) = hi;
+            *reinterpret_cast<__nv_bfloat162*>(ol + o) =
+                __floats2bfloat162_rn(v[0] - hf.x, v[1] - hf.y);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              if (c == 1 && !two) break;
+              const __nv_bfloat16 hi = __float2bfloat16_rn(v[c]);
+              oh[o + c] = hi;
+              ol[o + c] = __float2bfloat16_rn(v[c] - __bfloat162float(hi));
+            }
+          }
+        } else if (VEC) {
+          *reinterpret_cast<float2*>(of + o) = make_float2(v[0], v[1]);
+        } else {
+          of[o] = v[0];
+          if (two) of[o + 1] = v[1];
         }
       }
     }
   }
 }
+#undef SPLIT_PIXEL
 
 // Persistent: block i takes tiles i, i + gridDim.x, ... (64 output channels
 // x 4 rows x 64 columns each); every role walks the same (tile, chunk)
 // sequence through the ring, so the producer loads the next tile's stages
-// while the consumers run this tile's epilogue.
-//
-// bf16 (SPLIT false): bias, pre, res and out are bf16. Split: bias and pre
-// are f32; res is the residual's hi plane with res_lo its lo plane, or, with
-// res_lo null, an f32 residual; out is the result's hi plane with out_lo its
-// lo plane, or, with out_lo null, the f32 result.
-template <int KS, bool SPLIT>
+// while the consumers run this tile's epilogue. bias, pre, res and out are
+// bf16.
+template <int KS>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-conv_wgmma_kernel(const __grid_constant__ typename std::conditional<SPLIT, SplitParts,
-                                                                    TmaParts>::type parts,
-                  int nchunk, int ntiles, int nx, int ny, int nct, int H, int W, int Cout,
-                  const __nv_bfloat16* __restrict__ wpk, long long w_bstride,
-                  const void* __restrict__ bias_, const void* __restrict__ pre_,
-                  const float* __restrict__ scale, long long s_bstride, int lrelu, float la,
-                  float lb, const void* __restrict__ res_,
-                  const __nv_bfloat16* __restrict__ res_lo, void* __restrict__ out_,
-                  __nv_bfloat16* __restrict__ out_lo) {
+conv_wgmma_kernel(const __grid_constant__ TmaParts parts, int nchunk, int ntiles, int nx, int ny,
+                  int nct, int H, int W, int Cout, const __nv_bfloat16* __restrict__ wpk,
+                  long long w_bstride, const void* __restrict__ bias_,
+                  const void* __restrict__ pre_, const float* __restrict__ scale,
+                  long long s_bstride, int lrelu, float la, float lb,
+                  const void* __restrict__ res_, void* __restrict__ out_) {
   using C = TcCfg<KS>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -750,12 +774,12 @@ conv_wgmma_kernel(const __grid_constant__ typename std::conditional<SPLIT, Split
           mbar_arrive_expect_tx(&tma_full[stage], bytes);
           uint8_t* st = smem + stage * C::STAGE_BYTES;
           const int y = tl.y0 - C::HALO;
-          tma_load_4d(st, parts.center_of(p), &tma_full[stage], tl.x0, c0, y, tl.b);
+          tma_load_4d(st, &parts.center[p], &tma_full[stage], tl.x0, c0, y, tl.b);
           if (left)
-            tma_load_4d(st + C::HALO_OFF, parts.halo_of(p), &tma_full[stage], tl.x0 - HALO_PX, c0,
+            tma_load_4d(st + C::HALO_OFF, &parts.halo[p], &tma_full[stage], tl.x0 - HALO_PX, c0,
                         y, tl.b);
           if (right)
-            tma_load_4d(st + C::HALO_OFF + C::SLAB * HALO_BYTES, parts.halo_of(p),
+            tma_load_4d(st + C::HALO_OFF + C::SLAB * HALO_BYTES, &parts.halo[p],
                         &tma_full[stage], tl.x0 + TC_COLS, c0, y, tl.b);
           bulk_load(st + C::W_OFF, wsrc + (long long)chunk * C::KK * TAP_BYTES, C::KK * TAP_BYTES,
                     &tma_full[stage]);
@@ -873,28 +897,6 @@ conv_wgmma_kernel(const __grid_constant__ typename std::conditional<SPLIT, Split
     // epilogue on the fragments: acc[4i + 2j + c] is output channel
     // 16*(warp%4) + lane/4 + 8j, pixel n = 8i + 2*(lane%4) + c of the
     // warpgroup's 2 x 64 tile (row n / 64, column n % 64)
-    if constexpr (SPLIT) {
-      const float* bias = static_cast<const float*>(bias_);
-      const float* pre = static_cast<const float*>(pre_);
-      const __nv_bfloat16* res_hi = static_cast<const __nv_bfloat16*>(res_);
-      const float* res_f = static_cast<const float*>(res_);
-      __nv_bfloat16* out_hi = static_cast<__nv_bfloat16*>(out_);
-      float* out_f = static_cast<float*>(out_);
-#define SPLIT_EPILOGUE(R, P)                                                                   \
-  split_epilogue<R, P>(acc, tl, warp, lane, wg, H, W, Cout, bias, pre, scale, s_bstride, lrelu, \
-                       la, lb, res_hi, res_lo, res_f, out_hi, out_lo, out_f)
-      if (out_lo) {
-        if (res_lo) SPLIT_EPILOGUE(2, true);
-        else if (res_) SPLIT_EPILOGUE(1, true);
-        else SPLIT_EPILOGUE(0, true);
-      } else {
-        if (res_lo) SPLIT_EPILOGUE(2, false);
-        else if (res_) SPLIT_EPILOGUE(1, false);
-        else SPLIT_EPILOGUE(0, false);
-      }
-#undef SPLIT_EPILOGUE
-      continue;
-    }
     const long long HW = (long long)H * W;
     const bool pairs = (W & 1) == 0;  // x is even, so a pair is 4-byte aligned
     const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(bias_);
@@ -949,6 +951,333 @@ conv_wgmma_kernel(const __grid_constant__ typename std::conditional<SPLIT, Split
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// split: a pair's hi and lo planes on the tensor cores (conv_split_kernel)
+// ---------------------------------------------------------------------------
+
+// The bf16 kernel's tiles and wgmmas, with a pipeline stage that holds one
+// 16-channel chunk of one pair: the hi and lo slabs by TMA (each read once),
+// their 8-pixel halo boxes (3x3), and the chunk's [Whi | Wlo] weights in one
+// bulk copy (ops/conv.py pack_weight_pair); three shift warps build each
+// plane's dx = 0 and dx = 2 buffers once; the consumers issue 3 x KK wgmmas
+// into the same accumulators: hi x Whi, hi x Wlo, lo x Whi. Walked as the
+// segments hi, lo, hi (the bf16 kernel against [Whi, Whi, Wlo]), a chunk read
+// three slabs, shifted three and waited on three barriers for 9 MMAs each.
+// Warps 0-7: two consumer warpgroups (2 rows each); warp 8: the producer
+// (TMA); warps 9-11: the shift warps; `setmaxnreg` 224 / 56, so that a
+// consumer holds its tile's residual (loaded as the tile starts, under its
+// MMAs) beside the accumulators. Shared memory, 3x3: two stages of 108 KB
+// (each plane's three 12 KB B buffers, 36 KB of weights) and one 6 KB slot
+// for the four halo boxes, 223 KB of the 227 a block may use; the producer
+// refills the halo slot once the shift warps have read it, which they do
+// before the consumers see that chunk. 1x1: ten stages of 20 KB.
+constexpr int PAIR_MAX = 5;  // pairs a launch: the WindowUnit_l2 merge and OSConv over 5
+constexpr int SP_PRODUCER_WARP = TC_CONSUMERS * 4;  // warp 8
+constexpr int SP_SHIFTERS = 3;                      // warps 9-11
+constexpr int SP_THREADS = (SP_PRODUCER_WARP + 1 + SP_SHIFTERS) * 32;
+constexpr int SP_CONSUMER_REGS = 224, SP_OTHER_REGS = 56;  // setmaxnreg split of 65,536
+static_assert(TC_CONSUMERS * 128 * SP_CONSUMER_REGS + 128 * SP_OTHER_REGS <= 65536,
+              "the register split fits the SM");
+
+// Pair p's hi plane is map 2p, its lo plane map 2p + 1 (TmaParts' two boxes
+// each); the kernel's parameters stay under 4 KB.
+struct PairParts {
+  CUtensorMap center[2 * PAIR_MAX];
+  CUtensorMap halo[2 * PAIR_MAX];
+  int c[PAIR_MAX];
+  int n;
+};
+
+template <int KS>
+struct PairCfg {
+  static constexpr int HALO = KS / 2;
+  static constexpr int SLAB = TC_ROWS + 2 * HALO;
+  static constexpr int KK = KS * KS;
+  static constexpr int BUF = SLAB * ROW_BYTES;            // one plane's B buffer of one dx
+  static constexpr int PLANE = (KS == 3 ? 3 : 1) * BUF;   // dx = 1 (TMA), then 0 and 2
+  static constexpr int SHIFT0 = BUF, SHIFT2 = 2 * BUF;    // in a plane's buffers, KS = 3
+  static constexpr int LO = PLANE;                        // the lo plane's buffers
+  static constexpr int W_OFF = 2 * PLANE;                 // [Whi taps][Wlo taps]
+  static constexpr int W_BYTES = 2 * KK * TAP_BYTES;
+  static constexpr int STAGE_BYTES = W_OFF + W_BYTES;
+  static constexpr int STAGES = KS == 3 ? 2 : 10;
+  static constexpr int LINES = SLAB * TC_CI;              // a plane's 128-byte lines
+  static constexpr int HALO_SIDE = SLAB * HALO_BYTES;     // one box: [row][16 ch][8 px]
+  static constexpr int HALO_OFF = STAGES * STAGE_BYTES;   // [hi left][hi right][lo left][lo right]
+  static constexpr int SMEM = HALO_OFF + (KS == 3 ? 4 * HALO_SIDE : 0) + 1024;  // + alignment slack
+  static_assert(STAGE_BYTES % 1024 == 0, "stages must keep the 1024-byte swizzle alignment");
+  static_assert(SMEM + 512 <= 232448, "fits the 227 KB a block may use, with the barriers");
+  static_assert(KS == 1 || 2 * 2 * LINES == 4 * SP_SHIFTERS * 32, "four half lines a thread");
+};
+
+// The consumer warpgroups of conv_split_kernel at one epilogue kind, ping
+// pong: warpgroup wg takes the block's tiles wg, wg + 2, ... (the block's
+// n-th tile is i + n * gridDim.x), each whole (m64n256k16: 64 output
+// channels x 4 rows x 64 columns), so that one warpgroup's epilogue runs
+// while the other's MMAs keep the tensor cores busy. Their chunks come
+// through the ring in the block's tile order: tile n's chunk k is the
+// ring's (n * nchunk + k)-th stage. A barrier tells its phases apart only
+// by parity, so a warpgroup waits on the ring for tile n only once the
+// other has seen tile n - 1's last chunk land (turn[wg]): then no slot is
+// two phases behind the one it waits for. Every warp of the other arrives
+// on turn[wg], so the turn cannot come round again before all of this
+// warpgroup's warps have seen it (given by one warp, it can come round
+// twice under warps still waiting on it when a tile is one chunk).
+template <int KS, int RES, bool PAIR_OUT, bool VEC>
+__device__ __forceinline__ void split_consume(uint8_t* smem, uint64_t* ready, uint64_t* empty,
+                                              uint64_t* turn, int nchunk, int ntiles, int nx,
+                                              int ny, int nct, int H, int W, int Cout,
+                                              const SplitEpi& e, int warp, int lane, int wg) {
+  using C = PairCfg<KS>;
+  using namespace hopper;
+  for (int n = wg, t = blockIdx.x + wg * gridDim.x; t < ntiles; n += 2, t += 2 * gridDim.x) {
+    const Tile tl = tile_of(t, nx, ny, nct);
+    if (n > 0) mbar_wait(&turn[wg], ((n - 1) / 2) & 1);  // the other's (n - 1) / 2-th turn
+    float acc[128];
+    int held = -1;  // the stage whose MMAs may still be running
+    for (int k = 0; k < nchunk; ++k) {
+      const int pos = n * nchunk + k, stage = pos % C::STAGES;
+      mbar_wait(&ready[stage], (pos / C::STAGES) & 1);
+      if (k == nchunk - 1 && lane == 0) mbar_arrive(&turn[wg ^ 1]);
+      const uint32_t st = smem_u32(smem + stage * C::STAGE_BYTES);
+      const uint32_t a_hi = st + C::W_OFF, a_lo = a_hi + C::KK * TAP_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+      // hi x Whi, hi x Wlo, lo x Whi (the lo x lo term, ~2^-16 relative,
+      // is dropped): A the tap's [64 co][16 ci] block as 8x8 core matrices
+      // (K halves 128 B apart, 8-row groups 256 B apart), B the dx buffer of
+      // the plane from slab row dy, 64 px a row, the tile's 4 rows 2 KB apart,
+      // channels 0-7 / 8-15 1 KB apart
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const uint32_t a0 = m == 1 ? a_lo : a_hi, b0 = m == 2 ? st + C::LO : st;
+#pragma unroll
+        for (int tap = 0; tap < C::KK; ++tap) {
+          const int dy = tap / KS, dx = tap % KS;
+          const uint32_t buf = KS == 1 ? 0 : dx == 0 ? C::SHIFT0 : dx == 1 ? 0 : C::SHIFT2;
+          const uint64_t da = make_desc(a0 + tap * TAP_BYTES, 128, 256, kInterleave);
+          const uint64_t db = make_desc(b0 + buf + dy * ROW_BYTES, ROW_BYTES, 1024, kSwizzle128);
+          // the tile's first product overwrites the accumulators
+          wgmma_m64n256k16_bf16(acc, da, db, (k | m | tap) != 0);
+        }
+      }
+      wgmma_commit();
+      // keep this stage's MMAs in flight; release the one before it
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+      held = stage;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[held]);
+    split_epilogue<RES, PAIR_OUT, VEC>(acc, e, tl, warp, lane, H, W, Cout);
+  }
+}
+
+// A uniform dispatch on the launch's epilogue kind: CALL(RES, PAIR_OUT, VEC)
+// for res_lo (a pair residual) or res (an f32 one) or neither, out_lo (a
+// pair output) or not, and W even or odd.
+#define SPLIT_DISPATCH(CALL, res, res_lo, out_lo, W)  \
+  do {                                                \
+    if ((out_lo) && ((W) & 1) == 0) {                 \
+      if (res_lo) CALL(2, true, true);                \
+      else if (res) CALL(1, true, true);              \
+      else CALL(0, true, true);                       \
+    } else if (out_lo) {                              \
+      if (res_lo) CALL(2, true, false);               \
+      else if (res) CALL(1, true, false);             \
+      else CALL(0, true, false);                      \
+    } else if (((W) & 1) == 0) {                      \
+      if (res_lo) CALL(2, false, true);               \
+      else if (res) CALL(1, false, true);             \
+      else CALL(0, false, true);                      \
+    } else {                                          \
+      if (res_lo) CALL(2, false, false);              \
+      else if (res) CALL(1, false, false);            \
+      else CALL(0, false, false);                     \
+    }                                                 \
+  } while (0)
+
+// Persistent, one block per SM walking tiles i, i + gridDim.x, ... (64
+// output channels x 4 rows x 64 columns); every role walks the same (tile,
+// chunk) sequence through the ring. bias and pre are f32; res is the
+// residual's hi plane with res_lo its lo plane, or, with res_lo null, an f32
+// residual; out is the result's hi plane with out_lo its lo plane, or, with
+// out_lo null, the f32 result.
+template <int KS>
+__global__ void __launch_bounds__(SP_THREADS, 1)
+conv_split_kernel(const __grid_constant__ PairParts parts, int nchunk, int ntiles, int nx, int ny,
+                  int nct, int H, int W, int Cout, const __nv_bfloat16* __restrict__ wpk,
+                  long long w_bstride, const float* __restrict__ bias,
+                  const float* __restrict__ pre, const float* __restrict__ scale,
+                  long long s_bstride, int lrelu, float la, float lb,
+                  const void* __restrict__ res_, const __nv_bfloat16* __restrict__ res_lo,
+                  void* __restrict__ out_, __nv_bfloat16* __restrict__ out_lo) {
+  using C = PairCfg<KS>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  // tma_full: the stage's copies landed; full: (3x3) its shifted buffers
+  // are built too; empty: the consumers are done with it; halo_empty: the
+  // shift warps have read the halo slot
+  __shared__ __align__(8) uint64_t tma_full[C::STAGES], full[C::STAGES], empty[C::STAGES];
+  // turn[wg]: the other consumer warpgroup has seen its tile's last chunk land
+  __shared__ __align__(8) uint64_t halo_empty, turn[TC_CONSUMERS];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wgi = __shfl_sync(~0u, static_cast<int>(threadIdx.x) / 128, 0);  // warp-uniform
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&tma_full[s], 1);
+      mbar_init(&full[s], SP_SHIFTERS);         // one arrival per shift warp
+      mbar_init(&empty[s], 4);  // one per warp of the consumer warpgroup that took it
+    }
+    mbar_init(&halo_empty, SP_SHIFTERS);
+    for (int w = 0; w < TC_CONSUMERS; ++w) mbar_init(&turn[w], 4);  // one per warp
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == TC_CONSUMERS) {
+    setmaxnreg_dec<SP_OTHER_REGS>();
+    if (warp == SP_PRODUCER_WARP) {
+      // one thread issues each chunk's copies: both slabs, the weights, and
+      // the halo boxes that are inside the image
+      if (lane != 0) return;
+      int stage = 0;
+      uint32_t phase = 0, hphase = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const Tile tl = tile_of(t, nx, ny, nct);
+        const bool left = KS == 3 && tl.x0 > 0, right = KS == 3 && tl.x0 + TC_COLS < W;
+        const uint32_t bytes =
+            2 * C::BUF + C::W_BYTES + 2 * (int(left) + int(right)) * C::HALO_SIDE;
+        const uint8_t* wsrc = reinterpret_cast<const uint8_t*>(wpk + tl.b * w_bstride) +
+                              (long long)tl.ct * nchunk * C::W_BYTES;
+        const int y = tl.y0 - C::HALO;
+        int chunk = 0;
+        for (int p = 0; p < parts.n; ++p) {
+          for (int c0 = 0; c0 < parts.c[p]; c0 += TC_CI, ++chunk) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_arrive_expect_tx(&tma_full[stage], bytes);
+            uint8_t* st = smem + stage * C::STAGE_BYTES;
+            tma_load_4d(st, &parts.center[2 * p], &tma_full[stage], tl.x0, c0, y, tl.b);
+            tma_load_4d(st + C::LO, &parts.center[2 * p + 1], &tma_full[stage], tl.x0, c0, y,
+                        tl.b);
+            bulk_load(st + C::W_OFF, wsrc + (long long)chunk * C::W_BYTES, C::W_BYTES,
+                      &tma_full[stage]);
+            if (KS == 3) {
+              if (left || right) {
+                // the shift warps arrive once a chunk, so the slot's previous
+                // chunk is the last phase of halo_empty
+                mbar_wait(&halo_empty, hphase ^ 1);
+                uint8_t* hs = smem + C::HALO_OFF;
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                  if (left)
+                    tma_load_4d(hs + 2 * q * C::HALO_SIDE, &parts.halo[2 * p + q],
+                                &tma_full[stage], tl.x0 - HALO_PX, c0, y, tl.b);
+                  if (right)
+                    tma_load_4d(hs + (2 * q + 1) * C::HALO_SIDE, &parts.halo[2 * p + q],
+                                &tma_full[stage], tl.x0 + TC_COLS, c0, y, tl.b);
+                }
+              }
+              hphase ^= 1;
+            }
+            if (++stage == C::STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+      return;
+    }
+    // shift warps (3x3): the 2 x SLAB x 16 lines of a chunk (plane, slab
+    // row, channel) as 384 half lines, four a thread: a half line's 4
+    // swizzled 16-byte chunks shifted one pixel each way (dx = 0 reads
+    // x - 1, dx = 2 reads x + 1), its outer end from the halo pixel (or the
+    // zero padding), its inner end from the other half's neighbouring word
+    if (KS == 1) return;
+    const int sid = threadIdx.x - (SP_PRODUCER_WARP + 1) * 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const Tile tl = tile_of(t, nx, ny, nct);
+      const bool left = tl.x0 > 0, right = tl.x0 + TC_COLS < W;
+      for (int k = 0; k < nchunk; ++k) {
+        mbar_wait(&tma_full[stage], phase);
+        uint8_t* st = smem + stage * C::STAGE_BYTES;
+        const __nv_bfloat16* hs = reinterpret_cast<const __nv_bfloat16*>(smem + C::HALO_OFF);
+        uint32_t edge[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int u = sid + SP_SHIFTERS * 32 * i, q = u / (2 * C::LINES);
+          const int l = (u / 2) % C::LINES, hh = u & 1;
+          // half 0 ends at the left halo box's last pixel, half 1 at the
+          // right box's first
+          const __nv_bfloat16* h = hs + ((2 * q + hh) * C::LINES + l) * HALO_PX;
+          edge[i] = hh ? (right ? __bfloat16_as_ushort(h[0]) : 0u)
+                       : (left ? uint32_t(__bfloat16_as_ushort(h[HALO_PX - 1])) << 16 : 0u);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&halo_empty);
+#pragma unroll 1
+        for (int i = 0; i < 4; ++i) {
+          const int u = sid + SP_SHIFTERS * 32 * i, q = u / (2 * C::LINES);
+          const int l = (u / 2) % C::LINES, hh = u & 1;
+          const int line = q * C::PLANE + l * 128;  // slab row l / 16, channel l % 16
+          const int sw = l % 8;  // the 128-byte swizzle: 16-byte chunk j sits at j ^ (c % 8)
+          uint4 v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = *reinterpret_cast<const uint4*>(st + line + (((4 * hh + j) ^ sw) << 4));
+          // half 0: the next word is chunk 4's first; half 1: the previous
+          // word is chunk 3's last
+          const uint32_t inner = *reinterpret_cast<const uint32_t*>(
+              st + line + (((hh ? 3 : 4) ^ sw) << 4) + (hh ? 12 : 0));
+          uint32_t ed = edge[0];  // edge[i] by selects: a runtime index would go to local memory
+#pragma unroll
+          for (int m = 1; m < 4; ++m) ed = i == m ? edge[m] : ed;
+          const uint32_t first = hh ? inner : ed, last = hh ? ed : inner;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t prev = j > 0 ? v[j - 1].w : first;
+            const uint32_t next = j < 3 ? v[j + 1].x : last;
+            const uint4 d0 = make_uint4(straddle(prev, v[j].x), straddle(v[j].x, v[j].y),
+                                        straddle(v[j].y, v[j].z), straddle(v[j].z, v[j].w));
+            const uint4 d2 = make_uint4(straddle(v[j].x, v[j].y), straddle(v[j].y, v[j].z),
+                                        straddle(v[j].z, v[j].w), straddle(v[j].w, next));
+            const int off = line + (((4 * hh + j) ^ sw) << 4);
+            *reinterpret_cast<uint4*>(st + C::SHIFT0 + off) = d0;
+            *reinterpret_cast<uint4*>(st + C::SHIFT2 + off) = d2;
+          }
+        }
+        // the generic-proxy writes must be visible to wgmma's async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[stage]);
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<SP_CONSUMER_REGS>();
+  const SplitEpi e{bias, pre, scale, s_bstride, lrelu, la, lb,
+                   static_cast<const __nv_bfloat16*>(res_), res_lo,
+                   static_cast<const float*>(res_), static_cast<__nv_bfloat16*>(out_), out_lo,
+                   static_cast<float*>(out_)};
+#define SPLIT_CONSUME(R, P, V)                                                                 \
+  split_consume<KS, R, P, V>(smem, KS == 3 ? full : tma_full, empty, turn, nchunk, ntiles, nx, ny, \
+                             nct, H, W, Cout, e, warp, lane, wgi)
+  SPLIT_DISPATCH(SPLIT_CONSUME, res_, res_lo, out_lo, W);
+#undef SPLIT_CONSUME
 }
 
 // ---------------------------------------------------------------------------
@@ -1329,11 +1658,11 @@ conv_fast_kernel(const __grid_constant__ FastParts parts, int nchunk, int ntiles
 constexpr int ERR_NO_ENCODER = -1;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = -2;      // a part's tensor map was refused
 
-template <int KS, bool SPLIT, typename Parts>
-int launch_wgmma(const Parts& parts, int nchunk, int B, int H, int W, int Cout, const void* wt,
+template <int KS>
+int launch_wgmma(const TmaParts& parts, int nchunk, int B, int H, int W, int Cout, const void* wt,
                  long long w_bstride, const void* bias, const void* pre, const float* scale,
-                 long long s_bstride, int lrelu, float la, float lb, const void* res,
-                 const void* res_lo, void* out, void* out_lo, cudaStream_t stream) {
+                 long long s_bstride, int lrelu, float la, float lb, const void* res, void* out,
+                 cudaStream_t stream) {
   using C = TcCfg<KS>;
   static int sms = 0;
   if (!sms) {
@@ -1341,8 +1670,8 @@ int launch_wgmma(const Parts& parts, int nchunk, int B, int H, int W, int Cout, 
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(conv_wgmma_kernel<KS, SPLIT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      e = cudaFuncSetAttribute(conv_wgmma_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
     if (e != cudaSuccess) {
       sms = 0;
       return static_cast<int>(e);
@@ -1352,7 +1681,36 @@ int launch_wgmma(const Parts& parts, int nchunk, int B, int H, int W, int Cout, 
   const int nx = (W + TC_COLS - 1) / TC_COLS, ny = (H + TC_ROWS - 1) / TC_ROWS;
   const int ntiles = nx * ny * nct * B;
   const int grid = ntiles < sms ? ntiles : sms;
-  conv_wgmma_kernel<KS, SPLIT><<<grid, TC_THREADS, C::SMEM, stream>>>(
+  conv_wgmma_kernel<KS><<<grid, TC_THREADS, C::SMEM, stream>>>(
+      parts, nchunk, ntiles, nx, ny, nct, H, W, Cout, static_cast<const __nv_bfloat16*>(wt),
+      w_bstride, bias, pre, scale, s_bstride, lrelu, la, lb, res, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KS>
+int launch_split(const PairParts& parts, int nchunk, int B, int H, int W, int Cout, const void* wt,
+                 long long w_bstride, const float* bias, const float* pre, const float* scale,
+                 long long s_bstride, int lrelu, float la, float lb, const void* res,
+                 const void* res_lo, void* out, void* out_lo, cudaStream_t stream) {
+  using C = PairCfg<KS>;
+  static int sms = 0;
+  if (!sms) {
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(conv_split_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    if (e != cudaSuccess) {
+      sms = 0;
+      return static_cast<int>(e);
+    }
+  }
+  const int nct = (Cout + TC_CO - 1) / TC_CO;
+  const int nx = (W + TC_COLS - 1) / TC_COLS, ny = (H + TC_ROWS - 1) / TC_ROWS;
+  const int ntiles = nx * ny * nct * B;
+  const int grid = ntiles < sms ? ntiles : sms;
+  conv_split_kernel<KS><<<grid, SP_THREADS, C::SMEM, stream>>>(
       parts, nchunk, ntiles, nx, ny, nct, H, W, Cout, static_cast<const __nv_bfloat16*>(wt),
       w_bstride, bias, pre, scale, s_bstride, lrelu, la, lb, res,
       static_cast<const __nv_bfloat16*>(res_lo), out, static_cast<__nv_bfloat16*>(out_lo));
@@ -1534,59 +1892,55 @@ extern "C" int savsr_conv_fused(int ksize, int nparts, const void* const* part_p
     nchunk += (part_ch[i] + TC_CI - 1) / TC_CI;
   }
   parts.n = nparts;
-  return ksize == 3 ? launch_wgmma<3, false>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
-                                             pre, sc, s_bstride, lrelu, la, lb, res, nullptr,
-                                             out, nullptr, s)
-                    : launch_wgmma<1, false>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
-                                             pre, sc, s_bstride, lrelu, la, lb, res, nullptr,
-                                             out, nullptr, s);
+  return ksize == 3 ? launch_wgmma<3>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias, pre, sc,
+                                      s_bstride, lrelu, la, lb, res, out, s)
+                    : launch_wgmma<1>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias, pre, sc,
+                                      s_bstride, lrelu, la, lb, res, out, s);
 }
 
-// The split conv on the tensor cores (conv_wgmma_kernel<K, true>). nmaps
-// bf16 tensors of channel planes (map_ptrs, as for savsr_conv_fused: row
-// pitch a multiple of 8, 16-byte aligned base and batch stride), read as
-// nsegs K segments: segment i is map seg_map[i], all its channels. Weights
-// are packed as ops/conv.py pack_weight_split lays them out (one block of
-// channels a segment), w_bstride elements per sample. bias, pre and scale
-// are f32; res is the residual's hi plane and res_lo its lo plane, or, with
-// res_lo null, an f32 residual; out and out_lo the result's hi and lo
-// planes, or, with out_lo null, out is the f32 result. Null pointers switch
-// an epilogue term off.
-extern "C" int savsr_conv_split(int ksize, int nmaps, const void* const* map_ptrs,
-                                const int* map_ch, const long long* map_bstride,
-                                const long long* map_pitch, int nsegs, const int* seg_map,
-                                int B, int H, int W, int Cout, const void* wt,
-                                long long w_bstride, const void* bias, const void* pre,
-                                const void* scale, long long s_bstride, int lrelu, float la,
-                                float lb, const void* res, const void* res_lo, void* out,
-                                void* out_lo, void* stream) {
-  if (nmaps < 1 || nmaps > SPLIT_MAPS || nsegs < 1 || nsegs > SPLIT_SEGS ||
-      (ksize != 1 && ksize != 3))
+// The split conv on the tensor cores (conv_split_kernel<K>): npairs pairs,
+// each two bf16 tensors of channel planes, hi at map_ptrs[2i] and lo at
+// map_ptrs[2i + 1] (as for savsr_conv_fused: row pitch a multiple of 8,
+// 16-byte aligned base and batch stride; the two of a pair of one channel
+// count). Weights are packed as ops/conv.py pack_weight_pair lays them out
+// (per chunk of 16 channels of a pair, the Whi then the Wlo taps),
+// w_bstride elements per sample. bias, pre and scale are f32; res is the
+// residual's hi plane and res_lo its lo plane, or, with res_lo null, an f32
+// residual; out and out_lo the result's hi and lo planes, or, with out_lo
+// null, out is the f32 result. Null pointers switch an epilogue term off.
+extern "C" int savsr_conv_pair(int ksize, int npairs, const void* const* map_ptrs,
+                               const int* map_ch, const long long* map_bstride,
+                               const long long* map_pitch, int B, int H, int W, int Cout,
+                               const void* wt, long long w_bstride, const void* bias,
+                               const void* pre, const void* scale, long long s_bstride, int lrelu,
+                               float la, float lb, const void* res, const void* res_lo, void* out,
+                               void* out_lo, void* stream) {
+  if (npairs < 1 || npairs > PAIR_MAX || (ksize != 1 && ksize != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (!encode) return ERR_NO_ENCODER;
-  SplitParts parts{};
-  for (int i = 0; i < nmaps; ++i) {
-    const int e = encode_maps(encode, &parts.center[i], &parts.halo[i], ksize, map_ptrs[i],
-                              map_ch[i], map_bstride[i], map_pitch[i], B, H, W);
-    if (e) return e;
-  }
+  PairParts parts{};
   int nchunk = 0;
-  for (int i = 0; i < nsegs; ++i) {
-    if (seg_map[i] < 0 || seg_map[i] >= nmaps) return static_cast<int>(cudaErrorInvalidValue);
-    parts.map[i] = seg_map[i];
-    parts.c[i] = map_ch[seg_map[i]];
+  for (int i = 0; i < npairs; ++i) {
+    if (map_ch[2 * i] < 1 || map_ch[2 * i + 1] != map_ch[2 * i])
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int m = 2 * i; m < 2 * i + 2; ++m) {
+      const int e = encode_maps(encode, &parts.center[m], &parts.halo[m], ksize, map_ptrs[m],
+                                map_ch[m], map_bstride[m], map_pitch[m], B, H, W);
+      if (e) return e;
+    }
+    parts.c[i] = map_ch[2 * i];
     nchunk += (parts.c[i] + TC_CI - 1) / TC_CI;
   }
-  parts.n = nsegs;
+  parts.n = npairs;
+  const float* bi = static_cast<const float*>(bias);
+  const float* pr = static_cast<const float*>(pre);
   const float* sc = static_cast<const float*>(scale);
-  return ksize == 3 ? launch_wgmma<3, true>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
-                                            pre, sc, s_bstride, lrelu, la, lb, res, res_lo, out,
-                                            out_lo, s)
-                    : launch_wgmma<1, true>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bias,
-                                            pre, sc, s_bstride, lrelu, la, lb, res, res_lo, out,
-                                            out_lo, s);
+  return ksize == 3 ? launch_split<3>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bi, pr, sc,
+                                      s_bstride, lrelu, la, lb, res, res_lo, out, out_lo, s)
+                    : launch_split<1>(parts, nchunk, B, H, W, Cout, wt, w_bstride, bi, pr, sc,
+                                      s_bstride, lrelu, la, lb, res, res_lo, out, out_lo, s);
 }
 
 // The fast conv on the tensor cores (conv_fast_kernel): f32 parts (row pitch

@@ -33,12 +33,14 @@ stride), copying the part into a pitch-padded buffer where it has none.
 The split conv (``conv_fused_split``, the split serving tier) is the pair-carry
 mode of the TPU kernels (``in_pair``, ``out_pair``, ``res_pair``): features
 travel as a ``Pair`` of bf16 planes, hi = bf16(y) and lo = bf16(y - hi), and
-each conv contracts [Xhi; Xlo; Xhi] against [Whi, Whi, Wlo] on the bf16
-tensor-core kernel (f32 accumulators), with an f32 epilogue that writes a
-``Pair`` or f32. The TPU interleaves hi and lo channels in ``pc``-wide
-chunks of one tensor (a VMEM artefact); here a pair is two tensors and a
-concat a list of pairs. Its weight is split and packed per call of a
-per-sample weight, once for a shared one (``pack_weight_split``).
+each conv contracts [Xhi; Xlo; Xhi] against [Whi, Whi, Wlo] on a tensor-core
+kernel of its own (f32 accumulators; a pipeline stage holds one 16-channel
+chunk of one pair, both planes read once, hi x Whi, hi x Wlo and lo x Whi),
+with an f32 epilogue that writes a ``Pair`` or f32. The TPU interleaves hi
+and lo channels in ``pc``-wide chunks of one tensor (a VMEM artefact); here
+a pair is two tensors and a concat a list of pairs. Its weight, Whi and Wlo
+per chunk, is split and packed per call of a per-sample weight, once for a
+shared one (``pack_weight_pair``).
 
 The fast conv (``conv_fused_fast``, the fast serving tier: f32 weights and
 carries at ``matmul_precision: default``) is the TPU kernels' f32 mode at
@@ -285,16 +287,47 @@ def split_weight(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
     return torch.cat(blocks, dim=-3)
 
 
-def pack_weight_split(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
-    """The split conv's weight: ``split_weight`` in the bf16 kernel's layout
-    (``pack_index`` over three segments of ``c`` channels a part); a shared
-    weight's is packed once (``packed_once``)."""
-    chans3 = tuple(c for c in chans for _ in range(3))
+@functools.lru_cache(maxsize=None)
+def pair_pack_index(cout: int, chans: Tuple[int, ...], k: int) -> torch.Tensor:
+    """Where each element of the pair kernel's packed weight comes from: an
+    int64 index into [Whi flat | Wlo flat] (each ``n`` = cout * cin * k * k
+    elements of [Cout, Cin, k, k]), with ``2n`` (a zero) for the padding.
 
+    Packed order: [co tile][chunk][Whi, Wlo][tap][co // 8 % 8][ci // 8 % 2]
+    [co % 8][ci % 8]: ``pack_index``'s blocks, each chunk's Whi taps then
+    its Wlo taps, so one bulk copy brings a chunk's weights."""
+    n = cout * sum(chans) * k * k
+    blocks = pack_index(cout, chans, k).view(-(-cout // CO_TILE), -1, 1,
+                                             k * k * CO_TILE * CI_STEP)
+    pad = blocks == n
+    hi = torch.where(pad, torch.full_like(blocks, 2 * n), blocks)
+    lo = torch.where(pad, torch.full_like(blocks, 2 * n), blocks + n)
+    return torch.cat([hi, lo], 2).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_index_on(cout: int, chans: Tuple[int, ...], k: int, device: str) -> torch.Tensor:
+    return pair_pack_index(cout, chans, k).to(device)
+
+
+def pack_weight_pair(weight: torch.Tensor, chans: Sequence[int]) -> torch.Tensor:
+    """The pair kernel's weight (``pair_pack_index``): bf16 Whi = bf16(W)
+    and Wlo = bf16(W - Whi) of an f32 [Cout, Cin, k, k] weight ([L]) or a
+    per-sample [B, Cout, Cin, k, k] one ([B, L]); ``chans`` the pairs'
+    channels. A shared weight's is packed once (``packed_once``)."""
     def pack():
-        return pack_weight(split_weight(weight, chans), chans3)
+        shared = weight.dim() == 4
+        cout, k = weight.shape[-4], weight.shape[-1]
+        w = weight.detach().float()
+        hi = w.to(torch.bfloat16)
+        lo = (w - hi.float()).to(torch.bfloat16)
+        per = w.numel() if shared else w[0].numel()
+        flat = torch.cat([hi.reshape(-1, per), lo.reshape(-1, per)], 1)
+        idx = _pair_index_on(cout, tuple(chans), k, str(weight.device))
+        packed = F.pad(flat, (0, 1)).index_select(1, idx)
+        return packed[0] if shared else packed
 
-    return packed_once(weight, ("split",) + chans3, pack)
+    return packed_once(weight, ("pair",) + tuple(chans), pack)
 
 
 def _split_inputs(parts) -> List[Pair]:
@@ -352,15 +385,8 @@ def _lib():
     ]
     lib.savsr_conv_fast.restype = i
     lib.savsr_conv_fast.argtypes = lib.savsr_conv_fused.argtypes
-    lib.savsr_conv_split.restype = i
-    lib.savsr_conv_split.argtypes = [
-        i, i, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll),
-        ctypes.POINTER(ll),                                      # K, nmaps, maps, ch, bstride, pitch
-        i, ctypes.POINTER(i),                                    # nsegs, seg_map
-        i, i, i, i,                                              # B, H, W, Cout
-        p, ll,                                                   # weight, w_bstride
-        p, p, p, ll,                                 # bias, pre_add, out_scale, s_bstride
-        i, f, f,                                                 # lrelu, a, b
+    lib.savsr_conv_pair.restype = i
+    lib.savsr_conv_pair.argtypes = list(lib.savsr_conv_fused.argtypes[:-3]) + [
         p, p, p, p, p,                               # residual hi / f32, lo, out hi / f32, lo, stream
     ]
     return lib
@@ -487,8 +513,8 @@ def conv_fused(parts, weight: torch.Tensor,
     return _launch(parts, weight, bias, pre_add, out_scale, lrelu, residual)
 
 
-# the split kernel's pairs (csrc/conv.cu SPLIT_MAPS: two maps a pair) and
-# the fast kernel's parts (FAST_MAPS)
+# the split kernel's pairs (csrc/conv.cu PAIR_MAX) and the fast kernel's
+# parts (FAST_MAPS)
 SPLIT_MAX_PAIRS = 5
 FAST_MAX_PARTS = 10
 
@@ -529,10 +555,10 @@ def _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual):
 
 def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre_add,
                   out_scale, lrelu, residual, out: str):
-    """One launch of the split kernel, ``savsr_conv_split``: the pairs' hi
-    and lo planes as TMA maps (``tma_part``), each pair read as the segments
-    hi, lo, hi, against ``pack_weight_split``; returns a ``Pair`` or (``out``
-    "f32") an f32 tensor; counted once as conv3x3_split / conv1x1_split."""
+    """One launch of the split kernel, ``savsr_conv_pair``: the pairs' hi and
+    lo planes as TMA maps (``tma_part``), a stage one 16-channel chunk of one
+    pair, against ``pack_weight_pair``; returns a ``Pair`` or (``out`` "f32")
+    an f32 tensor; counted once as conv3x3_split / conv1x1_split."""
     hi0 = pairs[0].hi
     b, _, h, w = hi0.shape
     require(k in (1, 3) and weight.shape[-2:] == (k, k), f"kernel size {tuple(weight.shape)}")
@@ -557,24 +583,22 @@ def _launch_split(k: int, pairs: Sequence[Pair], weight: torch.Tensor, bias, pre
     s_bstride, res, res_lo = _f32_epilogue(dev, shape, bias, pre_add, out_scale, residual)
 
     maps = [tma_part(t) for p in pairs for t in (p.hi, p.lo)]
-    seg_map = [m for i in range(len(pairs)) for m in (2 * i, 2 * i + 1, 2 * i)]
-    wt = pack_weight_split(weight, chans)
     if out == "pair":
         dst = Pair(hi0.new_empty(shape), hi0.new_empty(shape))
         o, o_lo = dst.hi, dst.lo
     else:
         dst = o = torch.empty(shape, dtype=torch.float32, device=hi0.device)
         o_lo = None
-    n, nsegs = len(maps), len(seg_map)
+    n = len(maps)
+    wt = pack_weight_pair(weight, chans)
     la, lb = lrelu if lrelu is not None else (1.0, 0.0)
     counter = _kernel_name(weight) + "_split"
     lib = _lib()
-    rc = lib.savsr_conv_split(
-        k, n, (ctypes.c_void_p * n)(*[t.data_ptr() for t, _ in maps]),
+    rc = lib.savsr_conv_pair(
+        k, len(pairs), (ctypes.c_void_p * n)(*[t.data_ptr() for t, _ in maps]),
         (ctypes.c_int * n)(*[t.shape[1] for t, _ in maps]),
         (ctypes.c_longlong * n)(*[t.stride(0) for t, _ in maps]),
-        (ctypes.c_longlong * n)(*[pitch for _, pitch in maps]),
-        nsegs, (ctypes.c_int * nsegs)(*seg_map), b, h, w, cout, ptr(wt),
+        (ctypes.c_longlong * n)(*[pitch for _, pitch in maps]), b, h, w, cout, ptr(wt),
         wt.shape[1] if per_sample else 0, ptr(bias), ptr(pre_add), ptr(out_scale), s_bstride,
         int(lrelu is not None), la, lb, ptr(res), ptr(res_lo), ptr(o), ptr(o_lo),
         stream_ptr(o))

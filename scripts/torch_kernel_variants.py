@@ -21,7 +21,10 @@ f32 conv (csrc/conv.cu conv_f32_kernel) at 8 windows of 180x320, 3x3 64 ->
 64 and 1x1 3x64 -> 64; the fast tier's conv (csrc/conv.cu
 conv_fast_kernel, which rounds its f32 parts itself) at 8 windows of
 180x320, 3x3 64 -> 64 with an f32 residual (``conv_fast``) and 1x1 3x64 ->
-64 (``conv_fast_1x1``). ``--sass DIR`` also prints each variant's ptxas
+64 (``conv_fast_1x1``); the split tier's conv (csrc/conv.cu, pair inputs
+of bf16 hi and lo planes) at 8 windows of 180x320, 3x3 64 -> 64 with a
+pair residual (``conv_split``) and 1x1 3x64 -> 64 (``conv_split_1x1``).
+``--sass DIR`` also prints each variant's ptxas
 lines and SASS counts and writes the full variant's SASS into DIR. The
 edited variants compute wrong results: their error against the plain
 version is printed only to show which part was switched off. The time a
@@ -108,6 +111,32 @@ CONV_FAST_3X3 = {
 }
 CONV_FAST_1X1 = {**CONV_FAST_COMMON, "f32 ring 2": [_rings(2, 2, 4, 2)],
                  "f32 ring 8": [_rings(2, 2, 4, 8)], "bf16 ring 2": [_rings(2, 2, 2, 4)]}
+
+# the split conv (csrc/conv.cu conv_split_kernel<K>: a stage one chunk of one
+# pair, ping-pong consumer warpgroups), a part switched off at a time
+SPLIT_EPILOGUE = "    split_epilogue<RES, PAIR_OUT, VEC>(acc, e, tl, warp, lane, H, W, Cout);\n"
+CONV_SPLIT_COMMON = {
+    "full": [],
+    "no epilogue": [(SPLIT_EPILOGUE, "    if (acc[0] == 12345.f)\n  " + SPLIT_EPILOGUE)],
+    "no residual loads": [("      if (RES) {  // the loads, all in flight at once",
+                           "      if (false) {  // the loads, all in flight at once")],
+    "no output stores": [("        if (!ok) continue;\n        float v[2]",
+                          "        if (!ok || acc[0] != 12345.f) continue;\n        float v[2]")],
+}
+CONV_SPLIT_3X3 = {
+    **CONV_SPLIT_COMMON,
+    "no shift build": [("          const int line = q * C::PLANE + l * 128;",
+                        "          if (tl.b >= 0) continue;\n"
+                        "          const int line = q * C::PLANE + l * 128;")],
+    "no weight copy": [
+        ("            2 * C::BUF + C::W_BYTES + 2 *", "            2 * C::BUF + 2 *"),
+        ("            bulk_load(st + C::W_OFF, wsrc + (long long)chunk * C::W_BYTES, C::W_BYTES,\n"
+         "                      &tma_full[stage]);\n", "")],
+    "hi x Whi only (9 of 27 MMAs)": [("      for (int m = 0; m < 3; ++m) {\n"
+                                      "        const uint32_t a0 = m == 1",
+                                      "      for (int m = 0; m < 1; ++m) {\n"
+                                      "        const uint32_t a0 = m == 1")],
+}
 
 
 VARIANTS = {
@@ -231,6 +260,8 @@ VARIANTS = {
     },
     "conv_fast": CONV_FAST_3X3,
     "conv_fast_1x1": CONV_FAST_1X1,
+    "conv_split": CONV_SPLIT_3X3,
+    "conv_split_1x1": CONV_SPLIT_COMMON,
     "osconv_dagg": {
         "full": [],
         "no staging copies": [
@@ -254,7 +285,7 @@ VARIANTS = {
 
 
 SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv", "conv_fast": "conv",
-          "conv_fast_1x1": "conv",
+          "conv_fast_1x1": "conv", "conv_split": "conv", "conv_split_1x1": "conv",
           "stau_f32": "stau",
           "sta_f32": "sta", "tail_f32": "tail"}
 
@@ -265,7 +296,8 @@ def _edits(variant):
 
 # the kernels whose ptxas lines and SASS ``--sass`` reports (default: the
 # source's name)
-SASS_FUNCS = {"conv_fast": ("conv_fast_kernel",), "conv_fast_1x1": ("conv_fast_kernel",)}
+SASS_FUNCS = {"conv_fast": ("conv_fast_kernel",), "conv_fast_1x1": ("conv_fast_kernel",),
+              "conv_split": ("conv_split_kernelILi3E",), "conv_split_1x1": ("conv_split_kernelILi1E",)}
 # SASS opcodes counted per kernel: tensor-core products, the warpgroup
 # waits ptxas places (one per product group unless it serialises the
 # wgmmas), local-memory traffic (spills), and global loads and stores
@@ -448,11 +480,25 @@ def main(argv=None) -> int:
             [cs._rand(rng, (b, c, h, w), torch.float32, device) for _ in range(3)],
             cs._rand(rng, (c, 3 * c, 1, 1), torch.float32, device, (3 * c) ** -0.5),
             cs._rand(rng, (c,), torch.float32, device, 0.1)), {"lrelu": (0.6, 0.4)}),
+        "conv_split": (conv, "conv_fused_split", (
+            [conv.pair_split(cs._rand(rng, (b, c, h, w), f32, device))],
+            cs._rand(rng, (c, c, 3, 3), f32, device, (9 * c) ** -0.5),
+            cs._rand(rng, (c,), f32, device, 0.1)),
+            {"lrelu": (0.6, 0.4),
+             "residual": conv.pair_split(cs._rand(rng, (b, c, h, w), f32, device))}),
+        "conv_split_1x1": (conv, "conv_fused_split", (
+            [conv.pair_split(cs._rand(rng, (b, c, h, w), f32, device)) for _ in range(3)],
+            cs._rand(rng, (c, 3 * c, 1, 1), f32, device, (3 * c) ** -0.5),
+            cs._rand(rng, (c,), f32, device, 0.1)), {"lrelu": (0.6, 0.4)}),
         "osconv_dagg": (osconv, "osconv_dagg", (
             cs._rand(rng, (tb, 192, th, tw), torch.float32, device),
             cs._rand(rng, (tb, 64, th, tw), torch.float32, device), 3, 3, 1), {}),
     }
     variants = {k: VARIANTS[k] for k in args.kernels}
+
+    def value(y):  # the split conv's pair output by its f32 value
+        return conv.pair_merge(y) if isinstance(y, conv.Pair) else y.float()
+
     results = []
     with tempfile.TemporaryDirectory() as tmp, torch.no_grad(), cs.float32_precision(True):
         logs = {}
@@ -479,9 +525,10 @@ def main(argv=None) -> int:
             mod, fn_name, fn_args, kw = calls[kern]
             real = mod._lib()
             fn = getattr(mod, fn_name)
-            want = getattr(mod, fn_name + "_plain")(
-                *fn_args, **{k: v for k, v in kw.items() if k != "plan"}).float()
+            want = value(getattr(mod, fn_name + "_plain")(
+                *fn_args, **{k: v for k, v in kw.items() if k != "plan"}))
             first = fn_args[0][0] if isinstance(fn_args[0], list) else fn_args[0]
+            first = first.hi if isinstance(first, conv.Pair) else first
             print(f"[variants] {kern} reference: one read of its {tuple(first.shape)} "
                   f"{str(first.dtype)[6:]} input (torch.Tensor.sum) ms "
                   f"{cs.timed_ms(lambda: first.sum(), device):.4f}", flush=True)
@@ -498,7 +545,7 @@ def main(argv=None) -> int:
                 for k, v in patch.items():
                     setattr(mod, k, v)
                 try:
-                    err = float((fn(*fn_args, **kw).float() - want).abs().max())
+                    err = float((value(fn(*fn_args, **kw)) - want).abs().max())
                     ms = cs.timed_ms(lambda: fn(*fn_args, **kw), device)
                 finally:
                     for k, v in saved.items():

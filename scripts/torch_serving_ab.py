@@ -75,11 +75,11 @@ def profile(cs, model, device, dtype) -> dict:
     rows = cs.device_rows(prof)
     kernels = {cs.short_name(name): ms for name, ms, _ in rows
                if cs.short_name(name).startswith(("sta", "tail", "conv_f32", "conv_fused",
-                                                  "conv_wgmma", "conv_fast"))}
+                                                  "conv_wgmma", "conv_fast", "conv_split"))}
     f32 = [(ms, n) for name, ms, n in rows
            if cs.short_name(name).startswith(("conv_f32", "conv_fused"))]
     tc = [(ms, n) for name, ms, n in rows
-          if cs.short_name(name).startswith(("conv_wgmma", "conv_fast"))]
+          if cs.short_name(name).startswith(("conv_wgmma", "conv_fast", "conv_split"))]
     copies = [(ms, n) for name, ms, n in rows if "copy" in name.lower()]
     return {"forward_ms": fwd_ms, "device_ms": sum(r[1] for r in rows), "kernels": kernels,
             "f32_conv_ms": sum(ms for ms, _ in f32), "f32_conv_launches": sum(n for _, n in f32),

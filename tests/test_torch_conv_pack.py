@@ -6,7 +6,12 @@ the weight repack into the kernel's A-operand stages (``pack_index`` /
 (``f32_stages``, ``f32_chunks``); and those of the fast conv: the f32 part
 maps (``tma_part`` at a 4-element pitch) and the kernel's tiling, replayed with its rounding of
 each f32 box to bf16 and the one-pixel shifts it builds from the box and
-its halo columns (``_replay_fast``).
+its halo columns (``_replay_fast``); and those of the split conv's pair
+kernel: its weight packing (``pack_weight_pair``: per chunk of a pair the
+Whi then the Wlo taps) and its tiling, replayed chunk by chunk from the
+bf16 hi and lo planes in its K order, hi x Whi, hi x Wlo, lo x Whi
+(``_replay_split``), against ``conv_fused_split_plain`` and, for one case,
+the JAX package's pair-carry ``conv3x3_chw`` in interpret mode.
 
 The kernel itself runs only on the card (chip_smoke.py, tests/test_torch_cuda.py).
 Here its decomposition is replayed in PyTorch on the CPU from the packed
@@ -25,12 +30,16 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from jax.experimental.pallas import tpu as pltpu
 
+from savsr_tpu.archs import chw_engine as jchw
 from savsr_tpu.ops.pallas.chw_conv import chw_to_nhwc, conv3x3_chw, nhwc_to_chw, pack_w3
 from savsr_tpu_torch.ops.conv import (CI_STEP, CO_TILE, F32_BLOCKS_PER_SM, F32_STAGE_CH,
-                                      F32_TILE, conv_fused_fast_plain, conv_fused_plain,
-                                      f32_chunks, f32_stages, pack_index, pack_weight,
-                                      pack_weight_f32, pack_weight_fast, tma_part)
+                                      F32_TILE, Pair, conv_fused_fast_plain, conv_fused_plain,
+                                      conv_fused_split_plain, f32_chunks, f32_stages,
+                                      pack_index, pack_weight, pack_weight_f32,
+                                      pack_weight_fast, pack_weight_pair, pair_merge,
+                                      pair_pack_index, pair_split, split_weight, tma_part)
 
 
 def _unpack(packed: torch.Tensor, cout: int, chans, k: int) -> torch.Tensor:
@@ -446,3 +455,182 @@ def test_replayed_fast_kernel_matches_plain(case):
     want = conv_fused_fast_plain(parts, weight, **epi)
     got = _replay_fast(parts, weight, **epi)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the replays' small tensors: beside the
+    suite's other workers more threads only contend for the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def _unpack_pair(packed: torch.Tensor, cout: int, chans, k: int):
+    """Inverse of pack_weight_pair: (Whi, Wlo), each [B or 1, Cout, Cin, k, k]."""
+    idx = pair_pack_index(cout, tuple(chans), k)
+    n = cout * sum(chans) * k * k
+    flat = packed.reshape(-1, idx.numel())
+    out = flat.new_zeros(flat.shape[0], 2 * n + 1).index_copy_(1, idx, flat)
+    return (out[:, :n].reshape(-1, cout, sum(chans), k, k),
+            out[:, n:2 * n].reshape(-1, cout, sum(chans), k, k))
+
+
+@pytest.mark.parametrize("case", PACK_CASES, ids=str)
+def test_pack_weight_pair_round_trip(case, one_thread):
+    """Whi = bf16(W) and Wlo = bf16(W - Whi) land once each in the pair
+    layout, as split_weight's [Whi, Whi, Wlo] blocks hold them, with every
+    padding slot zero; two thirds of the segment packing's elements."""
+    k, chans, cout, per_sample = case
+    rng = np.random.default_rng(sum(chans) + 3 * cout)
+    weight = _t(rng, ((2,) if per_sample else ()) + (cout, sum(chans), k, k))
+    packed = pack_weight_pair(weight, chans)
+    assert packed.dtype == torch.bfloat16
+    nchunk = sum(-(-c // CI_STEP) for c in chans)
+    assert packed.shape[-1] == -(-cout // CO_TILE) * nchunk * 2 * k * k * CO_TILE * CI_STEP
+    hi, lo = _unpack_pair(packed, cout, chans, k)
+    w = weight.reshape(-1, *weight.shape[-4:])
+    assert torch.equal(hi, w.to(torch.bfloat16))
+    assert torch.equal(lo, (w - w.to(torch.bfloat16).float()).to(torch.bfloat16))
+    blocks = split_weight(weight, chans).reshape(-1, cout, 3 * sum(chans), k, k)
+    off = 0
+    for c in chans:
+        assert torch.equal(blocks[:, :, 3 * off:3 * off + c], hi[:, :, off:off + c])
+        assert torch.equal(blocks[:, :, 3 * off + 2 * c:3 * (off + c)], lo[:, :, off:off + c])
+        off += c
+    pad = pair_pack_index(cout, tuple(chans), k) == 2 * w[0].numel()
+    assert not packed.reshape(-1, pad.numel())[:, pad].any()
+    assert 3 * packed.shape[-1] == 2 * pack_weight(split_weight(weight, chans),
+                                                   [c for c in chans for _ in range(3)]).shape[-1]
+
+
+def _replay_split(pairs, weight, bias=None, pre_add=None, out_scale=None, lrelu=None,
+                  residual=None, out="pair"):
+    """The pair kernel's arithmetic (csrc/conv.cu conv_split_kernel), tile by
+    tile: per 64-column x 4-row tile and 16-channel chunk of each pair, the
+    hi and lo boxes of the slab (rows y0 - k//2 .., zero outside the image
+    and past the pair's channels, as TMA fills them) with their halo columns
+    x0 - 1 and x0 + 64; each plane's dx = 0 and dx = 2 buffers the box
+    shifted one pixel right and left with the halo column at the end; per
+    chunk the packed Whi taps times hi's buffers, the Wlo taps times hi's,
+    the Whi taps times lo's, summed in f32 in that order; then the f32
+    epilogue (a pair residual as hi + lo) and the result as a pair or f32."""
+    b, _, h, w = pairs[0].hi.shape
+    k = weight.shape[-1]
+    halo, kk, slab = k // 2, k * k, 4 + 2 * (k // 2)
+    chans = [p.hi.shape[1] for p in pairs]
+    cout = weight.shape[-4]
+    nct = -(-cout // CO_TILE)
+    packed = pack_weight_pair(weight, chans).float()
+    packed = packed.reshape(-1, packed.shape[-1])
+    # [tile][chunk][Whi, Wlo][tap][co/8][ci/8][co%8][ci%8] -> [chunk][Whi, Wlo][tap][co][ci]
+    blocks = packed.view(packed.shape[0], nct, -1, 2, kk, 8, 2, 8, 8).permute(
+        0, 2, 3, 4, 1, 5, 7, 6, 8).reshape(packed.shape[0], -1, 2, kk, nct * CO_TILE, CI_STEP)
+    hp, wp = -(-h // 4) * 4, -(-w // 64) * 64
+    y = torch.zeros(b, nct * CO_TILE, hp, wp)
+    chunk = 0
+    for p in pairs:
+        imgs = []
+        for t in (p.hi, p.lo):
+            buf, pitch = tma_part(t)
+            assert pitch % 8 == 0 and torch.equal(buf[..., :w], t)
+            # the plane as TMA sees it: the true width, zero around it
+            img = torch.zeros(b, t.shape[1] + CI_STEP, hp + 2 * halo, wp + 2)
+            img[:, :t.shape[1], halo:halo + h, 1:1 + w] = buf[..., :w].float()
+            imgs.append(img)
+        for c0 in range(0, p.hi.shape[1], CI_STEP):
+            for y0 in range(0, h, 4):
+                for x0 in range(0, w, 64):
+                    bufs = []
+                    for img in imgs:  # halos at columns 0 and 65 of the box
+                        box = img[:, c0:c0 + CI_STEP, y0:y0 + slab, x0:x0 + 66]
+                        bufs.append({0: box[..., 0:64], 1: box[..., 1:65], 2: box[..., 2:66]})
+                    for wsel, plane in ((0, 0), (1, 0), (0, 1)):  # hi Whi, hi Wlo, lo Whi
+                        for tap in range(kk):
+                            dy, dx = divmod(tap, k)
+                            a = blocks[:, chunk, wsel, tap].expand(b, -1, -1)
+                            src = bufs[plane][dx if k == 3 else 1][:, :, dy:dy + 4]
+                            y[:, :, y0:y0 + 4, x0:x0 + 64] += torch.einsum("bok,bkhw->bohw",
+                                                                           a, src)
+            chunk += 1
+    y = y[:, :cout, :h, :w]
+    if bias is not None:
+        y = y + bias.view(1, -1, 1, 1)
+    if pre_add is not None:
+        y = y + pre_add
+    if out_scale is not None:
+        y = y * out_scale.reshape(-1, cout, 1, 1)
+    if lrelu is not None:
+        y = lrelu[0] * y + lrelu[1] * y.abs()
+    if residual is not None:
+        y = y + (pair_merge(residual) if isinstance(residual, Pair) else residual)
+    return pair_split(y) if out == "pair" else y
+
+
+# (kernel size, pairs' channels, Cout, per-sample weights, h, w, residual,
+# output): one, three and five pairs, Cin off the 16-channel step, Cout past
+# one 64-channel tile, widths on and off a multiple of 8 (a pitch-padded
+# copy of each plane) over one to three column tiles, pair and f32
+# residuals and outputs
+SPLIT_REPLAY = [(3, [16], 64, False, 6, 66, "pair", "pair"),
+                (3, [5, 11, 8], 24, True, 5, 13, "f32", "f32"),
+                (3, [8] * 5, 72, False, 7, 130, None, "pair"),
+                (3, [64], 16, True, 9, 64, "pair", "f32"),
+                (1, [16, 3], 24, True, 5, 65, "pair", "pair"),
+                (1, [8] * 5, 80, False, 4, 72, "f32", "f32")]
+
+
+@pytest.mark.parametrize("case", SPLIT_REPLAY, ids=str)
+def test_replayed_split_kernel_matches_plain(case, one_thread):
+    """The replayed pair kernel against ``conv_fused_split_plain`` (the same
+    exact products of bf16 values, f32 sums in another order), merged
+    values within 1e-5 of the output's scale, with every epilogue term."""
+    k, chans, cout, per_sample, h, w, res, out = case
+    rng = np.random.default_rng(sum(chans) + cout + w + k)
+    b = 2
+    pairs = [pair_split(_t(rng, (b, c, h, w))) for c in chans]
+    cin = sum(chans)
+    weight = _t(rng, ((b,) if per_sample else ()) + (cout, cin, k, k), (cin * k * k) ** -0.5)
+    r = _t(rng, (b, cout, h, w))
+    epi = dict(bias=_t(rng, (cout,), 0.1), pre_add=_t(rng, (b, cout, h, w)),
+               out_scale=torch.from_numpy(rng.uniform(0.5, 1.5, (b, cout)).astype(np.float32)),
+               lrelu=(0.6, 0.4), residual={"pair": pair_split(r), "f32": r, None: None}[res],
+               out=out)
+    got, want = _replay_split(pairs, weight, **epi), conv_fused_split_plain(pairs, weight, **epi)
+    assert isinstance(got, Pair) == isinstance(want, Pair) == (out == "pair")
+    if out == "pair":
+        got, want = pair_merge(got), pair_merge(want)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_replayed_split_kernel_matches_pallas_pair_carry(one_thread):
+    """Per-sample weights over one pair of 16 channels with every epilogue
+    term, a pair residual and a pair output, against the JAX package's
+    ``conv3x3_chw(in_pair=True, res_pair=True, out_pair=True)`` in interpret
+    mode (its [Xhi, Xlo, Xhi] x [Whi, Whi, Wlo] im2col): merged values
+    within 1e-5 of the output's scale."""
+    rng = np.random.default_rng(15)
+    b, h, w, cin, cout = 2, 9, 12, 16, 16
+    x = rng.standard_normal((b, h, w, cin), dtype=np.float32)
+    wt = (0.2 * rng.standard_normal((b, 3, 3, cin, cout))).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, (b, cout)).astype(np.float32)
+    pre = rng.standard_normal((b, h, w, cout), dtype=np.float32)
+    res = rng.standard_normal((b, h, w, cout), dtype=np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        y = conv3x3_chw(jchw.pair_split(nhwc_to_chw(jnp.asarray(x)), cin),
+                        jchw._pack_split_w3(jnp.asarray(wt), b),
+                        jnp.asarray(bias).reshape(-1, 1), jnp.asarray(scale)[:, :, None],
+                        nhwc_to_chw(jnp.asarray(pre)),
+                        jchw.pair_split(nhwc_to_chw(jnp.asarray(res)), cout), h=h, w=w,
+                        lrelu=(0.6, 0.4), in_pair=True, out_pair=True, res_pair=True, pc=cin)
+    want = np.asarray(chw_to_nhwc(jchw.pair_merge(y, cout), h, w)).transpose(0, 3, 1, 2)
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))  # noqa: E731
+    got = _replay_split([pair_split(nchw(x))],
+                        torch.from_numpy(np.ascontiguousarray(wt.transpose(0, 4, 3, 1, 2))),
+                        torch.from_numpy(bias), nchw(pre), torch.from_numpy(scale), (0.6, 0.4),
+                        pair_split(nchw(res)))
+    got = pair_merge(got).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

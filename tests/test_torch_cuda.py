@@ -807,6 +807,95 @@ def test_osconv_agg_f32_training_shape_splits(dev):
 # the fast tier's kernels (f32 at default precision: one bf16 pass)
 # ---------------------------------------------------------------------------
 
+def _split_agree(dev, k, chans, cout, per_sample, epi, b, h, w, seed, res="pair", out="pair"):
+    """The split conv against ``conv_fused_split_plain`` on the merged values
+    at f32's tolerance, and a second launch bit for bit: pair inputs, the
+    epilogue terms ``epi`` (as ``_conv_f32_case`` makes them), the residual
+    a pair (``res`` "pair") or f32, the output a pair or f32 (``out``)."""
+    parts, weight, kw = _conv_f32_case(dev, k, chans, cout, per_sample, epi, b, h, w, seed)
+    pairs = [pair_split(p) for p in parts]
+    if "residual" in kw and res == "pair":
+        kw["residual"] = pair_split(kw["residual"])
+
+    def merged(y):
+        assert isinstance(y, Pair) == (out == "pair")
+        return pair_merge(y) if out == "pair" else y
+
+    name = "conv3x3_split" if k == 3 else "conv1x1_split"
+    got = _agree(lambda: merged(conv_fused_split(pairs, weight, out=out, **kw)),
+                 lambda: merged(conv_fused_split_plain(pairs, weight, out=out, **kw)),
+                 torch.float32, name)
+    with torch.no_grad():
+        assert torch.equal(got, merged(conv_fused_split(pairs, weight, out=out, **kw)))
+
+
+# the split 3x3 on the pair kernel (csrc/conv.cu conv_split_kernel<3>): widths
+# read in place (64, 320: one and five column tiles) and through a
+# pitch-padded copy of each plane (68, 90, 655: even, the 8-byte epilogue; 7:
+# odd, the scalar one), the eval sweep's 655 and 90 among them
+SPLIT_WIDTHS = [64, 68, 320, 655, 90, 7]
+
+
+@pytest.mark.parametrize("w", SPLIT_WIDTHS)
+def test_split_pair_kernel_widths(dev, w):
+    _split_agree(dev, 3, [64], 64, False, ("bias", "lrelu", "residual"), 2, 6, w, w + 3)
+
+
+@pytest.mark.parametrize("cout,per_sample", [(64, True), (128, False)])
+def test_split_pair_kernel_five_pairs(dev, cout, per_sample):
+    """Five pairs (the WindowUnit_l2 merge and OSConv), with a per-sample
+    weight (the OSConv's) and at Cout 128 (the merge)."""
+    _split_agree(dev, 3, [64] * 5, cout, per_sample, ("bias", "lrelu"), 2, 8, 72, cout + 5)
+
+
+@pytest.mark.parametrize("cout", [96, 128])
+@pytest.mark.parametrize("res,out", [("pair", "pair"), ("f32", "f32")])
+def test_split_pair_kernel_cout_past_one_tile(dev, cout, res, out):
+    _split_agree(dev, 3, [64, 3], cout, False, ALL_TERMS, 2, 9, 130, cout + 9, res, out)
+
+
+@pytest.mark.parametrize("term", ALL_TERMS + ("shared_scale",))
+@pytest.mark.parametrize("res,out", [("pair", "pair"), ("f32", "f32")])
+def test_split_pair_kernel_epilogue_terms(dev, term, res, out):
+    """Each epilogue term on its own (at an even and an odd width), with a
+    pair or an f32 residual and output."""
+    for w in (70, 33):
+        _split_agree(dev, 3, [40, 24], 64, False, (term,), 2, 5, w, 7 + w, res, out)
+
+
+def test_split_forward_runs_the_pair_kernel_for_every_conv(dev):
+    """The small config's split forward: every split conv launch is
+    conv_split_kernel<K> (torch.profiler's kernel names), none the bf16
+    kernel (conv_wgmma_kernel, which walked each pair as the segments hi,
+    lo, hi before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    io = np.load(os.path.join(GOLDEN_DIR, "savsr_small_forward.npz"))
+    state = {k: torch.from_numpy(v) for k, v in
+             np.load(os.path.join(GOLDEN_DIR, "savsr_small_state.npz")).items()}
+    x = torch.from_numpy(io["x"]).to(dev)
+    model = SAVSR(**SMALL_CFG, conv_precision="split").eval()
+    model.load_state_dict(state)
+    model.to(dev)
+    model(x, (1.5, 3.5))
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model(x, (1.5, 3.5))
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in ("conv_split_kernel<3>", "conv_split_kernel<1>", "conv_wgmma_kernel"):
+            if name in e.key:
+                counts[name] = counts.get(name, 0) + e.count
+    assert ops.launches["conv3x3_split"] > 0 and ops.launches["conv1x1_split"] > 0, ops.launches
+    assert counts.get("conv_split_kernel<3>") == ops.launches["conv3x3_split"], counts
+    assert counts.get("conv_split_kernel<1>") == ops.launches["conv1x1_split"], counts
+    assert "conv_wgmma_kernel" not in counts, counts
+
+
 FAST_INNER_TOL, FAST_INNER_MEAN_TOL = 2.0 ** -8, 1e-5
 
 
