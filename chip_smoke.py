@@ -250,11 +250,13 @@ CUDA_KERNELS = {
     ("osconv_dagg", "bf16"): "osconv_dagg_wgmma_kernel<3> + dagg_reduce_kernel",
     ("conv3x3_fast", "fast"): "conv_fast_kernel<3, true>",
     ("conv1x1_fast", "fast"): "conv_fast_kernel<1, false>",
-    ("sta_fast", "fast"): "sta_f32_kernel<64, false>",
+    ("sta_fast", "fast"): "sta_fast_kernel<64>",
     ("stau_fast", "fast"): "stau_mma_kernel<4, true>",
     ("tail_fast", "fast"): "tail_f32_kernel<true>",
 }
 TRAINING_KERNELS = ("osconv_agg", "osconv_dagg")
+# phase 6's whole-gradient bound at matmul_precision default (train_parity_default)
+DEFAULT_GRAD_L2 = 2e-2
 # the training path's shapes: a micro-batch of 8 samples of 60x60 LR crops
 TRAIN_B, TRAIN_HW = 8, (60, 60)
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -678,14 +680,14 @@ def tail_case(rng, model, dtype, device, b=WINDOWS, hw=LR_HW, scale=SCALE):
                  lambda: tail_fused_plain(*args), library, flops, io, dtype, device)
 
 
-def log_stau_plan(phase: str, pix, hw, scale, dtype) -> None:
-    """The STAU window plan of ``dtype``'s kernel at (``hw``, ``scale``): its
-    tiles, those gathered from device memory (boxes over the capacity) and
-    the staged boxes' sizes."""
-    tile_r, tile_c, cap, align = plan_geometry(dtype)
+def log_stau_plan(phase: str, pix, hw, scale, dtype, fast: bool = False) -> None:
+    """The STAU window plan of ``dtype``'s kernel (``fast``: the fast tier's)
+    at (``hw``, ``scale``): its tiles, those gathered from device memory
+    (boxes over the capacity) and the staged boxes' sizes."""
+    tile_r, tile_c, cap, align = plan_geometry(dtype, fast=fast)
     plan = stau_window_plan(pix, *hw, tile_r, tile_c, cap, align)
     sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
-    log(f"[{phase}] stau {DT_NAME[dtype]} window plan x{scale[0]}x{scale[1]} "
+    log(f"[{phase}] stau {'fast' if fast else DT_NAME[dtype]} window plan x{scale[0]}x{scale[1]} "
         f"{hw[0]}x{hw[1]} ({tile_r}x{tile_c} HR tiles): {plan.shape[0]} tiles, "
         f"{int((plan[:, 4] == 0).sum())} gathered from device memory, staged box "
         f"slots max {int(sizes.max())} mean {float(sizes.float().mean()):.1f} of {cap}")
@@ -954,7 +956,7 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
         log(f"[profile] {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} {name[:90]}")
     port = [r for r in rows if any(f"{k}_kernel" in r[0] for k in (
         "conv_f32", "conv_f32_reduce", "conv_wgmma", "conv_fast", "conv_split", "sta_f32", "sta_mma",
-        "stau_f32", "stau_mma", "tail_f32", "tail_mma"))]
+        "sta_fast", "stau_f32", "stau_mma", "stau_fast", "tail_f32", "tail_mma"))]
     result = {"tier": tier, "launches": launches}
     port_ms = sum(r[1] for r in port)
     log(f"[profile] the port's kernels {port_ms:.2f} ms in {sum(r[2] for r in port)} launches; "
@@ -980,6 +982,15 @@ def phase_profile(sd, device, windows: int = WINDOWS, tier: str = "bf16") -> dic
             + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in sorted(copies.items())))
         result.update(fast_conv_ms=fc_ms, copy_ms=cast_ms,
                       copies={k: {"ms": ms, "launches": n} for k, (ms, n) in copies.items()})
+        # every fast STA and STAU launch on the fast tier's own kernels
+        want = {CUDA_KERNELS[k, "fast"]: launches[k] for k in ("sta_fast", "stau_fast")}
+        got = {}
+        for name, _, count in rows:
+            if short_name(name).startswith(("sta_", "stau_")):
+                got[short_name(name)] = got.get(short_name(name), 0) + count
+        log(f"[profile] fast: STA and STAU kernels {got} (wrapper calls {want})")
+        if device.type == "cuda" and got != want:
+            raise AssertionError(f"fast profile: STA and STAU launches {got}, want {want}")
         return result
     if tier == "strict":
         f32 = [r for r in rows if "conv_f32" in r[0]]
@@ -1075,7 +1086,83 @@ def phase_train_parity(device) -> dict:
         f"osconv_agg {launches['osconv_agg']}, osconv_dagg {launches['osconv_dagg']}")
     if not d_loss < 1e-5 or failed:
         raise AssertionError(f"train-parity: loss off by {d_loss}, gradients off: {failed[:5]}")
+    train_parity_default(device)
     return launches
+
+
+def train_parity_default(device) -> dict:
+    """Phase 6's default-precision case: the small config with f32 weights at
+    matmul_precision default (every product one bf16 pass, the transposed
+    products of the backward too: archs/train_engine.py) on the card against
+    the port's own CPU run of the same step (which tests/
+    test_torch_train_default.py holds to the JAX package). A sum taken in
+    another order rounds some product's operand or cotangent to the other
+    bf16 neighbour, which moves everything upstream, so the gradients are
+    held by the measured figures, logged beside the run-to-run spread of
+    the card (its atomics) and the distance to the CPU's float32 step: loss
+    within 1e-5 (phase 6's bound) and at least 10x nearer the CPU's default
+    step than its float32 step (the card runs the default math: on the
+    golden batch 4.5e-7 against 1.3e-5); the whole gradient within
+    DEFAULT_GRAD_L2 relative L2 (measured 6.3e-3; the card's own run with
+    cuDNN off moves it by 6.9e-3, and the CPU's float32 step sits 9.7e-3
+    from its default one, so gradients cannot tell the two apart); each
+    gradient within 0.25 of its max + 2e-3 of the largest (phase 6's 2e-3
+    of each max is counted, not held)."""
+    golden = np.load(os.path.join(GOLDENS, "savsr_small_grads.npz"))
+    state = {k: torch.from_numpy(v)
+             for k, v in np.load(os.path.join(GOLDENS, "savsr_small_state.npz")).items()}
+
+    def step(dev, precision):
+        model = SAVSR(**SMALL_CFG, matmul_precision=precision, remat_train=False)
+        load_into(model, state)
+        model.to(dev).train()
+        lq, gt = torch.from_numpy(golden["lq"]).to(dev), torch.from_numpy(golden["gt"]).to(dev)
+        sr, _ = model(lq, (2.0, 2.0), train=True)
+        loss = torch.sqrt((sr - gt) ** 2 + 1e-12).mean()
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (float(loss.detach()),
+                {k: p.grad.detach().cpu().numpy() for k, p in model.named_parameters()})
+
+    def l2(a, b):
+        num = sum(float(((a[k] - v).astype(np.float64) ** 2).sum()) for k, v in b.items())
+        return (num / sum(float((v.astype(np.float64) ** 2).sum()) for v in b.values())) ** 0.5
+
+    cpu = torch.device("cpu")
+    cpu_loss, ref = step(cpu, "default")
+    f32_loss, ref_f32 = step(cpu, "float32")
+    ops.reset_counts()
+    loss, grads = step(device, "default")
+    launches = require_kernels_ran("train-parity-default", TRAINING_KERNELS)
+    _, again = step(device, "default")
+    top = max(float(np.abs(v).max()) for v in ref.values())
+    worst, failed, narrow = (0.0, None), [], 0
+    for k, v in ref.items():
+        err, ref_max = float(np.abs(grads[k] - v).max()), float(np.abs(v).max())
+        if ref_max > 1e-5 and err / ref_max >= worst[0]:
+            worst = (err / ref_max, k)
+        narrow += not err <= 2e-3 * ref_max + 1e-7
+        if not err <= 0.25 * ref_max + 2e-3 * top:
+            failed.append((k, err, ref_max))
+    d_loss, d_loss_f32 = abs(loss - cpu_loss), abs(loss - f32_loss)
+    res = {"loss_diff": d_loss, "loss_diff_vs_cpu_float32": d_loss_f32, "worst_rel": worst[0],
+           "rel_l2": l2(grads, ref),
+           "rel_l2_card_rerun": l2(again, grads), "rel_l2_vs_cpu_float32": l2(grads, ref_f32),
+           "rel_l2_cpu_float32_vs_default": l2(ref_f32, ref)}
+    log(f"[train-parity] small config f32 at matmul_precision default, card vs CPU: loss "
+        f"{loss:.8f} vs {cpu_loss:.8f} (|d| {d_loss:.2e}, bound 1e-5; the CPU's float32 step "
+        f"{f32_loss:.8f}, |d| {d_loss_f32:.2e}, at least 10x); whole gradient "
+        f"{res['rel_l2']:.3e} relative L2 (bound {DEFAULT_GRAD_L2}; the card against itself "
+        f"{res['rel_l2_card_rerun']:.3e}, against the CPU's float32 step "
+        f"{res['rel_l2_vs_cpu_float32']:.3e}, CPU float32 against CPU default "
+        f"{res['rel_l2_cpu_float32_vs_default']:.3e}); worst gradient {worst[0]:.3e} of its max "
+        f"at {worst[1]} ({narrow} of {len(ref)} outside phase 6's 2e-3); launches osconv_agg "
+        f"{launches['osconv_agg']}, osconv_dagg {launches['osconv_dagg']}")
+    if (not d_loss < 1e-5 or not 10 * d_loss <= d_loss_f32 or failed
+            or not res["rel_l2"] <= DEFAULT_GRAD_L2):
+        raise AssertionError(f"train-parity default: {res}, gradients off: {failed[:5]}")
+    return res
 
 
 TRAIN_ITERS = 6
@@ -1847,7 +1934,7 @@ def phase_fast(sd, device, strict_results: dict, split_parity_rows: dict,
     model.to(device)
     with float32_precision(True):  # the plain versions run f32 with TF32 off
         pix = model.stau_statics(LR_HW, SCALE, dtype=torch.float32, device=device)["pix"]
-        log_stau_plan("fast", pix, LR_HW, SCALE, torch.bfloat16)
+        log_stau_plan("fast", pix, LR_HW, SCALE, torch.float32, fast=True)
         rows = [fast_conv_case(rng, *case, device) for case in FAST_CASES]
         rows += [fast_sta_case(rng, model, device), fast_stau_case(rng, model, pix, device),
                  fast_tail_case(rng, model, device)]

@@ -24,45 +24,96 @@ import torch.nn.functional as F
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: int = 0, fast: bool = False) -> torch.Tensor:
     """NCHW convolution with the module's weight/bias cast to x's dtype
-    (``fast``: its operands rounded to bf16, ``dot_operand``)."""
+    (``fast``: one bf16 pass, ``dot_operand`` / ``dot_cotangent``; with
+    gradients on, the bias joins after the product, as in the JAX package)."""
+    weight = conv.weight.to(x.dtype)
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(dot_operand(x, fast), dot_operand(conv.weight.to(x.dtype), fast), bias,
-                    padding=padding)
+    if fast and torch.is_grad_enabled():
+        y = dot_cotangent(F.conv2d(dot_operand(x, fast), dot_operand(weight, fast),
+                                   padding=padding), fast)
+        return y if bias is None else y + bias[:, None, None]
+    return F.conv2d(dot_operand(x, fast), dot_operand(weight, fast), bias, padding=padding)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, fast: bool = False) -> torch.Tensor:
-    return (dot_operand(x, fast) @ dot_operand(lin.weight.to(x.dtype), fast).t()
-            + lin.bias.to(x.dtype))
+    y = dot_operand(x, fast) @ dot_operand(lin.weight.to(x.dtype), fast).t()
+    return dot_cotangent(y, fast) + lin.bias.to(x.dtype)
 
 
 def fc1x1(x: torch.Tensor, conv: nn.Conv2d, fast: bool = False) -> torch.Tensor:
     """A 1x1 conv applied to a [B, C] vector (a matmul with its weight core)."""
     y = dot_operand(x, fast) @ dot_operand(conv.weight[:, :, 0, 0].to(x.dtype), fast).t()
+    y = dot_cotangent(y, fast)
     if conv.bias is not None:
         y = y + conv.bias.to(y.dtype)
     return y
 
 
-def dot_operand(t: torch.Tensor, fast: bool) -> torch.Tensor:
-    """An operand of a matmul or convolution. In the fast tier (``fast``: f32
-    at matmul_precision default, which a TPU runs as one bf16 pass: bf16
-    operands, exact products, f32 sums) an f32 tensor rounded to bf16 and
-    kept in f32, so that the f32 op with TF32 off is that pass exactly; else
-    ``t`` itself."""
-    if fast and t.dtype == torch.float32:
+def dot_einsum(equation: str, a: torch.Tensor, b: torch.Tensor, fast: bool) -> torch.Tensor:
+    """A two-operand einsum as a product of the tier (see ``dot_operand``)."""
+    return dot_cotangent(torch.einsum(equation, dot_operand(a, fast), dot_operand(b, fast)), fast)
+
+
+class _RoundOperand(torch.autograd.Function):
+    """f32 -> its nearest bf16 value kept in f32; the gradient passes
+    unrounded (straight through)."""
+
+    @staticmethod
+    def forward(ctx, t):
         return t.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """The identity, whose backward rounds the cotangent to bf16 (kept in
+    f32): on a product's output, both transposed products take it rounded."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).float()
+
+
+def dot_operand(t: torch.Tensor, fast: bool) -> torch.Tensor:
+    """An operand of a matmul or convolution. At f32 and matmul_precision
+    default (``fast``), which a TPU runs as one bf16 pass (bf16 operands,
+    exact products, f32 sums), an f32 tensor rounded to bf16 and kept in
+    f32, so that the f32 op with TF32 off is that pass exactly; the gradient
+    passes straight through, as the TPU rounds the operands of the
+    transposed products and not the carries (``dot_cotangent``). Else ``t``
+    itself."""
+    if fast and t.dtype == torch.float32:
+        return _RoundOperand.apply(t) if t.requires_grad else t.to(torch.bfloat16).float()
     return t
+
+
+def dot_cotangent(y: torch.Tensor, fast: bool) -> torch.Tensor:
+    """A product's f32 output at ``fast``: its cotangent is rounded to bf16
+    where it enters the product's two transposed products (the TPU's
+    backward at default precision). The value is ``y``."""
+    if fast and y.dtype == torch.float32 and y.requires_grad:
+        return _RoundCotangent.apply(y)
+    return y
 
 
 @dataclass
 class TrainCtx:
-    """Forward-pass context of the training engine: the train flag and the
-    BatchNorm running-stat updates of this forward, keyed by module. A BN
-    applied more than once per step (the alignment loop) chains: it reads
-    the previous update of this forward before it writes its own."""
+    """Forward-pass context of the training engine: the train flag, the
+    BatchNorm running-stat updates of this forward, keyed by module, and the
+    products' precision. A BN applied more than once per step (the alignment
+    loop) chains: it reads the previous update of this forward before it
+    writes its own."""
 
     train: bool = False
     stats: Dict[nn.Module, Dict[str, torch.Tensor]] = field(default_factory=dict)
+    # every product in one bf16 pass (f32 at matmul_precision default)
+    fast: bool = False
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, ctx: Optional[TrainCtx] = None,

@@ -402,8 +402,9 @@ class SAVSRConfig:
     # the bf16 tier whatever it says): "float32" — true f32, TF32 off, the
     # strict tier; "default" — every product in one bf16 pass with f32 sums,
     # as a TPU runs f32 at default precision: the fast tier (the fast
-    # kernels, the heads' operands rounded to bf16). Training keeps its
-    # behaviour: TF32 off only at "float32"
+    # kernels, the heads' operands rounded to bf16). The training engine at
+    # f32 and "default" runs the same pass in the forward and the backward
+    # (archs/train_engine.py), with TF32 off
     matmul_precision: str = "float32"
     # the serving forward's convs (eval only; training ignores it):
     # "native" — at the weights' dtype; "split" — the split tier: f32
@@ -581,7 +582,8 @@ class SAVSR(nn.Module):
         """Frame-invariant operands for (LR shape, scale): the STAU
         coordinate-head outputs, the sampler planes, the window plan of the
         STAU kernel that the tier of ``dtype`` runs (``serving_tier``; the
-        fast tier's is the bf16 kernel's) and the tail's resize rows/columns.
+        fast tier's: the bf16 kernel's tile at its fast mode's capacity) and
+        the tail's resize rows/columns.
         ``dtype`` must be the forward's feature dtype for the result to equal
         the inline path exactly (and for the plan to fit its kernel)."""
         h, w = int(lq_hw[0]), int(lq_hw[1])
@@ -610,8 +612,10 @@ class SAVSR(nn.Module):
         if train_engines:
             from .train_engine import savsr_train_forward
 
-            with float32_precision(self.cfg.matmul_precision == "float32"):
-                sr, updates = savsr_train_forward(self, x, scale, train)
+            # f32 at default: every product one bf16 pass, forward and backward
+            fast = self.cfg.matmul_precision == "default" and x.dtype == torch.float32
+            with float32_precision(fast or self.cfg.matmul_precision == "float32"):
+                sr, updates = savsr_train_forward(self, x, scale, train, fast)
             return (sr, updates) if train else sr
         tier = self.serving_tier()
         with self._precision(tier), torch.no_grad():

@@ -16,6 +16,47 @@ differentiates. The ordinary convolutions are ``F.conv2d`` (XLA convs in the
 JAX package, outside any Pallas kernel); the serving kernels have no
 backward and are not on this path.
 
+Precision. At f32 and ``matmul_precision: default`` (``ctx.fast``) the JAX
+package runs every product that does not pin a precision as a TPU runs
+default precision: one bf16 pass, operands rounded to bf16, exact products,
+f32 sums, and the two transposed products of its backward the same way,
+with the cotangent rounded (JAX's transpose rules pass the precision on).
+Here each such product takes its operands through ``arch_util.dot_operand``
+(rounded, the gradient straight through) and its output through
+``arch_util.dot_cotangent`` (the cotangent rounded where it enters both
+transposes), with TF32 off; the bias joins after the product and its
+gradient, like the carries, stays f32. The products, JAX package
+(``savsr_tpu/archs/``, ``savsr_tpu/ops/``) | port (``savsr_tpu_torch/archs/``,
+"here": this file):
+
+- convs, ``arch_util.py:178`` (``conv2d``) and ``savsr_arch.py:777``
+  (``_conv2d_parts``: conv1, conv2, merge) | ``arch_util.py:25`` ``conv2d``,
+  here at :128-133, 142-147, 151-158, 164-165, 176, 279, 291; the OSAdapt
+  mask head ``savsr_arch.py:275-280`` |
+  ``savsr_arch.py:232-237``; the STAU coordinate head
+  ``savsr_arch.py:684-688`` | ``savsr_arch.py:305-310``; kernel_conv, fusion
+  and tail ``savsr_arch.py:705, 745, 1504`` | here :204, :217, :297;
+- ScaleAttention's 1x1 heads and the RCAB attention, ``_fc1x1``
+  ``savsr_arch.py:76`` (called at :110-126, :893-894) | ``arch_util.py:43``
+  ``fc1x1`` (``savsr_arch.py:199-208``, here :167-168);
+- the scale-routing linears, ``arch_util.py:194`` (called at
+  ``savsr_arch.py:168-169``) | ``arch_util.py:38`` ``linear``
+  (``savsr_arch.py:222-223``);
+- the OSConv kernel-bank fold, ``savsr_arch.py:218`` | here :110
+  (``arch_util.dot_einsum``);
+- the STAU compress/expand einsums, ``savsr_arch.py:738-741`` | here
+  :212-215.
+
+Products that pin their precision stay true f32: the two OSConv Pallas
+kernels, which pin HIGHEST for f32 (``ops/pallas/osconv_kernel.py:115-120,
+285-286``) | ``ops/osconv.py osconv_agg_train`` in its f32 mode (here
+:118); the bilinear resizes at ``precision="highest"``
+(``arch_util.py:303-304``: OSAdapt's 2x upsample and the skip at
+``savsr_arch.py:1505``) | ``arch_util.interpolate_bilinear`` (f32 with TF32
+off; here :298). No other product lies on the path: the grid samples
+(``arch_util.py:367``) gather, sta_conv (``savsr_arch.py:400``) and the
+BatchNorms are elementwise.
+
 BatchNorm running-stat updates are collected in a ``TrainCtx`` and returned;
 nothing here writes into the module. ``remat_train`` / ``remat_stau`` wrap
 the same segments as the JAX package's ``_ckpt_call`` in
@@ -37,6 +78,7 @@ from .arch_util import (
     TrainCtx,
     adaptive_avg_pool_11,
     conv2d,
+    dot_einsum,
     fc1x1,
     grid_sample_bilinear,
     interpolate_bilinear,
@@ -62,10 +104,10 @@ def osconv_apply(ctx: TrainCtx, m, parts: List[torch.Tensor], scale, padding: in
     agg[b] = (sum_K ka W_K) * sa * ca[i] * fa[o] in the JAX layout
     [B, k, k, Cin, Cout], then the per-sample conv kernel."""
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    ca, fa, sa, ka = osconv_attention(m, adaptive_avg_pool_11(x), scale, ctx)
+    ca, fa, sa, ka = osconv_attention(m, adaptive_avg_pool_11(x), scale, ctx, ctx.fast)
     w = m.weight.to(x.dtype)  # [K, O, I, k, k]
     if ka is not None:
-        agg = torch.einsum("bK,Koikl->bklio", ka, w)
+        agg = dot_einsum("bK,Koikl->bklio", ka, w, ctx.fast)
     else:
         agg = w[0].permute(2, 3, 1, 0).expand(x.shape[0], -1, -1, -1, -1)
     if sa is not None:
@@ -77,19 +119,19 @@ def osconv_apply(ctx: TrainCtx, m, parts: List[torch.Tensor], scale, padding: in
 
 
 def osadapt_apply(ctx: TrainCtx, m, x: torch.Tensor, scale) -> torch.Tensor:
-    mask = osadapt_mask(m, x, ctx)
+    mask = osadapt_mask(m, x, ctx, ctx.fast)
     return x + osconv_apply(ctx, m.adapt, [x], scale) * mask
 
 
 def residual_block_apply(ctx: TrainCtx, blk, feats: List[torch.Tensor], scale):
-    n = len(feats)
-    x1 = [leaky_relu(conv2d(feats[i], blk.conv0[i], padding=1)) for i in range(n)]
+    n, fast = len(feats), ctx.fast
+    x1 = [leaky_relu(conv2d(feats[i], blk.conv0[i], 1, fast)) for i in range(n)]
     if blk.use_osconv:
         base = leaky_relu(osconv_apply(ctx, blk.osconv, x1, scale))
     else:
-        base = leaky_relu(conv2d(torch.cat(x1, dim=1), blk.conv1))
-    return [feats[i] + leaky_relu(conv2d(torch.cat([base, x1[i]], dim=1), blk.conv2[i],
-                                         padding=1))
+        base = leaky_relu(conv2d(torch.cat(x1, dim=1), blk.conv1, 0, fast))
+    return [feats[i] + leaky_relu(conv2d(torch.cat([base, x1[i]], dim=1), blk.conv2[i], 1,
+                                         fast))
             for i in range(n)]
 
 
@@ -97,41 +139,41 @@ def window_l1_apply(ctx: TrainCtx, unit, x: torch.Tensor, h_past: torch.Tensor, 
     """x: [B, T=3, C_in, h, w] sliding window; h_past: [B, C, h, w]."""
     t = x.shape[1]
     x_sup = torch.cat([x[:, i] for i in range(t) if i != t // 2], dim=1)
-    h_sup = leaky_relu(conv2d(x_sup, unit.conv_sup, padding=1))
-    h_c = leaky_relu(conv2d(x[:, t // 2], unit.conv_c, padding=1))
+    h_sup = leaky_relu(conv2d(x_sup, unit.conv_sup, 1, ctx.fast))
+    h_c = leaky_relu(conv2d(x[:, t // 2], unit.conv_c, 1, ctx.fast))
     feats = [h_c, h_sup, h_past]
     for blk in unit.blocks:
         feats = residual_block_apply(ctx, blk, feats, scale)
-    return conv2d(torch.cat(feats, dim=1), unit.merge, padding=1)
+    return conv2d(torch.cat(feats, dim=1), unit.merge, 1, ctx.fast)
 
 
 def window_l2_apply(ctx: TrainCtx, unit, feats: List[torch.Tensor], scale):
-    h_feat = [leaky_relu(conv2d(feats[i], unit.conv_h[i], padding=1))
+    h_feat = [leaky_relu(conv2d(feats[i], unit.conv_h[i], 1, ctx.fast))
               for i in range(unit.win_size)]
     out = h_feat if len(h_feat) == 1 else []
     for i in range(unit.win_size - unit.slid_win + 1):
         sw = h_feat[i:i + unit.slid_win]
         for blk in unit.blocks:
             sw = residual_block_apply(ctx, blk, sw, scale)
-        out.append(conv2d(torch.cat(sw, dim=1), unit.merge, padding=1))
+        out.append(conv2d(torch.cat(sw, dim=1), unit.merge, 1, ctx.fast))
     return out
 
 
-def rcab_apply(rcab, x: torch.Tensor) -> torch.Tensor:
+def rcab_apply(rcab, x: torch.Tensor, fast: bool = False) -> torch.Tensor:
     body = rcab.rcab
-    y = torch.relu(conv2d(x, body[0], padding=1))
-    y = conv2d(y, body[2], padding=1)
+    y = torch.relu(conv2d(x, body[0], 1, fast))
+    y = conv2d(y, body[2], 1, fast)
     att = body[3].attention
-    a = torch.relu(fc1x1(adaptive_avg_pool_11(y), att[1]))
-    a = sigmoid(fc1x1(a, att[3]))
+    a = torch.relu(fc1x1(adaptive_avg_pool_11(y), att[1], fast))
+    a = sigmoid(fc1x1(a, att[3], fast))
     return y * a[:, :, None, None] + x
 
 
-def residual_group_apply(rg, x: torch.Tensor) -> torch.Tensor:
+def residual_group_apply(rg, x: torch.Tensor, fast: bool = False) -> torch.Tensor:
     y = x
     for rcab in rg.residual_group:
-        y = rcab_apply(rcab, y)
-    return conv2d(y, rg.conv, padding=1) + x
+        y = rcab_apply(rcab, y, fast)
+    return conv2d(y, rg.conv, 1, fast) + x
 
 
 @functools.lru_cache(maxsize=256)
@@ -154,24 +196,25 @@ def _stau_grid_sample(x: torch.Tensor, offset: torch.Tensor, scale) -> torch.Ten
     return grid_sample_bilinear(x, grid)
 
 
-def stau_apply(m, x: torch.Tensor, scale, st_feat: torch.Tensor) -> torch.Tensor:
+def stau_apply(m, x: torch.Tensor, scale, st_feat: torch.Tensor,
+               fast: bool = False) -> torch.Tensor:
     """The unfused STAU upsampler [B, C, h, w] -> [B, C, H, W], with its
     coordinate head computed inline (training differentiates through it)."""
     _, _, h, w = x.shape
-    kernel_warp = leaky_relu(conv2d(st_feat, m.kernel_conv[0]), 0.1)
+    kernel_warp = leaky_relu(conv2d(st_feat, m.kernel_conv[0], 0, fast), 0.1)
     sta_feat = sta_conv(x, kernel_warp)
     head = _stau_head(m, h, w, scale, x.dtype, x.device,
-                      inp=_stau_static("coord", h, w, scale, x.dtype, x.device))
+                      inp=_stau_static("coord", h, w, scale, x.dtype, x.device), fast=fast)
     fea0 = _stau_grid_sample(x, head["offset"], scale)
     wc = m.weight_compress.to(x.dtype)[:, :, :, 0, 0]  # [n, C/8, C]
     we = m.weight_expand.to(x.dtype)[:, :, :, 0, 0]    # [n, C, C/8]
     r = head["routing"][0]                             # [n, H, W]
-    zc = torch.einsum("bchw,noc->bnohw", fea0, wc)
-    fc = torch.einsum("bnohw,nhw->bohw", zc, r)
-    ze = torch.einsum("bohw,nco->bnchw", fc, we)
-    fea = torch.einsum("bnchw,nhw->bchw", ze, r) + fea0
+    zc = dot_einsum("bchw,noc->bnohw", fea0, wc, fast)
+    fc = dot_einsum("bnohw,nhw->bohw", zc, r, fast)
+    ze = dot_einsum("bohw,nco->bnchw", fc, we, fast)
+    fea = dot_einsum("bnchw,nhw->bchw", ze, r, fast) + fea0
     sta_up = _stau_grid_sample(sta_feat, head["st_offset"], scale)
-    return conv2d(torch.cat([sta_up, fea], dim=1), m.fusion)
+    return conv2d(torch.cat([sta_up, fea], dim=1), m.fusion, 0, fast)
 
 
 def _ckpt_call(ctx: TrainCtx, fn, *args, remat: bool):
@@ -183,7 +226,8 @@ def _ckpt_call(ctx: TrainCtx, fn, *args, remat: bool):
         return fn(ctx, *args)
 
     def wrapped(stats, *a):
-        inner = TrainCtx(train=True, stats={k: dict(v) for k, v in stats.items()})
+        inner = TrainCtx(train=True, stats={k: dict(v) for k, v in stats.items()},
+                         fast=ctx.fast)
         return fn(inner, *a), inner.stats
 
     out, stats = checkpoint(wrapped, ctx.stats, *args, use_reentrant=False)
@@ -191,14 +235,16 @@ def _ckpt_call(ctx: TrainCtx, fn, *args, remat: bool):
     return out
 
 
-def savsr_train_forward(model, x: torch.Tensor, scale,
-                        train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def savsr_train_forward(model, x: torch.Tensor, scale, train: bool = True,
+                        fast: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """SAVSR forward of the training engine: x [B, T, C, h, w] in [0, 1] ->
     (sr [B, C, H, W], BatchNorm running-stat updates keyed like the
     state_dict). With ``train`` False the BatchNorms use their running
-    statistics and the updates are empty."""
+    statistics and the updates are empty. ``fast``: every product of the
+    module docstring's list in one bf16 pass (f32 at matmul_precision
+    default; the caller turns TF32 off)."""
     cfg = model.cfg
-    ctx = TrainCtx(train=train)
+    ctx = TrainCtx(train=train, fast=fast)
     b, t, _, h_in, w_in = x.shape
     H, W = get_hw(h_in, w_in, scale)
     x_center = x[:, cfg.center]
@@ -230,25 +276,25 @@ def savsr_train_forward(model, x: torch.Tensor, scale,
     h_feat = [torch.cat([f2p[i], p2f[i]], dim=1) for i in range(n_iter)]
     for unit in model.h_win:
         h_feat = window_l2_apply(ctx, unit, h_feat, scale)
-    h = leaky_relu(conv2d(h_feat[0], model.h_win_conv_h, padding=1))
+    h = leaky_relu(conv2d(h_feat[0], model.h_win_conv_h, 1, fast))
     align_feat = share = h
 
     gamma = model.gamma.to(x.dtype)
 
     def group(c, hh, rg, ad):
-        return osadapt_apply(c, ad, residual_group_apply(rg, hh), scale)
+        return osadapt_apply(c, ad, residual_group_apply(rg, hh, c.fast), scale)
 
     for rg, ad in zip(model.RG, model.adapt):
         h = _ckpt_call(ctx, lambda c, hh, rg=rg, ad=ad: group(c, hh, rg, ad), h,
                        remat=cfg.remat_train)
         h = h + gamma * share
-    h = conv2d(h, model.conv_last, padding=1) + share
+    h = conv2d(h, model.conv_last, 1, fast) + share
 
     # arbitrary-scale upsampling on the un-padded region
-    sr = _ckpt_call(ctx, lambda c, hh, aa: stau_apply(model.upsample, hh, scale, aa),
+    sr = _ckpt_call(ctx, lambda c, hh, aa: stau_apply(model.upsample, hh, scale, aa, c.fast),
                     h[:, :, :h_in, :w_in], align_feat[:, :, :h_in, :w_in],
                     remat=cfg.remat_train or cfg.remat_stau)
-    sr = conv2d(sr, model.tail, padding=1)
+    sr = conv2d(sr, model.tail, 1, fast)
     sr = sr + interpolate_bilinear(x_center, (H, W), align_corners=False)
     return sr, stats_by_name(model, ctx)
 

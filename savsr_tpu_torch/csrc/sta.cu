@@ -85,6 +85,37 @@
 //   second accumulator set: spills), four warpgroups (spills at 128
 //   registers), three tap groups and an output stage for 16-byte stores
 //   were each slower on the H100.
+//
+// * sta_fast_kernel<C> (the fast serving tier: f32 weights and carries at
+//   matmul_precision default, C = 16, 32, 64; ops/sta.py sends other C to
+//   sta_f32_kernel without ROUND): the TPU kernel's f32 mode at DEFAULT
+//   precision. The K product is sta_mma_kernel's per-tap wgmma (A = st
+//   rounded to bf16 as each warp loads its fragments from the f32 planes,
+//   B = the tap's weights packed from their bf16 values, f32 sums); bias,
+//   LeakyReLU, K (not rounded) times x and the sum over taps are f32, and
+//   so is the output. Shared memory decides the layout: at C = 64 the 25
+//   taps' bf16 weights (204,800 B) would leave 27,648 B of the 232,448,
+//   and x's f32 12 x 12 x 64 neighbourhood alone is 36,864 B. So the
+//   weights are streamed: a producer warp bulk-copies each tap's 8,192 B
+//   into a ring of FT_STAGES = 8 slots (65,536 B; full/empty mbarriers),
+//   the same 25 taps for every tile, from L2. The room this frees takes a
+//   wider tile, 8 x 16 pixels (the two consumer warpgroups one 8 x 8 half
+//   each, so a tap's copy serves 128 pixels: 0.74 GB of L2 reads a launch
+//   at 8 x 180x320), and two f32 buffers of x's 12 x 20 neighbourhood
+//   (plane stride FT_XS = 260 floats, 4 mod 32, so that a warp's 8 columns
+//   x 4 channels of one epilogue load hit 32 banks; 2 x 66,560 B), the next
+//   tile's landing by 4-byte cp.async from clamped coordinates (replicate
+//   padding) under this tile's taps, beside the f32 bias (6,400 B): 205,184
+//   B. Each warpgroup sums its 25 taps in order into one f32 fragment (C/2
+//   values a thread) and stores its half straight from it (a warp's store:
+//   4 channel planes x 8 pixels, whole 32-byte sectors). 149 registers at
+//   C = 64 (288 threads: up to 224), no spills. What the variants showed
+//   (scripts/torch_kernel_variants.py --kernels sta_fast; H100, 8 x
+//   180x320, C = 64, ms saved of 0.53-0.55 with the part off): the f32
+//   epilogue 0.17, the wgmmas 0.12-0.14, x's staging 0.12-0.13, the
+//   st loads 0.04-0.05, the epilogue's x loads 0.05-0.06, the output
+//   stores 0.04: it is paced, as the bf16 kernel is, by the epilogue's
+//   CUDA-core instructions beside the MMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -598,6 +629,248 @@ cudaError_t launch_mma(const void* x, const void* st, const void* wpack, const v
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the fast tier (f32 at default precision) on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int FT_ROWS = 8, FT_COLS = 16;   // tile: two 8x8 halves, one a warpgroup
+constexpr int FT_HR = FT_ROWS + 2 * PAD;   // 12 neighbourhood rows
+constexpr int FT_HC = FT_COLS + 2 * PAD;   // 20 neighbourhood columns
+constexpr int FT_XS = 260;                 // x plane stride (floats): >= 12 x 20, 4 mod 32
+constexpr int FT_STAGES = 8;               // weight ring: taps in flight
+constexpr int FT_CONSUMERS = 256;          // two warpgroups
+constexpr int FT_THREADS = FT_CONSUMERS + 32;  // + one producer warp
+static_assert(FT_HR * FT_HC <= FT_XS && FT_XS % 32 == 4, "fast x plane stride");
+
+template <int C>
+struct StaFastCfg {
+  static constexpr int TAP_BYTES = C * C * 2;              // one tap's bf16 B operand
+  static constexpr int BIAS_OFF = FT_STAGES * TAP_BYTES;   // f32 [25][C]
+  static constexpr int X_OFF = BIAS_OFF + TAPS * C * 4;    // two f32 [C][FT_XS] buffers
+  static constexpr int X_FLOATS = C * FT_XS;
+  static constexpr int BAR_OFF = X_OFF + 2 * X_FLOATS * 4;  // full[8], empty[8]
+  static constexpr int SMEM = BAR_OFF + 2 * FT_STAGES * 8;
+  static_assert(BIAS_OFF % 16 == 0 && X_OFF % 16 == 0 && BAR_OFF % 8 == 0, "alignment");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(FT_CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ StaTile sta_fast_tile(int tile, int tiles_x, int tiles_y) {
+  const int tx = tile % tiles_x, r = tile / tiles_x;
+  return StaTile{r / tiles_y, (r % tiles_y) * FT_ROWS, tx * FT_COLS};
+}
+
+// x's replicate-padded 12 x 20 neighbourhood of a tile into a buffer [C][row
+// 12][column 20] by 4-byte cp.async from clamped coordinates (consecutive
+// threads: consecutive columns, so the reads coalesce and the stores hit
+// consecutive banks), committed as one group
+template <int C>
+__device__ __forceinline__ void sta_fast_stage_x(float* s_x, const float* __restrict__ x,
+                                                 StaTile tl, int H, int W) {
+  const long long HW = (long long)H * W;
+  const float* xb = x + (long long)tl.b * C * HW;
+  for (int e = threadIdx.x; e < C * FT_HR * FT_HC; e += FT_CONSUMERS) {
+    const int c = e / (FT_HR * FT_HC), p = e % (FT_HR * FT_HC);
+    const int gy = min(max(tl.y0 + p / FT_HC - PAD, 0), H - 1);
+    const int gx = min(max(tl.x0 + p % FT_HC - PAD, 0), W - 1);
+    cp_async4(s_x + c * FT_XS + p, xb + c * HW + (long long)gy * W + gx);
+  }
+  cp_async_commit();
+}
+
+// L2 hints for a tile's st rows (the A loads at its start then hit L2)
+template <int C>
+__device__ __forceinline__ void sta_fast_prefetch(const float* st, StaTile tl, int H, int W) {
+  const long long HW = (long long)H * W;
+  for (int e = threadIdx.x; e < C * FT_ROWS; e += FT_CONSUMERS) {
+    const int c = e / FT_ROWS, r = e % FT_ROWS;
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(st + ((long long)tl.b * C + c) * HW +
+                                                  (long long)min(tl.y0 + r, H - 1) * W + tl.x0));
+  }
+}
+
+// the warp's A fragments (its 16 rows of M: pixels (2 warp, g) and (2 warp +
+// 1, g) of its half, k = the input channel) straight from st's f32 planes,
+// rounded to bf16 as they are packed (a warp's load is 4 channel planes x 8
+// consecutive pixels: whole 32-byte sectors)
+template <int C>
+__device__ __forceinline__ void sta_fast_a(uint32_t (&a)[C / 16][4], const float* __restrict__ st,
+                                           StaTile tl, int H, int W, int col0, int warp, int g,
+                                           int q) {
+  const long long HW = (long long)H * W;
+  const float* sb = st + (long long)tl.b * C * HW + min(tl.x0 + col0 + g, W - 1);
+  const long long r0 = (long long)min(tl.y0 + 2 * warp, H - 1) * W;
+  const long long r1 = (long long)min(tl.y0 + 2 * warp + 1, H - 1) * W;
+  float v[C / 16][4][2];
+#pragma unroll
+  for (int kb = 0; kb < C / 16; ++kb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* p = sb + (long long)(16 * kb + 8 * (r >> 1) + 2 * q) * HW + ((r & 1) ? r1 : r0);
+      v[kb][r][0] = __ldg(p);
+      v[kb][r][1] = __ldg(p + HW);
+    }
+#pragma unroll
+  for (int kb = 0; kb < C / 16; ++kb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kb][r] = pack_bf16x2(v[kb][r][0], v[kb][r][1]);
+}
+
+// tap t's epilogue in f32: K = lrelu(acc + bias) (not rounded), out += K *
+// x at the pixel shifted by the tap. acc[4i + 2j + c]: pixel row 2 warp + j
+// of the half, column g, channel 8i + 2q + c; xt: the thread's x at channel
+// 2q, that row j = 0 and column, shifted by the tap; bias_tap: the tap's
+// bias at channel 2q
+template <int C>
+__device__ __forceinline__ void sta_fast_epilogue(float (&out)[C / 2], const float (&acc)[C / 2],
+                                                  const float* xt, const float* bias_tap) {
+#pragma unroll
+  for (int i = 0; i < C / 8; ++i) {
+    const float2 bv = *reinterpret_cast<const float2*>(bias_tap + 8 * i);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = acc[4 * i + 2 * j + c] + (c ? bv.y : bv.x);
+        v = 0.55f * v + 0.45f * fabsf(v);
+        out[4 * i + 2 * j + c] =
+            fmaf(v, xt[(8 * i + c) * FT_XS + j * FT_HC], out[4 * i + 2 * j + c]);
+      }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(FT_THREADS, 1)
+sta_fast_kernel(const float* __restrict__ x, const float* __restrict__ st,
+                const uint8_t* __restrict__ wpack, const float4* __restrict__ bias_t,
+                float* __restrict__ out, int B, int H, int W) {
+  using Cfg = StaFastCfg<C>;
+  extern __shared__ __align__(1024) uint8_t fsm_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(fsm_raw + Cfg::BAR_OFF);
+  uint64_t* empty = full + FT_STAGES;
+  const int tid = threadIdx.x;
+  const int tiles_x = (W + FT_COLS - 1) / FT_COLS, tiles_y = (H + FT_ROWS - 1) / FT_ROWS;
+  const int ntiles = B * tiles_x * tiles_y;
+  if (tid == 0) {
+    for (int s = 0; s < FT_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], FT_CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= FT_CONSUMERS) {
+    // the producer: tap t's weights (the same for every tile) into the ring
+    // by one bulk copy, FT_STAGES taps ahead of the consumers
+    if (tid != FT_CONSUMERS) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+      for (int t = 0; t < TAPS; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], Cfg::TAP_BYTES);
+        bulk_load(fsm_raw + stage * Cfg::TAP_BYTES, wpack + t * Cfg::TAP_BYTES, Cfg::TAP_BYTES,
+                  &full[stage]);
+        if (++stage == FT_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes columns [8 wg, 8 wg + 8) of each tile
+  // (the warpgroup index through a shuffle, so that ptxas sees it uniform)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid % 128) / 32, lane = tid % 32, g = lane >> 2, q = lane & 3;
+  const int col0 = 8 * wg;
+  float* s_bias = reinterpret_cast<float*>(fsm_raw + Cfg::BIAS_OFF);
+  float* s_x = reinterpret_cast<float*>(fsm_raw + Cfg::X_OFF);
+  for (int e = tid; e < TAPS * C / 4; e += FT_CONSUMERS)
+    cp_async16(reinterpret_cast<float4*>(s_bias) + e, bias_t + e);
+  if (blockIdx.x < ntiles)
+    sta_fast_stage_x<C>(s_x, x, sta_fast_tile(blockIdx.x, tiles_x, tiles_y), H, W);
+  const uint32_t ring = smem_u32(fsm_raw);
+  const float* bq = s_bias + 2 * q;
+  int stage = 0, it = 0;
+  uint32_t phase = 0;
+  float acc[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const StaTile tl = sta_fast_tile(tile, tiles_x, tiles_y);
+    uint32_t a[C / 16][4];
+    sta_fast_a<C>(a, st, tl, H, W, col0, warp, g, q);
+    // the other buffer (the previous tile's) takes the next tile's x under this one
+    consumers_sync();
+    if (tile + gridDim.x < ntiles) {
+      const StaTile nt = sta_fast_tile(tile + gridDim.x, tiles_x, tiles_y);
+      sta_fast_stage_x<C>(s_x + ((it + 1) & 1) * Cfg::X_FLOATS, x, nt, H, W);
+      sta_fast_prefetch<C>(st, nt, H, W);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    consumers_sync();  // this tile's x (and, at the first, the bias) landed for all
+
+    const float* xt = s_x + (it & 1) * Cfg::X_FLOATS + 2 * q * FT_XS + 2 * warp * FT_HC + col0 + g;
+    float o[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) o[i] = 0.f;
+#pragma unroll 1
+    for (int t = 0; t < TAPS; ++t) {
+      mbar_wait(&full[stage], phase);
+      sta_issue<C>(acc, a, ring + stage * Cfg::TAP_BYTES);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == FT_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      sta_fast_epilogue<C>(o, acc, xt + (t / KS) * FT_HC + t % KS, bq + t * C);
+    }
+
+    const long long HW = (long long)H * W;
+    const int xx = tl.x0 + col0 + g;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int y = tl.y0 + 2 * warp + j;
+      if (y >= H || xx >= W) continue;
+      float* ob = out + ((long long)tl.b * C + 2 * q) * HW + (long long)y * W + xx;
+#pragma unroll
+      for (int i = 0; i < C / 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) ob[(long long)(8 * i + c) * HW] = o[4 * i + 2 * j + c];
+    }
+  }
+}
+
+template <int C>
+cudaError_t launch_fast(const void* x, const void* st, const void* wpack, const void* bias_t,
+                        void* out, int B, int H, int W, int sms, cudaStream_t stream) {
+  using Cfg = StaFastCfg<C>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(sta_fast_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  const int ntiles = B * ((H + FT_ROWS - 1) / FT_ROWS) * ((W + FT_COLS - 1) / FT_COLS);
+  const int grid = ntiles < sms ? ntiles : sms;
+  sta_fast_kernel<C><<<grid, FT_THREADS, Cfg::SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(st),
+      static_cast<const uint8_t*>(wpack), static_cast<const float4*>(bias_t),
+      static_cast<float*>(out), B, H, W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* savsr_error_string(int e) {
@@ -640,5 +913,21 @@ extern "C" int savsr_sta_mma(const void* x, const void* st, const void* wpack, c
   if (C == 16) e = launch_mma<16>(x, st, wpack, bias_t, out, B, H, W, sms, s);
   if (C == 32) e = launch_mma<32>(x, st, wpack, bias_t, out, B, H, W, sms, s);
   if (C == 64) e = launch_mma<64>(x, st, wpack, bias_t, out, B, H, W, sms, s);
+  return static_cast<int>(e);
+}
+
+// The fast tier's tensor-core kernel: x, st, out [B, C, H, W] f32 with C 16,
+// 32 or 64; wpack: the bf16 weights packed by ops/sta.py sta_pack_index(C)
+// (25*C*C bf16, 16-byte aligned); bias_t: f32 [25][C]; sms: the card's SM
+// count (one persistent block per SM).
+extern "C" int savsr_sta_fast(const void* x, const void* st, const void* wpack,
+                              const void* bias_t, void* out, int B, int C, int H, int W, int sms,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1 || sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (C == 16) e = launch_fast<16>(x, st, wpack, bias_t, out, B, H, W, sms, s);
+  if (C == 32) e = launch_fast<32>(x, st, wpack, bias_t, out, B, H, W, sms, s);
+  if (C == 64) e = launch_fast<64>(x, st, wpack, bias_t, out, B, H, W, sms, s);
   return static_cast<int>(e);
 }

@@ -106,12 +106,22 @@
 //   residual fea = f0 + STK We^T in f32 (it is rounded only where it meets
 //   the compress), and the output is f32. The f32 f0 would hold 32 more
 //   registers a thread from the sampling to the expand, past the block's
-//   128-register budget, so the expand takes it again per k-block from the
-//   staged box (sample_kb: the same taps, the same f32 arithmetic, so the
-//   same values); at C = 64 ptxas still spills a little (96 bytes stored,
-//   240 loaded a thread). The f32 output tile would not fit the shared
-//   memory, so the accumulators go straight to device memory (a warp's
-//   store fills four 32-byte sectors).
+//   128-register budget, so the sampling also writes it, a lane's 2 pixels x
+//   16 channels as float4s, into a 4 KB region of its warp (64 KB for 16
+//   warps: the bf16 output tile's 48 KB and 16 KB of the staging, whose
+//   capacity drops to FAST_STAGE_CAP = 536 slots; a warp's 16-byte writes
+//   and reads are 512 contiguous bytes), and the expand reads it back per
+//   k-block. The fusion's sa half is issued with the fea half at the end, so
+//   that its accumulators are not live through the pass, and the staging
+//   transposes read the thread index opaquely (ptxas had kept two of their
+//   indices live through the passes): 128 registers, no spills, 2.05-2.08
+//   ms at 8 x 180x320 -> 720x1280, C = 64 (2.88 before). What the variants of the earlier design, which sampled f0 a
+//   second time per k-block instead, measured (scripts/torch_kernel_variants.py
+//   --kernels stau_fast; H100, 8 x 180x320 -> 720x1280, C = 64, ms saved of
+//   2.88 with the part off): the second sampling 0.64, the unstaged f32
+//   output stores at most 0.26 (a warp's store fills four 32-byte sectors),
+//   the wrapper's two rounding passes 0.13 (kept: an f32 landing buffer
+//   does not fit beside the staging); ptxas spilled 96 B a thread there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,13 +163,15 @@ constexpr int TC_PASS = 16;         // pixels per warp pass: one m16 tile
 constexpr int TC_WARPS = 16;        // two per row, 32 columns (two passes) each
 constexpr int TC_THREADS = TC_WARPS * 32;
 constexpr int STAGE_CAP = 600;      // staged LR pixel slots, both samplers' boxes together
+constexpr int FAST_STAGE_CAP = 536; // the same in the fast mode (ops/stau.py FAST_STAGE_CAP)
 constexpr int NE_PAD = 4;           // experts (fewer: zero weights, zero routing); each
                                     // expert's C/8 compress outputs padded to 8
 constexpr int OUT_PITCH = TC_PASS + 8;  // bf16 per channel row of a warp's output tile
 
-template <int CB>  // C = 16 * CB channels (CB 1, 2 or 4), Cout = C
+template <int CB, bool FAST>  // C = 16 * CB channels (CB 1, 2 or 4), Cout = C
 struct StauCfg {
   static constexpr int C = 16 * CB;
+  static constexpr int CAP = FAST ? FAST_STAGE_CAP : STAGE_CAP;
   static constexpr int NT = 2 * CB;          // 8-wide n-tiles of C
   static constexpr int SLOT = 2 * C;         // bytes per staged LR pixel
   // packed weights in 256-byte blocks: compress and expand as mma.sync B
@@ -171,9 +183,13 @@ struct StauCfg {
   static constexpr int WF_KBLOCK = 32 * C;  // bytes of a fusion k-block
   static constexpr int OFF_BIAS = W_BLOCKS * 256;
   static constexpr int OFF_STAGE = OFF_BIAS + 64 * 4;
-  static constexpr int OFF_RAW = OFF_STAGE + STAGE_CAP * SLOT;
-  static constexpr int OFF_OUT = OFF_RAW + (STAGE_CAP + 16) * SLOT;  // raw_stride pads
-  static constexpr int SMEM = OFF_OUT + TC_WARPS * C * OUT_PITCH * 2;
+  static constexpr int OFF_RAW = OFF_STAGE + CAP * SLOT;
+  static constexpr int OFF_OUT = OFF_RAW + (CAP + 16) * SLOT;  // raw_stride pads
+  // bf16: each warp's [C][OUT_PITCH] output tile; FAST: each warp's f32 f0
+  // of one pass, [2 pixels][CB k-blocks][32 lanes] float4
+  static constexpr int WARP_F0 = 2 * CB * 32 * 16;
+  static constexpr int SMEM =
+      OFF_OUT + TC_WARPS * (FAST ? WARP_F0 : C * OUT_PITCH * 2);
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -184,9 +200,12 @@ struct Plan {
   int yf, xf, ys, xs, nrf, ncf, nrs, ncs;
 };
 
-__device__ __forceinline__ Plan load_plan(const int4* plan, int st) {
+// (``cap``: the kernel's staging slots; a tile whose boxes exceed it, from a
+// plan made for a larger capacity, gathers from device memory)
+__device__ __forceinline__ Plan load_plan(const int4* plan, int st, int cap = 1 << 30) {
   const int4 a = plan[2 * st], b = plan[2 * st + 1];
-  return Plan{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const bool fits = b.x * b.y + b.z * b.w <= cap;
+  return Plan{a.x, a.y, a.z, a.w, fits ? b.x : 0, b.y, b.z, b.w};
 }
 
 // the staging position of channel c: lane q of a quad reads positions
@@ -236,10 +255,11 @@ __device__ __forceinline__ void stage_issue(bf16* raw, const bf16* src, int h, i
 // lanes 4-7 of each 8 read the pair's odd channel first, which with the odd
 // stride puts the 16-byte reads of 8 lanes in distinct bank groups.
 template <int CB>
-__device__ __forceinline__ void stage_transpose(uint8_t* stage, const bf16* raw, int npx) {
+__device__ __forceinline__ void stage_transpose(uint8_t* stage, const bf16* raw, int npx,
+                                                int tid) {
   constexpr int C = 16 * CB, PAIRS = C / 2;
   const int n = PAIRS * (npx / 8), S = raw_stride(npx);
-  for (int i = threadIdx.x; i < n; i += TC_THREADS) {
+  for (int i = tid; i < n; i += TC_THREADS) {
     const int cp = i % PAIRS, k = i / PAIRS, t = (cp >> 2) & 1;
     const uint4 first = *reinterpret_cast<const uint4*>(raw + (2 * cp + t) * S + 8 * k);
     const uint4 second = *reinterpret_cast<const uint4*>(raw + (2 * cp + 1 - t) * S + 8 * k);
@@ -252,6 +272,14 @@ __device__ __forceinline__ void stage_transpose(uint8_t* stage, const bf16* raw,
       *reinterpret_cast<uint32_t*>(dst + (2 * j + 1) * (2 * C)) = __byte_perm(l[j], u[j], 0x7632);
     }
   }
+}
+
+// threadIdx.x through an opaque read: what is computed from it is not hoisted
+// out of the loop around the call
+__device__ __forceinline__ int volatile_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
 }
 
 // where a sampler's taps come from: the staged box (slots of 2C bytes, box
@@ -349,44 +377,14 @@ __device__ __forceinline__ void sample(float (&v)[CB][4], const Source& s, float
   }
 }
 
-// k-block kb of ``sample``: v = sample's v[kb], the same taps and f32
-// arithmetic on the same values (one 8-byte staged load a tap)
-template <int CB>
-__device__ __forceinline__ void sample_kb(float (&v)[4], const Source& s, float fy, float fx,
-                                          int h, int w, int q, int kb) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = 0.f;
-  const Taps tp = taps_of(fy, fx, h, w);
-  const long long hw = (long long)h * w;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (!tp.ok[t]) continue;
-    const float wt = tp.wt[t];
-    const int ty = tp.y + t / 2, tx = tp.x + t % 2;
-    uint2 d;
-    if (s.stage) {
-      d = *reinterpret_cast<const uint2*>(s.stage + ((ty - s.y0) * s.nc + (tx - s.x0)) * (32 * CB) +
-                                          q * (8 * CB) + 8 * kb);
-    } else {
-      const unsigned short* p =
-          reinterpret_cast<const unsigned short*>(s.plane0) + (long long)ty * w + tx;
-      const int c = 16 * kb + 2 * q;
-      d.x = p[c * hw] | ((uint32_t)p[(c + 1) * hw] << 16);
-      d.y = p[(c + 8) * hw] | ((uint32_t)p[(c + 9) * hw] << 16);
-    }
-    v[0] += wt * bf16_lo(d.x);
-    v[1] += wt * bf16_hi(d.x);
-    v[2] += wt * bf16_lo(d.y);
-    v[3] += wt * bf16_hi(d.y);
-  }
-}
-
 // the A fragment registers (bf16, rounded) of one sampler for the warp's
-// m16 tile: a[kb][hf], rows g / g + 8 = pixels g / 8 + g of the pass
+// m16 tile: a[kb][hf], rows g / g + 8 = pixels g / 8 + g of the pass; with
+// ``keep``, the f32 sums too, as keep[(hf CB + kb) 32 + lane] (FAST's f0)
 template <int CB>
 __device__ __forceinline__ void sample_frags(uint32_t (&a)[CB][4], const Source& s,
                                              const float* fy, const float* fx, const bool* live,
-                                             int h, int w, int q, int g) {
+                                             int h, int w, int q, int g,
+                                             float4* keep = nullptr) {
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float v[CB][4];
@@ -402,6 +400,9 @@ __device__ __forceinline__ void sample_frags(uint32_t (&a)[CB][4], const Source&
     for (int kb = 0; kb < CB; ++kb) {
       a[kb][hf] = pack_bf16x2(v[kb][0], v[kb][1]);
       a[kb][2 + hf] = pack_bf16x2(v[kb][2], v[kb][3]);
+      if (keep)
+        keep[(hf * CB + kb) * 32 + (threadIdx.x % 32)] =
+            make_float4(v[kb][0], v[kb][1], v[kb][2], v[kb][3]);
     }
   }
 }
@@ -430,9 +431,11 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
                                           const float* __restrict__ pix, void* __restrict__ outp,
                                           int NE, int h, int w, int H, int W, int Y, int X0,
                                           bool vec_out) {
-  using Cfg = StauCfg<CB>;
+  using Cfg = StauCfg<CB, FAST>;
   constexpr int C = Cfg::C, NT = Cfg::NT;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, q = lane % 4;
+  // FAST: this warp's f32 f0 of the pass, kept for the residual
+  float4* f0_keep = reinterpret_cast<float4*>(smem + Cfg::OFF_OUT + warp * Cfg::WARP_F0);
   const long long HW = (long long)H * W, pbase = (long long)Y * W;
   // the lane's two pixels (the fragment rows g and g + 8)
   const int px[2] = {X0 + g, X0 + 8 + g};
@@ -442,7 +445,9 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
   float out[4 * NT];  // the wgmma accumulators: n-tile nt at 4 nt
 #pragma unroll
   for (int i = 0; i < 4 * NT; ++i) out[i] = 0.f;
-  // 1. sa, and out = sa * Wfus[:, :C]^T (asynchronous)
+  // 1. sa, and out = sa * Wfus[:, :C]^T (asynchronous; FAST: with the fea
+  //    half at the end, so that the accumulators are not live from here:
+  //    ptxas then keeps the pass in the 128-register budget, no spills)
   uint32_t sa[CB][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -450,14 +455,16 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
     fx[i] = live[i] ? pix[3 * HW + pbase + px[i]] : 0.f;
   }
   sample_frags<CB>(sa, ss, fy, fx, live, h, w, q, g);
-  __syncwarp();  // wgmma is warp-aligned
-  fence_regs(out);
-  wgmma_fence();
+  if constexpr (!FAST) {
+    __syncwarp();  // wgmma is warp-aligned
+    fence_regs(out);
+    wgmma_fence();
 #pragma unroll
-  for (int kb = 0; kb < CB; ++kb)
-    wgmma_m64nNk16_bf16_rs<C>(out, sa[kb],
-                              make_desc(wf + kb * Cfg::WF_KBLOCK, 128, 256, kInterleave));
-  wgmma_commit();
+    for (int kb = 0; kb < CB; ++kb)
+      wgmma_m64nNk16_bf16_rs<C>(out, sa[kb],
+                                make_desc(wf + kb * Cfg::WF_KBLOCK, 128, 256, kInterleave));
+    wgmma_commit();
+  }
   // 2. f0 and the compress Z = F0 Wc^T: n-tile e is expert e
   uint32_t f0[CB][4];
 #pragma unroll
@@ -465,7 +472,7 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
     fy[i] = live[i] ? pix[pbase + px[i]] : 0.f;
     fx[i] = live[i] ? pix[HW + pbase + px[i]] : 0.f;
   }
-  sample_frags<CB>(f0, sf, fy, fx, live, h, w, q, g);
+  sample_frags<CB>(f0, sf, fy, fx, live, h, w, q, g, FAST ? f0_keep : nullptr);
   uint32_t stk[2][4];
   {
     float z[NE_PAD][4];
@@ -501,11 +508,13 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
       }
     }
   }
-  wgmma_wait<0>();  // the sa products: their A registers may go now
-  fence_u32(sa);
+  if constexpr (!FAST) {
+    wgmma_wait<0>();  // the sa products: their A registers may go now
+    fence_u32(sa);
+  }
   // 4. fea = bf16(f0 + STK We^T), per 16 channels kb the expand n-tiles
   //    2kb, 2kb + 1, as the A fragment of fusion k-block CB + kb; FAST: f0
-  //    in f32, sampled again (sample_kb)
+  //    in f32, as the sampling kept it
   uint32_t fea[CB][4];
 #pragma unroll
   for (int kb = 0; kb < CB; ++kb) {
@@ -520,8 +529,8 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
     if constexpr (FAST) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        float f[4] = {0.f, 0.f, 0.f, 0.f};
-        if (live[hf]) sample_kb<CB>(f, sf, fy[hf], fx[hf], h, w, q, kb);
+        const float4 k4 = f0_keep[(hf * CB + kb) * 32 + lane];
+        const float f[4] = {k4.x, k4.y, k4.z, k4.w};
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           fea[kb][2 * j + hf] =
@@ -541,6 +550,12 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
   __syncwarp();
   fence_regs(out);
   wgmma_fence();
+  if constexpr (FAST) {
+#pragma unroll
+    for (int kb = 0; kb < CB; ++kb)
+      wgmma_m64nNk16_bf16_rs<C>(out, sa[kb],
+                                make_desc(wf + kb * Cfg::WF_KBLOCK, 128, 256, kInterleave));
+  }
 #pragma unroll
   for (int kb = 0; kb < CB; ++kb)
     wgmma_m64nNk16_bf16_rs<C>(out, fea[kb],
@@ -548,10 +563,13 @@ __device__ __forceinline__ void stau_pass(uint8_t* smem, const Source& sf, const
   wgmma_commit();
   wgmma_wait<0>();
   fence_u32(fea);
+  if constexpr (FAST) fence_u32(sa);
   fence_regs(out);
-  // 5. + bias; FAST: f32, straight from the accumulators (a store instruction
-  //    writes 8 pixels of 4 channels); else bf16, through the warp's
-  //    [C][OUT_PITCH] tile, 16-byte stores
+  // 5. + bias; FAST: f32, straight from the accumulators (a store
+  //    instruction writes 8 pixels of 4 channels, four whole 32-byte
+  //    sectors; staging them in the warp's f0 region for 16-byte stores ran
+  //    0.15 ms slower); bf16 through the warp's [C][OUT_PITCH] tile, 16-byte
+  //    stores
   const float* bias = reinterpret_cast<const float*>(smem + Cfg::OFF_BIAS);
   if constexpr (FAST) {
     float* outf = static_cast<float*>(outp);
@@ -600,7 +618,7 @@ stau_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sta,
                 const bf16* __restrict__ wpk, const float* __restrict__ bias,
                 void* __restrict__ out, int B, int NE, int h, int w, int H, int W, int ncs,
                 int ntiles, int vec_in, int vec_out) {
-  using Cfg = StauCfg<CB>;
+  using Cfg = StauCfg<CB, FAST>;
   constexpr int C = Cfg::C;
   extern __shared__ __align__(128) uint8_t stau_smem[];
   uint8_t* smem = stau_smem;
@@ -623,13 +641,18 @@ stau_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sta,
   };
   auto transpose = [&](const Plan& p) {
     if (p.nrf == 0) return;
-    stage_transpose<CB>(stage, raw, p.nrf * p.ncf);
+    // FAST: the thread index read here, so that ptxas cannot keep the
+    // thread's transpose rows (invariant over the tiles) live through the
+    // passes, where they were the two values it spilled
+    int tid = threadIdx.x;
+    if constexpr (FAST) tid = volatile_tid();
+    stage_transpose<CB>(stage, raw, p.nrf * p.ncf, tid);
     stage_transpose<CB>(stage + p.nrf * p.ncf * Cfg::SLOT, raw + C * raw_stride(p.nrf * p.ncf),
-                        p.nrs * p.ncs);
+                        p.nrs * p.ncs, tid);
   };
 
   int t = blockIdx.x;
-  Plan p = load_plan(plan, t / B);
+  Plan p = load_plan(plan, t / B, Cfg::CAP);
   issue(t, p);
   cp_async_wait_all();
   __syncthreads();
@@ -639,7 +662,7 @@ stau_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sta,
     const int tn = t + gridDim.x;
     Plan pn{};
     if (tn < ntiles) {
-      pn = load_plan(plan, tn / B);
+      pn = load_plan(plan, tn / B, Cfg::CAP);
       issue(tn, pn);  // lands while this tile computes
     }
     const int b = t % B, st = t / B;
@@ -670,7 +693,7 @@ template <int CB, bool FAST>
 int launch_mma(const void* x, const void* sta, const float* pix, const int* plan,
                const void* wpk, const float* bias, void* out, int B, int NE, int h, int w, int H,
                int W, int vec_in, int vec_out, cudaStream_t stream) {
-  using Cfg = StauCfg<CB>;
+  using Cfg = StauCfg<CB, FAST>;
   static int sms = 0;
   if (!sms) {
     int dev;

@@ -34,9 +34,13 @@ The fast tier (``sta_conv_fused_fast``; f32 weights and carries at
 ``matmul_precision: default``) is the TPU kernel's f32 mode at DEFAULT
 precision: the K product takes st and the weight rounded to bf16 (exact
 products, f32 sums), and K itself, the 25-tap filter of the f32 trunk and
-the output stay f32. It runs ``sta_f32_kernel`` without its K rounding on
-st rounded to bf16 (one pass before the launch) and the weight packed from
-its bf16 values; rounding commutes with the packing, so this is exact.
+the output stay f32. At C 16/32/64 it runs ``sta_fast_kernel``: the bf16
+kernel's per-tap wgmma K product on st rounded to bf16 as it is loaded and
+the weight packed from its bf16 values (``pack_sta_weights``), the taps'
+weights streamed through a ring, K and the filter in f32. At other C it
+runs ``sta_f32_kernel`` without its K rounding on st rounded to bf16 (one
+pass before the launch) and the weight packed from its bf16 values;
+rounding commutes with the packing, so both are exact.
 
 A failed build or launch raises; nothing falls back to another kernel.
 """
@@ -109,7 +113,8 @@ def sta_pack_index(c: int) -> torch.Tensor:
 
 
 def pack_sta_weights(weight: torch.Tensor, bias: torch.Tensor):
-    """(packed weights, f32 tap-major bias [25, C]) of the tensor-core kernel,
+    """(packed bf16 weights, f32 tap-major bias [25, C]) of the tensor-core
+    kernels (an f32 weight, the fast tier's, packed from its bf16 values),
     kept on ``weight`` as ``_savsr_sta_packed`` while the weight's and the
     bias's storages and version counters stay the same."""
     key = (weight.data_ptr(), weight._version, bias.data_ptr(), bias._version)
@@ -117,7 +122,7 @@ def pack_sta_weights(weight: torch.Tensor, bias: torch.Tensor):
     if hit is not None and hit[0] == key:
         return hit[1]
     c = weight.shape[1]
-    packed = weight.detach().reshape(-1)[sta_pack_index(c).to(weight.device)]
+    packed = weight.detach().to(torch.bfloat16).reshape(-1)[sta_pack_index(c).to(weight.device)]
     bias_t = bias.detach().float().reshape(c, TAPS).t().contiguous()
     weight._savsr_sta_packed = (key, (packed, bias_t))
     return packed, bias_t
@@ -167,6 +172,8 @@ def _lib():
     lib.savsr_sta_mma.restype = i
     lib.savsr_sta_mma.argtypes = [p, p, p, p, p,          # x, st, wpack, bias_t, out
                                   i, i, i, i, i, p]       # B, C, H, W, sms, stream
+    lib.savsr_sta_fast.restype = i
+    lib.savsr_sta_fast.argtypes = lib.savsr_sta_mma.argtypes
     return lib
 
 
@@ -218,19 +225,25 @@ def sta_conv_fused(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
 def sta_conv_fused_fast(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor) -> torch.Tensor:
     """The fast STA, all f32 (see the module docstring). CPU tensors take the
-    plain version; CUDA tensors launch ``sta_f32_kernel`` (C <= 64) without
-    its K rounding, on st rounded to bf16."""
+    plain version; CUDA tensors launch ``sta_fast_kernel`` at C 16/32/64 and
+    ``sta_f32_kernel`` (C <= 64) without its K rounding, on st rounded to
+    bf16, at other C."""
     if not x.is_cuda:
         return sta_conv_fused_fast_plain(x, st, weight, bias)
     b, c, h, w = x.shape
     _check("sta fast", x, st, weight, bias, torch.float32)
-    require(c <= 64, f"sta fast: the CUDA-core kernel takes C <= 64, got {c}")
-    packed, bias_p = pack_sta_weights_f32(weight, bias, fast=True)
-    st_r = st.to(torch.bfloat16).float()  # the rounding pass: st as the K product takes it
     out = torch.empty_like(x)
     lib = _lib()
-    rc = lib.savsr_sta_f32(ptr(x), ptr(st_r), ptr(packed), ptr(bias_p), ptr(out), b, c, h, w, 0,
-                           sm_count(x.device), stream_ptr(x))
+    if c in MMA_CHANNELS:
+        packed, bias_t = pack_sta_weights(weight, bias)
+        rc = lib.savsr_sta_fast(ptr(x), ptr(st), ptr(packed), ptr(bias_t), ptr(out), b, c, h, w,
+                                sm_count(x.device), stream_ptr(x))
+    else:
+        require(c <= 64, f"sta fast: the CUDA-core kernel takes C <= 64, got {c}")
+        packed, bias_p = pack_sta_weights_f32(weight, bias, fast=True)
+        st_r = st.to(torch.bfloat16).float()  # st as the K product takes it
+        rc = lib.savsr_sta_f32(ptr(x), ptr(st_r), ptr(packed), ptr(bias_p), ptr(out), b, c, h, w,
+                               0, sm_count(x.device), stream_ptr(x))
     check_rc(lib, rc, "sta_conv_fused_fast")
     launches["sta_fast"] += 1
     return out

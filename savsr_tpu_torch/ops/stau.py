@@ -18,15 +18,19 @@ precision: every product takes bf16 operands (the inputs, the hat
 x-weights, f0 into the compress, r_n*fc, sa and fea into the fusion, the
 weights) with f32 sums, while f0 stays f32 in the residual and the output
 is f32. It runs the bf16 kernel in its fast mode (``stau_mma_kernel<CB,
-true>``) on the inputs rounded to bf16 and on the bf16 kernel's plan.
+true>``, which keeps the f32 f0 of its one sampling in shared memory for
+the residual) on the inputs rounded to bf16 and on the bf16 kernel's tile
+at a smaller staging capacity (``plan_geometry(torch.float32,
+fast=True)``).
 
 Both kernels have two layout steps in Python, replayed on the CPU by the
 tests: ``stau_window_plan``, the LR box each tile reads (the sampling
 positions depend only on the static coordinate embedding, so
 ``SAVSR.stau_statics`` plans once per shape, scale and dtype), at each
 kernel's tile, staging capacity and column alignment (``plan_geometry``:
-bf16 8 HR rows x 64 HR columns, 600 slots of both boxes, boxes on 8-column
-boundaries; f32 2 x 64, 320 slots per channel, exact boxes);
+bf16 8 HR rows x 64 HR columns, 600 slots of both boxes (the fast mode
+536), boxes on 8-column boundaries; f32 2 x 64, 320 slots per channel,
+exact boxes);
 and the packed weights, cached on the fusion weight: ``pack_stau_weights``,
 the bf16 kernel's mma B fragments, and ``pack_stau_weights_f32``, the f32
 kernel's row order with C padded to 16, 32 or 64 and the expand folded into
@@ -111,8 +115,11 @@ def _stau_plain(x, sta, pix, wc, we, wfus, bias, fast: bool) -> torch.Tensor:
 
 
 # the bf16 kernel's tile (HR rows x HR columns) and staging capacity (LR
-# pixel slots of both samplers' boxes together), as in csrc/stau.cu
+# pixel slots of both samplers' boxes together), as in csrc/stau.cu; its
+# fast mode's capacity (FAST_STAGE_CAP there: the f32 f0 it keeps takes
+# some of the staging)
 PLAN_ROWS, PLAN_COLS, STAGE_CAP = 8, 64, 600
+FAST_STAGE_CAP = 536
 # the f32 kernel's (FS_ROWS, FS_COLS, FS_CAP in csrc/stau.cu; slots per
 # channel); its 4-byte copies need no column alignment
 F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP = 2, 64, 320
@@ -123,11 +130,14 @@ NE_PAD = 4
 def plan_geometry(dtype: torch.dtype, fast: bool = False) -> tuple:
     """(tile rows, tile columns, staging capacity, column alignment) of the
     kernel that runs ``dtype``: the f32 kernel's for float32 (the strict and
-    split tiers), the bf16 kernel's otherwise and for the fast tier
-    (``fast``: f32 on the bf16 kernel's fast mode)."""
+    split tiers), the bf16 kernel's otherwise, and for the fast tier
+    (``fast``: f32 on the bf16 kernel's fast mode) the bf16 kernel's tile at
+    the fast mode's capacity. The kernel also checks each tile's boxes
+    against its capacity (a bigger one gathers from device memory), so the
+    bf16 and fast plans, of one shape, are safe in either kernel."""
     if dtype == torch.float32 and not fast:
         return F32_PLAN_ROWS, F32_PLAN_COLS, F32_STAGE_CAP, 1
-    return PLAN_ROWS, PLAN_COLS, STAGE_CAP, 8
+    return PLAN_ROWS, PLAN_COLS, FAST_STAGE_CAP if fast else STAGE_CAP, 8
 
 
 def stau_window_plan(pix: torch.Tensor, h: int, w: int, rows: int = PLAN_ROWS,

@@ -24,7 +24,10 @@ conv_fast_kernel, which rounds its f32 parts itself) at 8 windows of
 64 (``conv_fast_1x1``); the split tier's conv (csrc/conv.cu, pair inputs
 of bf16 hi and lo planes) at 8 windows of 180x320, 3x3 64 -> 64 with a
 pair residual (``conv_split``) and 1x1 3x64 -> 64 (``conv_split_1x1``).
-``--sass DIR`` also prints each variant's ptxas
+The fast tier's STA (``sta_fast``: csrc/sta.cu sta_fast_kernel) and STAU
+(``stau_fast``: csrc/stau.cu, its fast kernel on the fast plan, and the
+wrapper's rounding passes where it has them) at 8 windows of 180x320, C =
+64, f32. ``--sass DIR`` also prints each variant's ptxas
 lines and SASS counts and writes the full variant's SASS into DIR. The
 edited variants compute wrong results: their error against the plain
 version is printed only to show which part was switched off. The time a
@@ -221,6 +224,21 @@ VARIANTS = {
         "no L2 prefetch of the next tile": [("    if (tile + gridDim.x < ntiles)\n      sta_prefetch",
                                              "    if (tile < 0)\n      sta_prefetch")],
     },
+    "stau_fast": {
+        "full": [],
+        "no kept-f0 loads": [("        const float4 k4 = f0_keep[(hf * CB + kb) * 32 + lane];",
+                              "        const float4 k4 = make_float4(0.5f, 0.25f, 0.125f, 1.f);")],
+        "no f32 output stores": [
+            ("        if (Y < H && x < W) outf[co * HW + pbase + x] = out[4 * nt + j] + bias[co];",
+             "        if (Y < H && x < W && out[4 * nt + j] == 12345.f)\n"
+             "          outf[co * HW + pbase + x] = out[4 * nt + j] + bias[co];")],
+        "no bilinear taps": [("    if (!tp.ok[t]) continue;", "    if (true) continue;")],
+        "no staging copies": [("    if (p.nrf == 0) return;\n    const long long off = (t % B) * chw;\n"
+                               "    stage_issue<CB>",
+                               "    if (true) return;\n    const long long off = (t % B) * chw;\n"
+                               "    stage_issue<CB>")],
+        "no mma.sync": [NO_MMA],
+    },
     "stau_f32": {
         "full": [],
         "no staging copies": [("    for (int c = 0; c < C; c += 4, g += 4 * hw, d += 4 * FS_CAP) "
@@ -258,6 +276,25 @@ VARIANTS = {
         "3 of 25 taps": [("    for (int t = 0; t < TAPS; ++t, ++step) {",
                           "    for (int t = 0; t < 3; ++t, ++step) {")],
     },
+    "sta_fast": {
+        "full": [],
+        "no wgmma": [("    wgmma_m64nNk16_bf16_rs<C>(acc, a[kb], make_desc(w_tap + kb * C * 32, 128, 256, "
+                      "kInterleave),\n                              kb > 0);",
+                      "    acc[0] += __uint_as_float(a[kb][0] & 0x3f800000u);")],
+        "no epilogue": [("      sta_fast_epilogue<C>(o, acc, xt + (t / KS) * FT_HC + t % KS, bq + t * C);",
+                         "      if (acc[0] == 12345.f)\n"
+                         "        sta_fast_epilogue<C>(o, acc, xt + (t / KS) * FT_HC + t % KS, bq + t * C);")],
+        "no x loads in the epilogue": [
+            ("            fmaf(v, xt[(8 * i + c) * FT_XS + j * FT_HC], out[4 * i + 2 * j + c]);",
+             "            fmaf(v, 0.5f, out[4 * i + 2 * j + c]);")],
+        "no st loads": [("    sta_fast_a<C>(a, st, tl, H, W, col0, warp, g, q);",
+                         "    if (tile < 0) sta_fast_a<C>(a, st, tl, H, W, col0, warp, g, q);")],
+        "no x staging": [("      sta_fast_stage_x<C>(s_x + ((it + 1) & 1) * Cfg::X_FLOATS, x, nt, H, W);",
+                          "      if (tile < 0) sta_fast_stage_x<C>(s_x + ((it + 1) & 1) * Cfg::X_FLOATS, x, nt, H, W);")],
+        "no output stores": [("        for (int c = 0; c < 2; ++c) ob[(long long)(8 * i + c) * HW] = o[4 * i + 2 * j + c];",
+                              "        for (int c = 0; c < 2; ++c)\n"
+                              "          if (o[4 * i + 2 * j + c] == 12345.f) ob[(long long)(8 * i + c) * HW] = 0.f;")],
+    },
     "conv_fast": CONV_FAST_3X3,
     "conv_fast_1x1": CONV_FAST_1X1,
     "conv_split": CONV_SPLIT_3X3,
@@ -286,8 +323,8 @@ VARIANTS = {
 
 SOURCE = {"osconv_dagg": "osconv", "conv_f32": "conv", "conv_f32_1x1": "conv", "conv_fast": "conv",
           "conv_fast_1x1": "conv", "conv_split": "conv", "conv_split_1x1": "conv",
-          "stau_f32": "stau",
-          "sta_f32": "sta", "tail_f32": "tail"}
+          "stau_f32": "stau", "stau_fast": "stau",
+          "sta_f32": "sta", "sta_fast": "sta", "tail_f32": "tail"}
 
 
 def _edits(variant):
@@ -297,6 +334,7 @@ def _edits(variant):
 # the kernels whose ptxas lines and SASS ``--sass`` reports (default: the
 # source's name)
 SASS_FUNCS = {"conv_fast": ("conv_fast_kernel",), "conv_fast_1x1": ("conv_fast_kernel",),
+              "sta_fast": ("sta_fast_kernel",), "stau_fast": ("stau_mma_kernelILi4ELb1E",),
               "conv_split": ("conv_split_kernelILi3E",), "conv_split_1x1": ("conv_split_kernelILi1E",)}
 # SASS opcodes counted per kernel: tensor-core products, the warpgroup
 # waits ptxas places (one per product group unless it serialises the
@@ -447,6 +485,13 @@ def main(argv=None) -> int:
         "sta_f32": (sta, "sta_conv_fused", (
             cs._rand(rng, (b, c, h, w), f32, device), cs._rand(rng, (b, c, h, w), f32, device),
             kc.weight, kc.bias), {}),
+        "sta_fast": (sta, "sta_conv_fused_fast", (
+            cs._rand(rng, (b, c, h, w), f32, device), cs._rand(rng, (b, c, h, w), f32, device),
+            kc.weight, kc.bias), {}),
+        "stau_fast": (stau, "stau_upsample_fused_fast", (
+            cs._rand(rng, (b, c, h, w), f32, device), cs._rand(rng, (b, c, h, w), f32, device),
+            st["pix"], up.weight_compress, up.weight_expand, up.fusion.weight, up.fusion.bias),
+            {"plan": stau.stau_window_plan(st["pix"], h, w, *stau.plan_geometry(f32, fast=True))}),
         "tail": (tail, "tail_fused", (
             cs._rand(rng, (b, c, H, W), bf, device),
             torch.from_numpy(rng.random((b, 3, h, w)).astype(np.float32)).to(device, bf),
@@ -532,6 +577,11 @@ def main(argv=None) -> int:
             print(f"[variants] {kern} reference: one read of its {tuple(first.shape)} "
                   f"{str(first.dtype)[6:]} input (torch.Tensor.sum) ms "
                   f"{cs.timed_ms(lambda: first.sum(), device):.4f}", flush=True)
+            if kern == "stau_fast":  # its wrapper's rounding passes, inside every variant's time
+                rnd = lambda: [t.to(torch.bfloat16, memory_format=torch.contiguous_format)  # noqa: E731
+                               for t in fn_args[:2]]
+                print(f"[variants] {kern} the wrapper's rounding passes of x and sta ms "
+                      f"{cs.timed_ms(rnd, device):.4f}", flush=True)
             for name, variant in vs.items():
                 patch = variant if isinstance(variant, dict) else {}
                 if (kern, name) in libs:

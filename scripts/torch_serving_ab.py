@@ -40,7 +40,10 @@ Per checkout:
   ``FAST_CASES`` row (the checkout's own ``split_conv_case`` /
   ``fast_conv_case``) and the profile of one forward of 8 windows at that
   tier, with the device time of its conv kernels and of PyTorch's copy
-  kernels.
+  kernels; ``fast`` also the fast STA and STAU rows (``fast_sta_case``,
+  ``fast_stau_case``) and the fast forward's deviation PSNR against the
+  strict forward on the parity cell (the 45x80 golden input at x4,
+  x(1.5, 3.5), x3.05), as ``chip_smoke.fast_parity`` takes it.
 """
 
 from __future__ import annotations
@@ -88,6 +91,29 @@ def profile(cs, model, device, dtype) -> dict:
 
 
 HEADLINES = ("conv0 64->64 lrelu", "conv1 3x64->64 lrelu")
+PARITY_SCALES = (("y", (4.0, 4.0)), ("y_1.5_3.5", (1.5, 3.5)), ("y_3.05_3.05", (3.05, 3.05)))
+
+
+def fast_db(cs, build_serving_model, load_into, sd, device) -> dict:
+    """The fast forward's deviation PSNR against the strict forward on the
+    parity cell, per scale."""
+    import numpy as np
+    import torch
+
+    g = np.load(os.path.join(HERE, "tests", "goldens", "savsr_realsize_forward.npz"))
+    x = torch.from_numpy(g["x"]).to(device)
+    outs = {}
+    for tier in ("fast", "strict"):
+        model = build_serving_model(tier)
+        load_into(model, sd)
+        model.to(device)
+        for key, scale in PARITY_SCALES:
+            statics = model.stau_statics(x.shape[-2:], scale, dtype=torch.float32, device=device)
+            outs[tier, key] = model(x, scale, stau_statics=statics).float().cpu().numpy()
+        del model
+        torch.cuda.empty_cache()
+    return {key: cs.deviation_psnr(outs["fast", key], outs["strict", key])
+            for key, _ in PARITY_SCALES}
 
 
 def child(root: str, out_path: str, tiers) -> None:
@@ -126,6 +152,8 @@ def child(root: str, out_path: str, tiers) -> None:
             rows += [cs.split_conv_case(rng, *case, device) for case in cs.SPLIT_CASES]
         if "fast" in tiers:
             rows += [cs.fast_conv_case(rng, *case, device) for case in cs.FAST_CASES]
+            rows += [cs.fast_sta_case(rng, model, device),
+                     cs.fast_stau_case(rng, model, statics["pix"], device)]
         if strict:
             rows += [cs.sta_case(rng, model, torch.float32, device),
                      cs.stau_case(rng, model, statics, torch.float32, device),
@@ -147,9 +175,14 @@ def child(root: str, out_path: str, tiers) -> None:
             f"tensor-core conv {prof['tc_conv_ms']:.2f} ms in {prof['tc_conv_launches']}; "
             f"copies {prof['copy_ms']:.2f} ms in {prof['copy_launches']}); "
             + "; ".join(f"{k} {v:.4f} ms" for k, v in prof["kernels"].items()))
+    parity = fast_db(cs, build_serving_model, load_into, sd, device) if "fast" in tiers else None
+    if parity:
+        log("fast vs strict deviation PSNR on the parity cell: "
+            + "; ".join(f"{k} {v:.4f} dB" for k, v in parity.items()))
     with open(out_path, "w") as f:
         json.dump({"root": root, "cases": rows, "profile": profiles["bf16"],
-                   "strict_profile": profiles.get("strict"), "profiles": profiles}, f)
+                   "strict_profile": profiles.get("strict"), "profiles": profiles,
+                   "fast_db_vs_strict": parity}, f)
     if not all(r["ok"] for r in rows):
         raise AssertionError(f"{root}: a kernel disagrees with its plain version")
 
@@ -194,6 +227,12 @@ def main(argv=None) -> int:
               f"stau {by['stau']['ms']:.4f} ms, tail {by['tail']['ms']:.4f} ms "
               f"(library {by['tail']['library_ms']:.4f}), device busy "
               f"{r['profile']['device_ms']:.2f} ms per forward", flush=True)
+        if r.get("fast_db_vs_strict"):
+            fast = {c["name"]: c for c in r["cases"] if c["dtype"] == "fast"}
+            print(f"[ab] {r['root']}: fast sta {fast['sta_fast']['ms']:.4f} ms, fast stau "
+                  f"{fast['stau_fast']['ms']:.4f} ms; fast vs strict dB "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in r["fast_db_vs_strict"].items()),
+                  flush=True)
         if r["strict_profile"]:
             f32 = [c for c in r["cases"] if c["dtype"] == "f32" and c["name"].startswith("conv")]
             sp = r["strict_profile"]

@@ -1018,6 +1018,69 @@ def test_fast_sta_kernel_matches_plain(dev, c, h, w):
            lambda: sta_conv_fused_fast_plain(x, st, wk, bk), f32, "sta_fast")
 
 
+class _EntrySpy:
+    """A kernel library whose ``savsr_*`` entry points record their calls
+    (and, with ``fail``, return that CUDA error instead of launching)."""
+
+    def __init__(self, lib, fail=None):
+        self.lib, self.fail, self.called = lib, fail, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.startswith("savsr_") or name == "savsr_error_string":
+            return fn
+
+        def call(*args):
+            self.called.append(name)
+            return self.fail if self.fail is not None else fn(*args)
+        return call
+
+
+@pytest.mark.parametrize("c,route", [(16, "savsr_sta_fast"), (32, "savsr_sta_fast"),
+                                     (64, "savsr_sta_fast"), (8, "savsr_sta_f32"),
+                                     (24, "savsr_sta_f32"), (40, "savsr_sta_f32")])
+def test_fast_sta_routes_by_channels(dev, c, route, monkeypatch):
+    """C 16/32/64 run the tensor-core sta_fast_kernel, other C the CUDA-core
+    sta_f32_kernel; both hold to the plain version."""
+    from savsr_tpu_torch.ops import sta as sta_ops
+
+    spy = _EntrySpy(sta_ops._lib())
+    monkeypatch.setattr(sta_ops, "_lib", lambda: spy)
+    rng = np.random.default_rng(c + 7)
+    f32 = torch.float32
+    x, st = _rand(rng, (2, c, 7, 11), f32, dev), _rand(rng, (2, c, 7, 11), f32, dev)
+    wk, bk = _rand(rng, (25 * c, c, 1, 1), f32, dev, c ** -0.5), _rand(rng, (25 * c,), f32, dev, 0.1)
+    _agree(lambda: sta_conv_fused_fast(x, st, wk, bk),
+           lambda: sta_conv_fused_fast_plain(x, st, wk, bk), f32, "sta_fast")
+    assert spy.called == [route]
+
+
+@pytest.mark.parametrize("c", [16, 64])
+def test_fast_sta_failed_launch_raises(dev, c, monkeypatch):
+    """A launch the entry point refuses raises; nothing falls back."""
+    from savsr_tpu_torch.ops import sta as sta_ops
+
+    monkeypatch.setattr(sta_ops, "_lib", lambda spy=_EntrySpy(sta_ops._lib(), fail=1): spy)
+    x = torch.zeros((1, c, 4, 4), device=dev)
+    with pytest.raises(RuntimeError, match="sta_conv_fused_fast: CUDA error 1"):
+        sta_conv_fused_fast(x, x, torch.zeros((25 * c, c, 1, 1), device=dev),
+                            torch.zeros((25 * c,), device=dev))
+
+
+@pytest.mark.parametrize("b,c,h,w", [(3, 16, 1, 1), (1, 16, 13, 17), (2, 32, 17, 23),
+                                     (3, 32, 8, 16), (1, 64, 12, 50), (2, 64, 45, 80)])
+def test_fast_sta_tensor_core_kernel_edges(dev, b, c, h, w):
+    """sta_fast_kernel at the eval sweep's odd shapes: tiles of 8 x 16
+    pixels cut by the bottom and right edges (a right half wholly outside),
+    an image smaller than one tile, several samples."""
+    rng = np.random.default_rng(b + c + h + w)
+    f32 = torch.float32
+    x, st = _rand(rng, (b, c, h, w), f32, dev, 2.0), _rand(rng, (b, c, h, w), f32, dev, 2.0)
+    wk, bk = _rand(rng, (25 * c, c, 1, 1), f32, dev, c ** -0.5), _rand(rng, (25 * c,), f32, dev, 0.1)
+    _agree(lambda: sta_conv_fused_fast(x, st, wk, bk),
+           lambda: sta_conv_fused_fast_plain(x, st, wk, bk), f32, "sta_fast")
+
+
 def _stau_fast_case(dev, b, c, hw, scale, seed, large=False):
     m = STAUpsample(c)
     rng = np.random.default_rng(seed)
@@ -1046,9 +1109,35 @@ def _stau_fast_case(dev, b, c, hw, scale, seed, large=False):
                                                  for c in STAU_BF16])
 def test_fast_stau_kernel_matches_plain(dev, case):
     """The fast STAU (the bf16 kernel's fast mode: f32 f0 in the residual,
-    sampled again per k-block; f32 output) at the bf16 kernel's shapes."""
+    kept from its one sampling; f32 output) at the bf16 kernel's shapes."""
     plan = _stau_fast_case(dev, *case, seed=sum(case[2]) + case[1] + 1)
     assert bool((plan[:, 4] > 0).all())
+
+
+def test_fast_stau_kernel_takes_a_bf16_plan(dev):
+    """A plan made at the bf16 kernel's capacity (600 slots; the same shape
+    as the fast plan): the fast kernel gathers its tiles over its own 536
+    from device memory, and holds to the plain version."""
+    from savsr_tpu_torch.ops.stau import FAST_STAGE_CAP, STAGE_CAP
+
+    h, w, s, c = 40, 100, 1.75, 64
+    gy, gx = np.meshgrid((np.arange(round(h * s)) + 0.5) / s - 0.5,
+                         (np.arange(round(w * s)) + 0.5) / s - 0.5, indexing="ij")
+    rng = np.random.default_rng(4)
+    pix = torch.from_numpy(np.concatenate([np.stack([gy, gx, gy, gx]), rng.random((4,) + gy.shape)])
+                           .astype(np.float32)).to(dev)
+    plan = stau_window_plan(pix, h, w, *plan_geometry(torch.bfloat16))
+    sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
+    assert bool(((sizes > FAST_STAGE_CAP) & (sizes <= STAGE_CAP)).any())
+    m = STAUpsample(c).to(dev)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(_rand(rng, p.shape, torch.float32, dev, 0.3))
+    x, sta = (_rand(rng, (2, c, h, w), torch.float32, dev) for _ in range(2))
+    args = (x, sta, pix, m.weight_compress, m.weight_expand, m.fusion.weight, m.fusion.bias)
+    _agree(lambda: stau_upsample_fused_fast(*args, plan=plan),
+           lambda: stau_upsample_fused_fast_plain(*args), torch.float32, "stau_fast",
+           tol=FAST_INNER_TOL, mean_tol=FAST_INNER_MEAN_TOL)
 
 
 @pytest.mark.parametrize("b,c", [(1, 64), (8, 32)])

@@ -9,8 +9,9 @@ test-local shim that rounds the f32 operands of every ``dot_general`` and
 ``conv_general_dilated`` at None/DEFAULT precision (the Pallas kernels'
 dots in interpret mode, ``@`` and ``jnp.einsum`` of the XLA heads; the
 bilinear resize pinned to highest precision stays f32), as the TPU does.
-The rounding is done on the bits (round to nearest even), so no
-floating-point simplification of the compiled program can drop it.
+The rounding is XLA's reduce_precision to bf16's bits (round to nearest
+even), which no floating-point simplification of the compiled program
+drops.
 
 Tolerances: the convs, STA and the tail round only their inputs, so the
 port's plain versions agree with the shimmed Pallas kernels to f32's 1e-5
@@ -29,6 +30,7 @@ import functools
 import os
 
 import jax
+import jax._src.lax.convolution as jax_conv_impl
 import jax._src.lax.lax as jax_lax_impl
 import jax.numpy as jnp
 import numpy as np
@@ -70,12 +72,16 @@ def _one_torch_thread():
 
 
 def _round_bf16(t):
-    """f32 -> the nearest bf16 value (ties to even), kept in f32, on the bits."""
+    """f32 -> the nearest bf16 value (ties to even), kept in f32, by XLA's
+    reduce_precision (8 exponent and 7 mantissa bits: bf16's), which no
+    floating-point simplification removes; straight through under
+    differentiation (t + (round(t) - t) is round(t) exactly, and its
+    gradient to t is the identity). The same values as rounding on the bits
+    (round to nearest even), at a third less of a training graph's compile."""
     if t.dtype != jnp.float32:
         return t
-    u = jax.lax.bitcast_convert_type(t, jnp.uint32)
-    u = (u + jnp.uint32(0x7FFF) + ((u >> 16) & jnp.uint32(1))) & jnp.uint32(0xFFFF0000)
-    return jax.lax.bitcast_convert_type(u, jnp.float32)
+    r = jax.lax.reduce_precision(t, exponent_bits=8, mantissa_bits=7)
+    return t + jax.lax.stop_gradient(r - t)
 
 
 def _default(precision) -> bool:
@@ -91,9 +97,14 @@ def _default(precision) -> bool:
 @contextlib.contextmanager
 def tpu_default_dots():
     """Inside: every f32 dot_general / conv_general_dilated at None or
-    DEFAULT precision takes its operands rounded to bf16. The compile caches
-    are cleared on entry and exit: the kernels are jitted, and a trace
-    cached on either side would skip (or keep) the shim."""
+    DEFAULT precision takes its operands rounded to bf16, the transposed
+    products of a gradient too (JAX's transpose rules call the module-level
+    ``dot_general`` and ``conv_general_dilated`` of jax._src.lax, which the
+    shim replaces, with the primal's precision): there the cotangent is
+    rounded, while the rounding of a forward operand passes its gradient
+    straight through. The compile caches are cleared on entry and exit: the
+    kernels are jitted, and a trace cached on either side would skip (or
+    keep) the shim."""
     dot0, conv0, einsum0 = jax.lax.dot_general, jax.lax.conv_general_dilated, jnp.einsum
 
     def dot(lhs, rhs, dimension_numbers, precision=None, preferred_element_type=None, **kw):
@@ -113,13 +124,13 @@ def tpu_default_dots():
 
     jax.clear_caches()
     jax.lax.dot_general = jax_lax_impl.dot_general = dot  # Pallas bodies; jnp.matmul
-    jax.lax.conv_general_dilated = conv
+    jax.lax.conv_general_dilated = jax_conv_impl.conv_general_dilated = conv  # + transposes
     jnp.einsum = einsum
     try:
         yield
     finally:
         jax.lax.dot_general = jax_lax_impl.dot_general = dot0
-        jax.lax.conv_general_dilated = conv0
+        jax.lax.conv_general_dilated = jax_conv_impl.conv_general_dilated = conv0
         jnp.einsum = einsum0
         jax.clear_caches()
 
@@ -407,8 +418,10 @@ def test_fast_lies_between_bf16_and_split(forwards):
 
 
 def test_fast_statics_carry_the_bf16_kernels_plan(forwards):
-    """The fast tier runs STAU on the bf16 kernel, so its statics carry that
-    kernel's plan at f32, and a forward on them equals the inline one."""
+    """The fast tier runs STAU on the bf16 kernel's fast mode, so its statics
+    carry that kernel's tile (at the fast mode's capacity,
+    tests/test_torch_stau_plan.py), and a forward on them equals the inline
+    one."""
     from savsr_tpu_torch.ops.stau import PLAN_COLS, PLAN_ROWS
 
     statics, y = forwards["statics"]

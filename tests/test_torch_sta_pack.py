@@ -30,7 +30,8 @@ from savsr_tpu.archs.arch_util import Ctx
 from savsr_tpu.archs.savsr_arch import _stau_sta_rows
 from savsr_tpu_torch.ops.sta import (MMA_CHANNELS, TAPS, WG_TAPS, f32_channels,
                                      pack_sta_weights, pack_sta_weights_f32,
-                                     sta_conv_fused_plain, sta_f32_pack_index, sta_pack_index)
+                                     sta_conv_fused_fast_plain, sta_conv_fused_plain,
+                                     sta_f32_pack_index, sta_pack_index)
 
 ONE_STEP = 2.0 ** -8  # one bf16 step, relative to the largest output
 
@@ -218,3 +219,52 @@ def test_f32_pack_cache_is_apart_from_the_bf16_packing():
     again = pack_sta_weights_f32(w, b)
     assert again[0] is not first[0]
     assert torch.equal(again[0], 2.0 * first[0])
+
+
+# the fast tier's tensor-core kernel (csrc/sta.cu sta_fast_kernel): the same
+# packed bf16 weights, packed from an f32 weight's bf16 values
+
+
+def _replay_fast(x, st, packed, bias_t, c):
+    """``sta_fast_kernel``'s arithmetic in its order: per tap the K product
+    of st rounded to bf16 with the packed weights, f32 sums, + bias, the
+    abs-form LeakyReLU in f32 (K not rounded), K * x (f32) at the tap's
+    replicate-clamped pixel added to one f32 sum in tap order."""
+    b, _, h, w = x.shape
+    p = packed.float().reshape(TAPS, c // 16, c // 8, 2, 8, 8)
+    wt = p.permute(0, 2, 4, 1, 3, 5).reshape(TAPS, c, c)
+    xp = F.pad(x, (2, 2, 2, 2), mode="replicate")
+    stb = st.to(torch.bfloat16).float()
+    out = torch.zeros((b, c, h, w))
+    for t in range(TAPS):
+        dy, dx = divmod(t, 5)
+        k = torch.einsum("oi,bihw->bohw", wt[t], stb) + bias_t[t][None, :, None, None]
+        out = out + (0.55 * k + 0.45 * k.abs()) * xp[:, :, dy:dy + h, dx:dx + w]
+    return out
+
+
+@pytest.mark.parametrize("c", MMA_CHANNELS)
+def test_fast_pack_is_the_bf16_values_packing(c):
+    """An f32 weight packs to its bf16 values' packing, bit for bit."""
+    x, st, wk, bk = _inputs(c, 1, 2, 2, seed=c)
+    wf = wk.float() + torch.from_numpy(  # f32 values off the bf16 grid
+        np.random.default_rng(c).uniform(-1e-3, 1e-3, wk.shape).astype(np.float32))
+    packed, bias_t = pack_sta_weights(wf, bk.float())
+    assert packed.dtype == torch.bfloat16
+    assert torch.equal(packed, pack_sta_weights(wf.to(torch.bfloat16), bk)[0])
+
+
+@pytest.mark.parametrize("c", MMA_CHANNELS)
+@pytest.mark.parametrize("b,h,w", [(2, 5, 7), (1, 9, 18)])
+def test_fast_replay_matches_fast_plain(c, b, h, w):
+    """The replay from the packed weights against the fast plain version
+    (sum orders differ: f32's 1e-5 of the output's scale)."""
+    rng = np.random.default_rng(3 * c + h)
+    f = lambda shape, s: torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32))  # noqa: E731
+    x, st = f((b, c, h, w), 4.0), f((b, c, h, w), 4.0)
+    wk, bk = f((TAPS * c, c, 1, 1), 2 * c ** -0.5), f((TAPS * c,), 0.5)
+    packed, bias_t = pack_sta_weights(wk, bk)
+    got = _replay_fast(x, st, packed, bias_t, c)
+    want = sta_conv_fused_fast_plain(x, st, wk, bk)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

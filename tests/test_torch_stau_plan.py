@@ -22,8 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from savsr_tpu_torch.archs.savsr_arch import SAVSR, STAUpsample, get_hw, tail_operands
-from savsr_tpu_torch.ops.stau import (F32_PLAN_COLS, F32_PLAN_ROWS, F32_STAGE_CAP, PLAN_COLS,
-                                      PLAN_ROWS, STAGE_CAP, bilinear_gather, f32_channels,
+from savsr_tpu_torch.ops.stau import (F32_PLAN_COLS, F32_PLAN_ROWS, F32_STAGE_CAP,
+                                      FAST_STAGE_CAP, PLAN_COLS, PLAN_ROWS, STAGE_CAP,
+                                      bilinear_gather, f32_channels,
                                       pack_stau_weights, pack_stau_weights_f32, plan_geometry,
                                       stau_upsample_fused_plain, stau_window_plan)
 from savsr_tpu_torch.ops.tail import pack_tail_weights, tail_fused_plain
@@ -243,6 +244,54 @@ def _seeded_pix():
     pix = pix.astype(np.float32)
     pix[1, 100, 5] = np.nan
     return torch.from_numpy(pix), h, w
+
+
+def _kernel_plan(plan, cap):
+    """csrc/stau.cu load_plan: a tile whose boxes exceed the kernel's
+    ``cap`` slots (a plan made for a larger capacity) gathers from device
+    memory."""
+    out = plan.clone()
+    sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
+    out[sizes > cap, 4:] = 0
+    return out
+
+
+def test_fast_window_plan_is_the_bf16_tile_at_the_fast_capacity():
+    """The fast tier's plan: the bf16 kernel's tile and alignment at the
+    fast mode's capacity, i.e. the bf16 plan with its tiles over that
+    capacity gathered from device memory; the fast kernel reads a bf16 plan
+    as its own, and the bf16 kernel reads a fast plan unchanged."""
+    h, w, s = 40, 100, 1.75  # boxes of 480-576 slots: some tiles between the capacities
+    gy, gx = np.meshgrid((np.arange(round(h * s)) + 0.5) / s - 0.5,
+                         (np.arange(round(w * s)) + 0.5) / s - 0.5, indexing="ij")
+    pix = torch.from_numpy(np.concatenate([np.stack([gy, gx, gy, gx]),
+                                           np.ones((4,) + gy.shape)]).astype(np.float32))
+    assert plan_geometry(torch.float32, fast=True) == (PLAN_ROWS, PLAN_COLS, FAST_STAGE_CAP, 8)
+    bf16 = stau_window_plan(pix, h, w)
+    fast = stau_window_plan(pix, h, w, *plan_geometry(torch.float32, fast=True))
+    assert int((fast[:, 4] == 0).sum()) > int((bf16[:, 4] == 0).sum())
+    assert torch.equal(fast, _kernel_plan(bf16, FAST_STAGE_CAP))
+    assert torch.equal(_kernel_plan(fast, FAST_STAGE_CAP), fast)
+    assert torch.equal(_kernel_plan(fast, STAGE_CAP), fast)
+
+
+@pytest.mark.parametrize("scale", SCALES, ids=str)
+def test_fast_statics_plan_fits_the_fast_staging(scale):
+    """A fast model's statics plan at the fast capacity, and the staged
+    gather on it equals bilinear_gather bit for bit."""
+    m = SAVSR(**SMALL_CFG, matmul_precision="default")
+    load_into(m, {k: torch.from_numpy(v) for k, v in
+                  np.load(os.path.join(GOLDEN_DIR, "savsr_small_state.npz")).items()})
+    h, w = LR
+    st = m.eval().stau_statics(LR, scale, dtype=torch.float32)
+    pix, plan = st["pix"], st["stau_plan"]
+    assert torch.equal(plan, stau_window_plan(pix, h, w, *plan_geometry(torch.float32, fast=True)))
+    sizes = plan[:, 4] * plan[:, 5] + plan[:, 6] * plan[:, 7]
+    assert bool((sizes <= FAST_STAGE_CAP).all())
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 16, h, w)).astype(np.float32))
+    for s in (0, 1):
+        assert torch.equal(staged_gather(x, pix[2 * s], pix[2 * s + 1], plan, s),
+                           bilinear_gather(x, pix[2 * s], pix[2 * s + 1]))
 
 
 def test_bf16_window_plan_is_unchanged():
