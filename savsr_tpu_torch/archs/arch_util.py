@@ -2,7 +2,8 @@
 
 The port's counterpart of ``savsr_tpu/archs/arch_util.py`` for SAVSR: conv2d,
 batch_norm (running statistics in eval; batch statistics and chained
-running-stat updates in training, through ``TrainCtx``), leaky_relu, sigmoid,
+running-stat updates in training, through ``TrainCtx``; with a process
+group in it, the statistics of the world's global batch), leaky_relu, sigmoid,
 pools, replicate padding, the dense-matrix bilinear resize, grid sampling and
 the unfused spatio-temporal filter. Parameters live in ``nn.Module``s whose
 names mirror the reference state_dict; these functions take the tensors.
@@ -114,6 +115,33 @@ class TrainCtx:
     stats: Dict[nn.Module, Dict[str, torch.Tensor]] = field(default_factory=dict)
     # every product in one bf16 pass (f32 at matmul_precision default)
     fast: bool = False
+    # the process group whose ranks' rows make up the global batch: the
+    # BatchNorm statistics are taken over all of them (None: this batch)
+    group: Optional[object] = None
+
+
+class _WorldSum(torch.autograd.Function):
+    """A sum over the ranks of ``group``, differentiable: the gradient
+    with respect to each rank's part is the sum of the ranks' output
+    gradients (the global loss is the sum of theirs)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _WorldSum.apply(g, ctx.group), None
+
+
+def _global_mean(t: torch.Tensor, dims, n: int, group) -> torch.Tensor:
+    """The mean over ``dims`` of the world's global batch, of which ``t``
+    is this rank's part: the f32 sums of the ranks' parts, summed over the
+    ranks, over the global count ``n``."""
+    return _WorldSum.apply(t.sum(dim=dims, dtype=torch.float32), group) / n
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, ctx: Optional[TrainCtx] = None,
@@ -124,14 +152,25 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, ctx: Optional[TrainCtx] = No
     Eval (no ctx, or ctx.train False): the running statistics. Training:
     the batch statistics normalise (biased variance); the running-stat
     update (unbiased variance, momentum 0.1, num_batches_tracked + 1) is
-    recorded in ``ctx.stats`` and never written into the module here."""
+    recorded in ``ctx.stats`` and never written into the module here. With
+    ``ctx.group``, the batch is the global one, every rank holding an equal
+    part: the mean, then the variance, are taken over the world's rows
+    (differentiably, so each rank's backward carries the other ranks'
+    dependence on its rows), and ``n`` is the global count, as the JAX
+    package's mean over a batch sharded across devices is."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
     dt = x.dtype
     if ctx is not None and ctx.train:
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = x.mean(dim=dims)
-        var = ((x - mean.view(shape)) ** 2).mean(dim=dims)
         n = x.numel() // x.shape[1]
+        if ctx.group is None:
+            mean = x.mean(dim=dims)
+            var = ((x - mean.view(shape)) ** 2).mean(dim=dims)
+        else:
+            n *= torch.distributed.get_world_size(ctx.group)
+            mean = _global_mean(x, dims, n, ctx.group).to(dt)
+            d = x - mean.view(shape)
+            var = _global_mean(d * d, dims, n, ctx.group).to(dt)
         prev = ctx.stats.get(bn, {})
         rm = prev.get("running_mean", bn.running_mean)
         rv = prev.get("running_var", bn.running_var)

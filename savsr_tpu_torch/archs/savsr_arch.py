@@ -577,6 +577,14 @@ class SAVSR(nn.Module):
         ops of bf16-rounded operands) and at matmul_precision float32."""
         return float32_precision(tier == "fast" or self.cfg.matmul_precision == "float32")
 
+    def train_precision(self, dtype: torch.dtype):
+        """The training engine's context for features of ``dtype``, for its
+        forward and its backward alike: TF32 off at matmul_precision
+        float32, and for f32 at default (every product one bf16 pass, which
+        the f32 op with TF32 off is exactly)."""
+        fast = self.cfg.matmul_precision == "default" and dtype == torch.float32
+        return float32_precision(fast or self.cfg.matmul_precision == "float32")
+
     @torch.no_grad()
     def stau_statics(self, lq_hw, scale, dtype=torch.float32, device=None):
         """Frame-invariant operands for (LR shape, scale): the STAU
@@ -599,12 +607,15 @@ class SAVSR(nn.Module):
         st.update(tail_operands(h, w, H, W, device))
         return st
 
-    def forward(self, x: torch.Tensor, scale, stau_statics=None, train: bool = False):
+    def forward(self, x: torch.Tensor, scale, stau_statics=None, train: bool = False,
+                bn_group=None):
         """Serving forward (no gradients, the kernels of the serving path),
         or with ``train=True`` (or ``cfg.engines == "train"``) the training
-        engine: differentiable, BatchNorm on batch statistics when ``train``.
-        Training returns ``(sr, stats_updates)``, the updates keyed like the
-        state_dict ("adapt.0.mask.1.running_mean", ...)."""
+        engine: differentiable, BatchNorm on batch statistics when ``train``
+        (with ``bn_group``, a process group, those of the global batch of
+        which ``x`` is this rank's part). Training returns ``(sr,
+        stats_updates)``, the updates keyed like the state_dict
+        ("adapt.0.mask.1.running_mean", ...)."""
         scale = normalize_scale(scale)
         train_engines = train if self.cfg.engines == "auto" else self.cfg.engines == "train"
         if train and not train_engines:
@@ -614,8 +625,8 @@ class SAVSR(nn.Module):
 
             # f32 at default: every product one bf16 pass, forward and backward
             fast = self.cfg.matmul_precision == "default" and x.dtype == torch.float32
-            with float32_precision(fast or self.cfg.matmul_precision == "float32"):
-                sr, updates = savsr_train_forward(self, x, scale, train, fast)
+            with self.train_precision(x.dtype):
+                sr, updates = savsr_train_forward(self, x, scale, train, fast, bn_group)
             return (sr, updates) if train else sr
         tier = self.serving_tier()
         with self._precision(tier), torch.no_grad():

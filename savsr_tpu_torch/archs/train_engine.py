@@ -227,7 +227,7 @@ def _ckpt_call(ctx: TrainCtx, fn, *args, remat: bool):
 
     def wrapped(stats, *a):
         inner = TrainCtx(train=True, stats={k: dict(v) for k, v in stats.items()},
-                         fast=ctx.fast)
+                         fast=ctx.fast, group=ctx.group)
         return fn(inner, *a), inner.stats
 
     out, stats = checkpoint(wrapped, ctx.stats, *args, use_reentrant=False)
@@ -236,15 +236,18 @@ def _ckpt_call(ctx: TrainCtx, fn, *args, remat: bool):
 
 
 def savsr_train_forward(model, x: torch.Tensor, scale, train: bool = True,
-                        fast: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                        fast: bool = False,
+                        group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """SAVSR forward of the training engine: x [B, T, C, h, w] in [0, 1] ->
     (sr [B, C, H, W], BatchNorm running-stat updates keyed like the
     state_dict). With ``train`` False the BatchNorms use their running
     statistics and the updates are empty. ``fast``: every product of the
     module docstring's list in one bf16 pass (f32 at matmul_precision
-    default; the caller turns TF32 off)."""
+    default; the caller turns TF32 off). ``group``: x is this rank's part
+    of a global batch spread over the group's ranks, over which the
+    BatchNorm statistics are taken."""
     cfg = model.cfg
-    ctx = TrainCtx(train=train, fast=fast)
+    ctx = TrainCtx(train=train, fast=fast, group=group)
     b, t, _, h_in, w_in = x.shape
     H, W = get_hw(h_in, w_in, scale)
     x_center = x[:, cfg.center]

@@ -6,7 +6,10 @@ lbasicsr/data/prefetch_dataloader.py, and EnlargedSampler,
 lbasicsr/data/data_sampler.py). Host-side; batches are dicts of numpy
 arrays that the training loop ships to the device. ``DevicePrefetcher``
 keeps the next batch uploading on a side CUDA stream while the current
-step runs.
+step runs. A dataset's ``batch_draws`` (one draw per batch, such as the
+arbitrary-scale set's scale) is called in the consumer's process, in batch
+order, whatever the workers, so every rank of a world draws the same
+sequence.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+
+from ..parallel.mesh import rank_rows
 
 # state of one decode process of the process-pool path, set by its initializer
 _POOL_DATASET = None
@@ -38,9 +43,9 @@ def _pool_init(dataset, collate_fn, epoch: int, counter) -> None:
     _POOL_DATASET, _POOL_COLLATE = dataset, collate_fn
 
 
-def _pool_load_batch(batch_indices: List[int]):
+def _pool_load_batch(batch_indices: List[int], draws: Dict[str, Any]):
     samples = [_POOL_DATASET[i] for i in batch_indices]
-    return _POOL_COLLATE(samples)
+    return _POOL_COLLATE(samples, **draws)
 
 
 class Dataset:
@@ -69,29 +74,44 @@ def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class EnlargedSampler:
-    """Epoch-seeded shuffling sampler with dataset-enlarge ratio and
-    process-strided sharding (semantics of data_sampler.py:6-48: indices are
-    a seeded randperm of ratio*len rounded up to world_size, striped by
-    rank)."""
+    """Epoch-seeded shuffling sampler with dataset-enlarge ratio, sharded
+    by global batch. The global order is the one-process order (a seeded
+    permutation of ratio*len, data_sampler.py:6-48), whatever the world
+    size; it is cut into global batches of ``batch_size`` x
+    ``num_replicas`` items, and rank r takes from each the r-th
+    1/num_replicas of each of its ``accum_steps`` micro-batches
+    (``parallel.rank_rows``). So the W ranks' shares reassemble the
+    one-process order, every rank works in every micro-step, and a rank's
+    m-th micro-batch is its share of global micro-batch m. (The JAX
+    package stripes the items by rank instead.) In a world of one every
+    item is kept in order; otherwise the last short global batch is
+    dropped."""
 
-    def __init__(self, num_samples: int, num_replicas: int = 1, rank: int = 0, ratio: int = 1):
+    def __init__(self, num_samples: int, num_replicas: int = 1, rank: int = 0, ratio: int = 1,
+                 batch_size: int = 1, accum_steps: int = 1):
         self.dataset_len = num_samples
         self.num_replicas = num_replicas
         self.rank = rank
         self.epoch = 0
-        self.num_samples = int(
-            np.ceil(num_samples * ratio / num_replicas)
-        )
-        self.total_size = self.num_samples * self.num_replicas
+        self.batch_size = batch_size
+        self.total_size = num_samples * ratio
+        global_batch = batch_size * num_replicas
+        self.rows = (rank_rows(global_batch, num_replicas, rank, accum_steps)
+                     if num_replicas > 1 else None)
+        self.num_samples = (self.total_size if num_replicas == 1
+                            else self.total_size // global_batch * batch_size)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __iter__(self) -> Iterator[int]:
         rng = np.random.default_rng(self.epoch)
-        indices = rng.permutation(self.total_size)
-        indices = (indices % self.dataset_len)[self.rank :: self.num_replicas]
-        return iter(indices.tolist())
+        indices = rng.permutation(self.total_size) % self.dataset_len
+        if self.num_replicas > 1:
+            global_batch = self.batch_size * self.num_replicas
+            n = self.total_size // global_batch
+            indices = indices[:n * global_batch].reshape(n, global_batch)[:, self.rows]
+        return iter(indices.reshape(-1).tolist())
 
     def __len__(self) -> int:
         return self.num_samples
@@ -117,8 +137,11 @@ class DataLoader:
         prefetch_depth: int = 4,
         seed: Optional[int] = None,
         worker_mode: str = "thread",
+        batch_draws: Optional[Callable[[], Dict[str, Any]]] = None,
     ):
         self.dataset = dataset
+        # called once per batch, in order, here: its result goes to the collate
+        self.batch_draws = batch_draws
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.collate_fn = collate_fn or default_collate
@@ -177,15 +200,16 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _load_batch(self, batch_indices: List[int]):
+    def _load_batch(self, batch_indices: List[int], draws: Dict[str, Any]):
         samples = [self.dataset[i] for i in batch_indices]
-        return self.collate_fn(samples)
+        return self.collate_fn(samples, **draws)
 
     def __iter__(self):
-        batches = self._index_batches()
+        batches = [(bi, self.batch_draws() if self.batch_draws is not None else {})
+                   for bi in self._index_batches()]
         if self.num_workers <= 0:
-            for bi in batches:
-                yield self._load_batch(bi)
+            for bi, draws in batches:
+                yield self._load_batch(bi, draws)
             return
 
         # num_workers workers each build whole batches; a bounded window of
@@ -209,13 +233,13 @@ class DataLoader:
         futures: deque = deque()
         try:
             it = iter(batches)
-            for bi in itertools.islice(it, window):
-                futures.append(executor.submit(load, bi))
+            for bi, draws in itertools.islice(it, window):
+                futures.append(executor.submit(load, bi, draws))
             while futures:
                 batch = futures.popleft().result()  # raises worker failure
                 nxt = next(it, None)
                 if nxt is not None:
-                    futures.append(executor.submit(load, nxt))
+                    futures.append(executor.submit(load, *nxt))
                 yield batch
         finally:
             while futures:

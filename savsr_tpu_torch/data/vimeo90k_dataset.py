@@ -9,8 +9,14 @@ bicubic-downsampled on the fly. Samples and batches are channel-last numpy
 ([T, H, W, C] RGB in [0, 1]), as in the JAX package; the model moves them to
 the device and to NCHW.
 
-Every random draw comes from the dataset's own ``random.Random``, seeded
-from the ``seed`` entry that ``build_dataset`` puts into the options.
+Every random draw comes from the dataset's own generators, seeded from the
+entries that ``build_dataset`` puts into the options: crops, flips and
+reversals from ``rng`` (``seed``: manual_seed + rank, so the ranks of a
+world draw apart), and in a loader the one scale of each batch from
+``scale_rng`` (``scale_seed``: manual_seed, so every rank draws the scale
+sequence of a one-process run and a global step has one scale). A direct
+``as_collate_fn(batch)`` without a scale draws it from ``rng``, as the JAX
+package draws everything from one stream.
 """
 
 from __future__ import annotations
@@ -115,6 +121,7 @@ class ASVimeo90KDataset(Vimeo90KDataset):
         self.single_scale_ft = opt.get("single_scale_ft", False)
         self.CL_train_set = opt.get("CL_train_set", None)
         self.lq_size = opt.get("lq_size", 60)
+        self.scale_rng = random.Random(opt.get("scale_seed", opt.get("seed")))
         self.max_scale = opt.get("max_scale", 4)
         if opt.get("only_sy_scale", False):
             self.scale_h_list = list(SYM_SCALES)
@@ -142,42 +149,48 @@ class ASVimeo90KDataset(Vimeo90KDataset):
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
-    def _pool_draw(self):
-        i = self.rng.randrange(0, len(self.scale_h_list))
+    def _pool_draw(self, rng):
+        i = rng.randrange(0, len(self.scale_h_list))
         return self.scale_h_list[i], self.scale_w_list[i]
 
-    def cl_train_stg(self):
+    def cl_train_stg(self, rng):
         """Curriculum draw (reference vimeo90k_dataset.py:248-264):
         CL_train_set=[E, a, b]; past epoch E -> full pool; within each
         10-epoch cycle: first a epochs x4, then integer x2-4, then full pool."""
         if self.epoch >= self.CL_train_set[0]:
-            return self._pool_draw()
+            return self._pool_draw(rng)
         m = self.epoch % 10
         if m <= self.CL_train_set[1]:
             return 4, 4
         if self.CL_train_set[1] < m <= self.CL_train_set[2]:
-            s = self.rng.randint(2, 4)
+            s = rng.randint(2, 4)
             return s, s
-        return self._pool_draw()
+        return self._pool_draw(rng)
 
-    def draw_scale(self):
+    def draw_scale(self, rng=None):
+        """One batch's (scale_h, scale_w), from ``rng`` (default: ``self.rng``)."""
+        rng = self.rng if rng is None else rng
         if self.CL_train_set is not None:
-            return self.cl_train_stg()
+            return self.cl_train_stg(rng)
         if self.single_scale_ft:
             return self.opt["scale"][0], self.opt["scale"][1]
         if self.epoch == 0 and self.init_int_scale:
-            s = self.rng.randint(2, 4)
+            s = rng.randint(2, 4)
             return s, s
-        return self._pool_draw()
+        return self._pool_draw(rng)
 
-    def as_collate_fn(self, batch: List[Dict]) -> Dict:
+    def batch_draws(self) -> Dict:
+        """The loader's per-batch draw: the batch's scale, from ``scale_rng``."""
+        return {"scale": self.draw_scale(self.scale_rng)}
+
+    def as_collate_fn(self, batch: List[Dict], scale=None) -> Dict:
         """Batch-level arbitrary-scale degradation (reference
-        vimeo90k_dataset.py:266-309): stack GTs, draw one scale, crop GT to
-        (round(lq*sh), round(lq*sw)), asBI-downsample to the LQ batch, keep
-        only the center GT frame."""
+        vimeo90k_dataset.py:266-309): stack GTs, draw one scale (unless the
+        loader drew it), crop GT to (round(lq*sh), round(lq*sw)),
+        asBI-downsample to the LQ batch, keep only the center GT frame."""
         out: Dict = {"key": [d["key"] for d in batch]}
         gt = np.stack([d["gt"] for d in batch], axis=0)  # [B, T, H, W, C]
-        scale_h, scale_w = self.draw_scale()
+        scale_h, scale_w = self.draw_scale() if scale is None else scale
         lq_size = self.opt["lq_size"]
         gt_size = (round(lq_size * scale_h), round(lq_size * scale_w))
         b, t, h, w, c = gt.shape

@@ -8,6 +8,11 @@ shape: ``net_g_<iter>.npz`` holds ``params/`` and ``params_ema/`` entries in
 the JAX layout (utils/convert.py::params_to_jax), so either package loads the
 other's file; ``<iter>.state`` holds {epoch, iter, optimizers} with the
 ``torch.optim`` state_dicts and is this package's own.
+
+In a world of several ranks (``opt['dist']``, one process per GPU,
+``parallel.get_mesh_from_opt``) every rank holds the whole network, equal
+on all of them (broadcast from rank 0 at set-up and resume), and only rank
+0 writes checkpoints; the trainer waits for the write at a barrier.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ import numpy as np
 import torch
 
 from ..archs.arch_util import resolve_device
+from ..parallel import get_mesh_from_opt, replicate
 from ..utils.convert import load_checkpoint, params_to_jax
+from ..utils.dist_util import master_only
 from ..utils.logger import get_root_logger
 from .lr_scheduler import build_schedule
 
@@ -40,8 +47,7 @@ class BaseModel:
     def __init__(self, opt: dict):
         self.opt = opt
         self.is_train = opt["is_train"]
-        if (opt.get("num_gpu") or 1) not in (1, "auto") or opt.get("dist"):
-            raise NotImplementedError("num_gpu > 1 / dist (multi-GPU training) is not ported yet")
+        self.mesh = get_mesh_from_opt(opt)
         self.device = resolve_device(opt.get("device"))
         self.schedulers: List[Callable] = []
         self.optimizers: list = []
@@ -70,7 +76,8 @@ class BaseModel:
 
     @staticmethod
     def reduce_loss_dict(loss_dict: Dict) -> Dict[str, float]:
-        """Loss values as floats, in one device-to-host copy."""
+        """Loss values as floats, in one device-to-host copy (the step has
+        already averaged them over the world)."""
         keys = list(loss_dict)
         vals = torch.stack([loss_dict[k].detach().float() for k in keys]).tolist()
         return dict(zip(keys, vals))
@@ -165,10 +172,12 @@ class BaseModel:
     # checkpoint IO
     # ------------------------------------------------------------------ #
 
+    @master_only
     def save_network(self, params_dict: Dict[str, Dict[str, torch.Tensor]], save_root: str,
                      net_label: str, current_iter: int) -> None:
         """Save {'params': ..., 'params_ema': ...} state_dicts as one npz in
-        the JAX package's layout and key scheme (``<key>/<name>``)."""
+        the JAX package's layout and key scheme (``<key>/<name>``); rank 0
+        only."""
         if current_iter == -1:
             current_iter = "latest"
         save_path = osp.join(save_root, f"{net_label}_{current_iter}.npz")
@@ -204,11 +213,12 @@ class BaseModel:
             if strict:
                 raise KeyError("State dict key mismatch (strict load).")
 
+    @master_only
     def save_training_state(self, state_root: str, epoch: int, current_iter: int,
                             extra: Optional[Dict] = None) -> None:
         """{epoch, iter, optimizers} (reference base_model.py:321-354), written
-        with ``torch.save``. Not interchangeable with the JAX package's
-        pickled optax state."""
+        with ``torch.save``, rank 0 only. Not interchangeable with the JAX
+        package's pickled optax state."""
         if current_iter == -1:
             return
         state = {"epoch": epoch, "iter": current_iter,
@@ -233,3 +243,4 @@ class BaseModel:
                              f"{len(self.optimizers)}")
         for optimizer, state in zip(self.optimizers, states):
             optimizer.load_state_dict(state)
+            replicate(optimizer, self.mesh, self.device)

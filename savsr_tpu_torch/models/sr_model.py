@@ -14,7 +14,15 @@ on the f32 masters), the entire forward runs in bf16 (BatchNorm statistics,
 sigmoids and the STAU head included), the output goes to f32 before the loss;
 masters, optimizer moments and EMA stay f32, and the BatchNorm running-stat
 updates are cast back to f32. f32 steps run in true f32 (TF32 off) through
-the network's ``matmul_precision``.
+the network's ``matmul_precision``, their backward too.
+
+In a world of W ranks (``--launcher pytorch``) a step is the JAX package's
+step on the global batch: each rank's ``batch_size_per_gpu`` rows are its
+share of it (the sampler hands rank r the r-th 1/W of every global
+micro-batch, data/loader.py ``EnlargedSampler``, so a rank's m-th chunk
+here is its share of global micro-batch m), the BatchNorm statistics are
+taken over the world's rows, the gradients and the logged losses are
+averaged over the ranks, and every rank applies the same update.
 
 The eval forward takes f32 ``lq`` and the f32 weights whatever the
 training dtype, as the JAX package's does, at the tier the network's
@@ -40,6 +48,8 @@ from ..archs.savsr_arch import init_weights, normalize_scale
 from ..data.resize import resize_np
 from ..losses import build_loss
 from ..metrics import calculate_metric
+from ..parallel import all_reduce_sum, reduce_gradients, replicate
+from ..utils.dist_util import barrier
 from ..utils.img_util import array2img, imwrite
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
@@ -60,6 +70,7 @@ class SRModel(BaseModel):
             self.check_loaded_keys(self.net_g.state_dict(), loaded, strict)
             self.net_g.load_state_dict(loaded, strict=strict)
         self.net_g.to(self.device)
+        replicate(self.net_g, self.mesh, self.device)
         self.params_ema = None
         self.scale = self.opt.get("scale", (4, 4))
         # advanced by every change of the weights after the load (optimizer
@@ -121,7 +132,9 @@ class SRModel(BaseModel):
                     ema = None
             if ema is None:
                 ema = self.net_g.state_dict()
-            self.params_ema = {k: v.detach().clone().to(self.device) for k, v in ema.items()}
+            self.params_ema = replicate(
+                {k: v.detach().clone().to(self.device) for k, v in ema.items()}, self.mesh,
+                self.device)
 
         self.cri_pix = build_loss(train_opt["pixel_opt"]) if train_opt.get("pixel_opt") else None
         if self.cri_pix is None:
@@ -168,14 +181,14 @@ class SRModel(BaseModel):
     def _loss(self, lq: torch.Tensor, gt: torch.Tensor, scale):
         """Forward + pixel loss of one (micro-)batch: (total, losses,
         BatchNorm running-stat updates)."""
-        net = self.net_g
+        net, group = self.net_g, self.mesh.group
         if self.opt["train"].get("bf16", False):
             cast = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
                     for k, v in chain(net.named_parameters(), net.named_buffers())}
             output, updates = torch.func.functional_call(
-                net, cast, (lq.to(torch.bfloat16), scale), {"train": True})
+                net, cast, (lq.to(torch.bfloat16), scale), {"train": True, "bn_group": group})
         else:
-            output, updates = net(lq, scale, train=True)
+            output, updates = net(lq, scale, train=True, bn_group=group)
         l_pix = self.cri_pix(output.float(), gt)
         return l_pix, {"l_pix": l_pix.detach(), "l_total": l_pix.detach()}, updates
 
@@ -191,7 +204,10 @@ class SRModel(BaseModel):
         """One optimizer step. With ``train: accum_steps`` > 1 the batch is
         cut into micro-batches: the gradient is the mean of theirs, BatchNorm
         normalises per micro-batch and its running stats chain across them
-        like consecutive forwards."""
+        like consecutive forwards. The backward runs under the forward's
+        precision (TF32 off where the forward has it off). In a world of
+        several ranks the micro-batches are global and the gradients and
+        losses are averaged over the ranks (module docstring)."""
         accum = int(self.opt["train"].get("accum_steps", 1))
         if self.lq.shape[0] % accum != 0:
             raise ValueError(
@@ -200,16 +216,23 @@ class SRModel(BaseModel):
                 f"batch_size_per_gpu or accum_steps.")
         scale = (tuple(self.scale) if isinstance(self.scale, (tuple, list))
                  else (self.scale, self.scale))
+        dtype = torch.bfloat16 if self.opt["train"].get("bf16", False) else self.lq.dtype
         self.optimizer_g.zero_grad(set_to_none=True)
         losses = None
         for lq, gt in zip(self.lq.chunk(accum), self.gt.chunk(accum)):
             total, losses_m, updates = self._loss(lq, gt, scale)
-            (total / accum).backward()
+            with self.net_g.train_precision(dtype):
+                (total / accum).backward()
             self._apply_stats(updates)
             losses = losses_m if losses is None else {k: losses[k] + v
                                                        for k, v in losses_m.items()}
         if accum > 1:
             losses = {k: v / accum for k, v in losses.items()}
+        if self.mesh.group is not None:
+            reduce_gradients(self.net_g.parameters(), self.mesh)
+            keys = list(losses)
+            mean = all_reduce_sum(torch.stack([losses[k] for k in keys]), self.mesh) / self.mesh.size
+            losses = dict(zip(keys, mean.unbind()))
         self.optimizer_g.step()
         if self.ema_decay > 0:
             self.ema_update(self.params_ema, self.net_g.state_dict(), self.ema_decay)
@@ -377,3 +400,4 @@ class SRModel(BaseModel):
             nets["params_ema"] = self.params_ema
         self.save_network(nets, self.opt["path"]["models"], "net_g", current_iter)
         self.save_training_state(self.opt["path"]["training_states"], epoch, current_iter)
+        barrier()  # no rank runs ahead of rank 0's write

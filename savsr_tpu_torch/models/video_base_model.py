@@ -1,10 +1,12 @@
 """VideoBaseModel: windowed-VSR validation with per-folder, per-frame metrics.
 
 Counterpart of ``savsr_tpu/models/video_base_model.py`` (lbasicsr/models/
-video_base_model.py) on one process: every item of the dataset in order
-(the JAX package strides them over processes: rank 0 of 1 here), each
-frame's metrics into its folder's row, then per-folder means, their mean
-over the folders, the best-value records and ``last_metric_results``.
+video_base_model.py): the items of the dataset strided over the ranks
+(``range(rank, N, world)``; every item in order on one process), each
+frame's metrics into its folder's row, the rows summed over the ranks (each
+slot filled by exactly one rank, so a world's metrics equal one process's to
+the bit), then per-folder means, their mean over the folders, the
+best-value records and ``last_metric_results``.
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ from os import path as osp
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..data.resize import resize_pt
 from ..metrics import calculate_metric
 from ..metrics.psnr_ssim import calculate_psnr_pt, calculate_ssim_pt
+from ..parallel import all_reduce_sum
 from ..utils.img_util import array2img, imwrite
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
@@ -59,7 +63,7 @@ class VideoBaseModel(SRModel):
                     (num_frame, len(self.opt["val"]["metrics"])), dtype=np.float64)
             self._initialize_best_metric_results(dataset_name)
 
-        for idx in range(len(dataset)):
+        for idx in range(self.mesh.rank, len(dataset), self.mesh.size):
             t0 = time.perf_counter()
             val_data = dict(dataset[idx])
             val_data["lq"] = val_data["lq"][None]
@@ -107,7 +111,23 @@ class VideoBaseModel(SRModel):
                     post_s=time.perf_counter() - t2))
 
         if with_metrics:
+            self._sum_over_ranks()
             self._log_validation_metric_values(current_iter, dataset_name, tb_logger)
+
+    def _sum_over_ranks(self) -> None:
+        """The per-frame metric rows summed over the ranks, in one float64
+        all-reduce on the model's device (NCCL takes no CPU tensors)."""
+        if self.mesh.group is None:
+            return
+        folders = list(self.metric_results)
+        flat = torch.from_numpy(np.concatenate([self.metric_results[f].reshape(-1)
+                                                for f in folders])).to(self.device)
+        flat = all_reduce_sum(flat, self.mesh).cpu().numpy()
+        offset = 0
+        for f in folders:
+            arr = self.metric_results[f]
+            self.metric_results[f] = flat[offset:offset + arr.size].reshape(arr.shape)
+            offset += arr.size
 
     def _device_metrics(self):
         """The ``val: metrics`` of the current output against gt on the

@@ -18,9 +18,15 @@ yet, each raising NotImplementedError with the option's name: ``val:
 bucket_eval`` / ``bucket_auto``, the NIQE metric, the recurrent test sets
 and models.
 
+With ``--launcher pytorch`` under torchrun (one process per GPU) each
+dataset's items are strided over the ranks and the per-frame metrics summed
+(models/video_base_model.py): the results equal one process's.
+
 Usage:
   python -m savsr_tpu_torch.test -opt options/test/SAVSR/test_SAVSR_Vid4_asBI.yml
   python -m savsr_tpu_torch.test -opt tiny.yml --device cpu
+  python -m torch.distributed.run --nproc_per_node N -m savsr_tpu_torch.test \
+      -opt options/test/SAVSR/test_SAVSR_Vid4_asBI.yml --launcher pytorch
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Optional
 
 from .data import build_dataloader, build_dataset
 from .models import build_model
+from .utils.dist_util import barrier, destroy_dist
 from .utils.logger import get_env_info, get_root_logger
 from .utils.misc import get_time_str, make_exp_dirs
 from .utils.options import dict2str, parse_options
@@ -49,6 +56,7 @@ def test_pipeline(root_path: str, args_list: Optional[list] = None,
     opt["root_path"] = root_path
 
     make_exp_dirs(opt)
+    barrier()  # rank 0 made (and renamed) the results directory
     log_file = osp.join(opt["path"]["log"], f"test_{opt['name']}_{get_time_str()}.log")
     logger = get_root_logger(log_level=logging.INFO, log_file=log_file)
     logger.info(get_env_info())
@@ -80,7 +88,10 @@ def test_pipeline(root_path: str, args_list: Optional[list] = None,
 
 
 def main(argv=None):
-    return test_pipeline(os.getcwd(), argv)
+    try:
+        return test_pipeline(os.getcwd(), argv)
+    finally:
+        destroy_dist()
 
 
 if __name__ == "__main__":

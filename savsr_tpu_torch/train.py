@@ -9,10 +9,16 @@ is validated every ``val: val_freq`` iterations and once more after the
 final save (the eval forward in f32 on the EMA weights; see
 models/sr_model.py).
 
+On N GPUs, one process each (the global batch is ``batch_size_per_gpu`` x
+N; models/sr_model.py):
+
+  python -m torch.distributed.run --nproc_per_node N -m savsr_tpu_torch.train \
+      -opt options/train/SAVSR/train_SAVSR_Vimeo90K_asBI.yml --launcher pytorch
+
 Not ported yet, each raising NotImplementedError with the option's name:
 ``train: bucket_train``, ``train: degrade_on_device``, perceptual/GAN
 losses, ``val: bucket_eval``, the recurrent model family, REDS, lmdb,
-multi-GPU.
+``mesh: spatial``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from .data import EnlargedSampler, build_dataloader, build_dataset
 from .data.loader import CPUPrefetcher, DevicePrefetcher
 from .models import build_model
+from .utils.dist_util import barrier, destroy_dist
 from .utils.logger import (AvgTimer, MessageLogger, get_env_info, get_root_logger,
                            init_tb_logger)
 from .utils.misc import check_resume, get_time_str, make_exp_dirs, mkdir_and_rename
@@ -59,8 +66,10 @@ def create_train_val_dataloader(opt, logger):
         if phase != "train":
             raise ValueError(f"Dataset phase {phase} is not recognized.")
         enlarge = dataset_opt.get("dataset_enlarge_ratio", 1)
-        train_set = build_dataset(dataset_opt, seed=opt["manual_seed"])
-        train_sampler = EnlargedSampler(len(train_set), opt["world_size"], opt["rank"], enlarge)
+        train_set = build_dataset(dataset_opt, seed=opt["manual_seed"], rank=opt["rank"])
+        train_sampler = EnlargedSampler(len(train_set), opt["world_size"], opt["rank"], enlarge,
+                                        batch_size=dataset_opt["batch_size_per_gpu"],
+                                        accum_steps=int(opt["train"].get("accum_steps", 1)))
         train_loader = build_dataloader(train_set, dataset_opt, sampler=train_sampler,
                                         seed=opt["manual_seed"])
         num_iter_per_epoch = math.ceil(
@@ -84,6 +93,7 @@ def validate(model, val_loaders, opt, current_iter, tb_logger) -> None:
 
 
 def load_resume_state(opt):
+    barrier()  # every rank reads what rank 0 last wrote
     resume_state_path = None
     if opt["auto_resume"]:
         state_path = opt["path"]["training_states"]
@@ -115,9 +125,12 @@ def train_pipeline(root_path, args_list=None, stats=None):
     resume_state = load_resume_state(opt)
     if resume_state is None:
         make_exp_dirs(opt)
-        if opt["logger"].get("use_tb_logger") and "debug" not in opt["name"]:
+        if (opt["logger"].get("use_tb_logger") and "debug" not in opt["name"]
+                and opt["rank"] == 0):
             mkdir_and_rename(osp.join(opt["root_path"], "tb_logger", opt["name"]))
-    copy_opt_file(args.opt, opt["path"]["experiments_root"])
+    barrier()  # the directories exist (and an old run's are renamed) before any rank writes
+    if opt["rank"] == 0:
+        copy_opt_file(args.opt, opt["path"]["experiments_root"])
 
     log_file = osp.join(opt["path"]["log"], f"train_{opt['name']}_{get_time_str()}.log")
     logger = get_root_logger(log_level=logging.INFO, log_file=log_file)
@@ -213,7 +226,10 @@ def train_pipeline(root_path, args_list=None, stats=None):
 
 
 def main(argv=None):
-    return train_pipeline(os.getcwd(), argv)
+    try:
+        return train_pipeline(os.getcwd(), argv)
+    finally:
+        destroy_dist()
 
 
 if __name__ == "__main__":

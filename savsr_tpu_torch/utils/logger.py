@@ -1,5 +1,7 @@
 """Logging: the root logger, the training message logger and timers (the
-port's counterpart of ``savsr_tpu/utils/logger.py``)."""
+port's counterpart of ``savsr_tpu/utils/logger.py``). In a world of several
+ranks only rank 0 logs, writes the log file and the TensorBoard events; the
+others log errors only."""
 
 from __future__ import annotations
 
@@ -8,11 +10,13 @@ import logging
 import time
 from typing import Optional
 
+from .dist_util import is_master, master_only
+
 
 def get_root_logger(logger_name: str = "savsr_tpu_torch", log_level: int = logging.INFO,
                     log_file: Optional[str] = None) -> logging.Logger:
-    """A logger with one stream handler (and an optional file handler),
-    configured on first use."""
+    """A logger with one stream handler (and, on rank 0, an optional file
+    handler), configured on first use; on the other ranks at level ERROR."""
     logger = logging.getLogger(logger_name)
     if getattr(logger, "_savsr_configured", False):
         return logger
@@ -20,7 +24,9 @@ def get_root_logger(logger_name: str = "savsr_tpu_torch", log_level: int = loggi
     handler = logging.StreamHandler()
     handler.setFormatter(fmt)
     logger.addHandler(handler)
-    if log_file is not None:
+    if not is_master():
+        log_level = logging.ERROR
+    elif log_file is not None:
         file_handler = logging.FileHandler(log_file, "w")
         file_handler.setFormatter(fmt)
         logger.addHandler(file_handler)
@@ -77,6 +83,7 @@ class MessageLogger:
     def reset_start_time(self) -> None:
         self.start_time = time.time()
 
+    @master_only
     def __call__(self, log_vars: dict) -> None:
         epoch = log_vars.pop("epoch")
         current_iter = log_vars.pop("iter")
@@ -101,6 +108,7 @@ class MessageLogger:
         self.logger.info(message)
 
 
+@master_only
 def init_tb_logger(log_dir: str):
     """A TensorBoard SummaryWriter if tensorboard is importable, else None
     (scalars then stay in the text log)."""

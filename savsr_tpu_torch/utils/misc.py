@@ -1,5 +1,6 @@
 """Small host-side helpers: seeding, directory layout, file scanning,
-resume bookkeeping (the port's counterpart of ``savsr_tpu/utils/misc.py``)."""
+resume bookkeeping (the port's counterpart of ``savsr_tpu/utils/misc.py``).
+The experiment and results directories are made by rank 0 alone."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from .dist_util import master_only
 
 
 def set_random_seed(seed: int) -> None:
@@ -36,8 +39,10 @@ def mkdir_and_rename(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
 
+@master_only
 def make_exp_dirs(opt: dict) -> None:
-    """Create the experiment (training) or results (test) directory tree."""
+    """Create the experiment (training) or results (test) directory tree
+    (rank 0; the pipelines wait for it at a barrier)."""
     path_opt = dict(opt["path"])
     mkdir_and_rename(path_opt.pop("experiments_root" if opt["is_train"] else "results_root"))
     for key, path in path_opt.items():

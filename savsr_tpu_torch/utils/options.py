@@ -2,9 +2,11 @@
 
 The port's counterpart of ``savsr_tpu/utils/options.py`` (behaviour of
 lbasicsr/utils/options.py:100-221): YAML with ``!!python/tuple`` scale
-literals, ``--force_yml a:b=v`` deep overrides, seeding from ``manual_seed``,
-experiments (training) or results (test) path derivation and debug-mode
-frequency rewrites, plus the port's ``--device``.
+literals, ``--force_yml a:b=v`` deep overrides, the launcher
+(``--launcher none | pytorch | slurm``: one process per GPU, utils/
+dist_util.py), seeding from ``manual_seed`` + rank, experiments (training)
+or results (test) path derivation and debug-mode frequency rewrites, plus
+the port's ``--device``.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from os import path as osp
 from shutil import copyfile
 from typing import Any, Optional, Tuple
 
+import torch
 import yaml
 
+from .dist_util import TORCHRUN_CMD, default_backend, get_dist_info, init_dist, local_rank
 from .misc import set_random_seed
 
 
@@ -91,35 +95,54 @@ def parse_options(root_path: str, is_train: bool = True,
                   args_list: Optional[list] = None) -> Tuple[dict, argparse.Namespace]:
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True, help="Path to option YAML file.")
-    parser.add_argument("--launcher", choices=["none"], default="none",
-                        help="job launcher (multi-GPU launchers are not ported yet)")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"], default="none",
+                        help="job launcher: pytorch under torchrun, slurm under srun (one "
+                             "process per GPU)")
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--force_yml", nargs="+", default=None,
                         help="Force to update yml options. Example: train:ema_decay=0.999")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda; raises if there is no card)")
+                        help="torch device (default: cuda, under a launcher cuda:<LOCAL_RANK>; "
+                             "raises if there is no card)")
     args = parser.parse_args(args_list)
 
     opt = yaml_load(args.opt)
-    opt["dist"] = False
-    opt["rank"], opt["world_size"] = 0, 1
-    opt["device"] = args.device
+    apply_force_yml(opt, args.force_yml)
+    num_gpu = opt.get("num_gpu")
+    if args.launcher == "none":
+        if num_gpu not in (None, "auto") and int(num_gpu) > 1:
+            raise ValueError(f"num_gpu: {num_gpu} needs one process per GPU: launch with "
+                             f"{TORCHRUN_CMD}")
+        opt["dist"] = False
+        opt["device"] = args.device
+    else:
+        opt["dist"] = True
+        opt["device"] = args.device or f"cuda:{local_rank(args.launcher)}"
+        dist_params = dict(opt.get("dist_params") or {})
+        dist_params.setdefault("backend", default_backend(opt["device"]))
+        if torch.device(opt["device"]).type == "cuda" and torch.cuda.is_available():
+            torch.cuda.set_device(torch.device(opt["device"]))
+        init_dist(args.launcher, **dist_params)
+    opt["rank"], opt["world_size"] = get_dist_info() if opt["dist"] else (0, 1)
+    # one device per process
+    if num_gpu == "auto":
+        opt["num_gpu"] = 1
 
     seed = opt.get("manual_seed")
     if seed is None:
-        seed = random.randint(1, 10000)
-        opt["manual_seed"] = seed
+        seed = [random.randint(1, 10000)]
+        if opt["world_size"] > 1:  # rank 0's draw, so every rank seeds alike
+            torch.distributed.broadcast_object_list(seed, src=0)
+        seed = opt["manual_seed"] = seed[0]
+    # per-rank streams: the datasets take manual_seed + rank for their crops
+    # and flips, manual_seed alone for the one scale of each global step
     set_random_seed(seed + opt["rank"])
-
-    apply_force_yml(opt, args.force_yml)
     opt["auto_resume"] = args.auto_resume
     opt["is_train"] = is_train
 
     if args.debug and not opt["name"].startswith("debug"):
         opt["name"] = "debug_" + opt["name"]
-    if opt.get("num_gpu") == "auto":
-        opt["num_gpu"] = 1  # one device per process; multi-GPU is not ported yet
 
     # datasets: fan out phase / scale (val_x4 -> phase 'val', etc.)
     for phase, dataset in opt.get("datasets", {}).items():
