@@ -163,6 +163,23 @@ Phases (each prints its lines; any failure exits non-zero):
             on the shipped Vid4 config's first three datasets, strict, each
             rank's serving kernels launched, the metrics equal to phase 9's
             to the printed digit.
+13. spatial spatial sharding of the eval forward (mesh: {spatial: 2},
+            savsr_tpu_torch/parallel/spatial.py: each frame split by height
+            over the ranks, halo rows exchanged around every conv, the
+            OSAdapt mask head, STA, STAU and the tail), two ranks over gloo
+            on cuda:0 under torch.distributed.run: (a) one seeded 180x320
+            window of the flagship (golden weights) at x4, x(1.5,3.5) and
+            x3.05 in each tier, band 0 gathering the output, against the
+            one-process forward on the card: strict within 1e-5 max abs, the
+            other tiers equal to the bit (the tier's own distance from
+            strict printed beside); each rank's launches of the tier's kernels (counts zeroed
+            just before each forward, read just after) all nonzero, no plain
+            version on the card; each rank's band rows, the rows it
+            exchanged (count and bytes) per forward, and its device busy
+            time beside one process's; (b) the eval pipeline on the shipped
+            Vid4 config's first three datasets with mesh {spatial: 2},
+            strict: psnr_y and ssim_y within 1e-4 of phase 9's, band 0
+            scoring every frame.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}};
@@ -2427,6 +2444,250 @@ def phase_dist(sd, device, eval_results: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: spatial sharding of the eval forward (savsr_tpu_torch/parallel/spatial.py)
+# ---------------------------------------------------------------------------
+
+SPATIAL_WORLD = 2
+SPATIAL_SCALES = ((4.0, 4.0), (1.5, 3.5), (3.05, 3.05))
+SPATIAL_TIERS = ("strict", "bf16", "split", "fast")
+SPATIAL_KERNELS = {"strict": SERVING_KERNELS, **TIER_KERNELS}
+# max abs against one process: strict the JAX package's bound for a sharded
+# frame (tests/test_spatial_sharding.py; the f32 conv splits its Cin sum by
+# the output's tile count, f32_chunks, so a band's rows round apart); the
+# other tiers equal to the bit, as in tests/test_torch_spatial.py (their
+# kernels sum each pixel in one order at any height)
+SPATIAL_TOL = {"strict": 1e-5, "bf16": 0.0, "split": 0.0, "fast": 0.0}
+
+# one rank of the spatial run (under torch.distributed.run, mesh {spatial:
+# 2}): the eval pipeline on the config's datasets, then each tier's forward
+# of one window at each scale on this rank's band, gathered on band 0; the
+# launch counts zeroed just before each forward and read just after, the
+# rows exchanged, and one profiled forward a tier at the first scale
+SPATIAL_WORKER = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+from savsr_tpu_torch import ops
+from savsr_tpu_torch.inference import build_serving_model
+from savsr_tpu_torch.parallel import get_mesh_from_opt
+from savsr_tpu_torch.parallel.spatial import gather_rows
+from savsr_tpu_torch.test import test_pipeline
+from savsr_tpu_torch.utils.convert import load_into
+from savsr_tpu_torch.utils.dist_util import destroy_dist
+
+work, cfg, device = sys.argv[1], sys.argv[2], torch.device(sys.argv[3])
+net, scales, tiers, spatial = (json.loads(a) for a in sys.argv[4:8])
+rank = int(os.environ["RANK"])
+cuda = device.type == "cuda"
+sync = torch.cuda.synchronize if cuda else (lambda: None)
+stats = []
+ops.reset_counts()
+t0 = time.perf_counter()
+results = test_pipeline(work, ["-opt", cfg, "--launcher", "pytorch", "--device", str(device)],
+                        stats)
+sync()
+info = {"eval": {"results": results, "launches": dict(ops.launches), "frames": len(stats),
+                 "plain_cuda": dict(ops.plain_cuda_calls), "seconds": time.perf_counter() - t0},
+        "forward": {}}
+mesh = get_mesh_from_opt({"dist": True, "mesh": {"spatial": spatial}})
+bands = mesh.bands
+info["band"] = mesh.band
+sd = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(work, "weights.npz")).items()}
+x = torch.from_numpy(np.load(os.path.join(work, "x.npy"))).to(device)
+out = {}
+for tier in tiers:
+    dt = torch.bfloat16 if tier == "bf16" else torch.float32
+    model = build_serving_model(tier, net)
+    load_into(model, sd)
+    model.to(device=device, dtype=dt)
+    for i, scale in enumerate(map(tuple, scales)):
+        statics = model.stau_statics(x.shape[-2:], scale, dtype=dt, device=device, band=bands)
+        sync()
+        before = dict(bands.stats)
+        ops.reset_counts()
+        t1 = time.perf_counter()
+        y = model(x.to(dt), scale, stau_statics=statics, band=bands)
+        sync()
+        rec = {"launches": dict(ops.launches), "plain_cuda": dict(ops.plain_cuda_calls),
+               "host_ms": 1e3 * (time.perf_counter() - t1),
+               "exchanges": bands.stats["exchanges"] - before["exchanges"],
+               "bytes": bands.stats["bytes"] - before["bytes"],
+               "geometry": {k: statics["band"][k] for k in ("lr", "hr", "windows", "hr_ext")}}
+        if i == 0 and cuda:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                model(x.to(dt), scale, stau_statics=statics, band=bands)
+                sync()
+            rows = cs.device_rows(prof)
+            rec["device_busy_ms"] = sum(r[1] for r in rows)
+            # gloo's staging of the exchanged rows through the host
+            rec["memcpy_ms"] = sum(r[1] for r in rows if "memcpy" in r[0].lower())
+        info["forward"][f"{tier} {scale[0]}x{scale[1]}"] = rec
+        y = gather_rows(y, bands, statics["band"]["hr"])
+        if y is not None:
+            out[f"{tier} {scale[0]}x{scale[1]}"] = y.float().cpu().numpy()
+    del model
+np.savez(os.path.join(work, f"spatial_rank{rank}.npz"), **out)
+with open(os.path.join(work, f"spatial_rank{rank}.json"), "w") as f:
+    json.dump(info, f)
+destroy_dist()
+'''
+
+
+def spatial_window(hw) -> np.ndarray:
+    """One seeded 7-frame window [1, 7, 3, h, w] (write_clip's frames)."""
+    import cv2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = write_clip(tmp, 7, hw)
+        frames = [cv2.imread(os.path.join(d, f))[..., ::-1] for f in sorted(os.listdir(d))]
+    return (np.stack(frames).transpose(0, 3, 1, 2)[None] / 255.0).astype(np.float32)
+
+
+def phase_spatial(sd, device, eval_results: dict, net=None, hw=LR_HW,
+                  scales=SPATIAL_SCALES, tiers=SPATIAL_TIERS) -> dict:
+    """Phase 13: spatial sharding of the eval forward, two ranks over gloo
+    on one card under torch.distributed.run (mesh {spatial: 2}): (a) one
+    seeded window of ``hw`` at each scale in each tier, each rank on its
+    band and band 0 gathering, against the one-process forward on the same
+    device within SPATIAL_TOL max abs (strict 1e-5, the other tiers
+    bit-equal), the tier's own distance from strict printed beside; every
+    kernel of the tier launched by each rank, no plain version on the card;
+    (b) the eval pipeline on the shipped Vid4 config's first three datasets
+    at the strict tier: psnr_y and ssim_y within 1e-4 of phase 9's, band 0
+    scoring every frame and band 1 none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from savsr_tpu_torch.utils.options import yaml_load
+
+    net = net or flagship_net_kwargs()
+    dev = "cuda:0" if device.type == "cuda" else "cpu"
+    smi = card_name()
+    t0 = time.perf_counter()
+    x = spatial_window(hw)
+    xt = torch.from_numpy(x).to(device)
+    one, busy_one = {}, {}
+    for tier in tiers:  # the one-process forwards
+        dt = torch.bfloat16 if tier == "bf16" else torch.float32
+        model = build_serving_model(tier, net)
+        load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()})
+        model.to(device=device, dtype=dt)
+        for i, scale in enumerate(scales):
+            statics = model.stau_statics(hw, scale, dtype=dt, device=device)
+            one[f"{tier} {scale[0]}x{scale[1]}"] = model(
+                xt.to(dt), scale, stau_statics=statics).float().cpu().numpy()
+            if i == 0 and device.type == "cuda":
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    model(xt.to(dt), scale, stau_statics=statics)
+                    torch.cuda.synchronize()
+                busy_one[tier] = sum(r[1] for r in device_rows(prof))
+        del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    names = [ds["name"] for ds in yaml_load(EVAL_YML)["datasets"].values()][:DIST_EVAL_COUNT]
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "savsr.pth")
+        torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+        np.savez(os.path.join(tmp, "weights.npz"), **sd)
+        np.save(os.path.join(tmp, "x.npy"), x)
+        cfg = eval_config(tmp, pth, names=names, network=net)
+        with open(cfg, "a") as f:
+            f.write(f"mesh:\n  spatial: {SPATIAL_WORLD}\ndist_params:\n  backend: gloo\n")
+        with open(os.path.join(tmp, "worker.py"), "w") as f:
+            f.write(SPATIAL_WORKER)
+        t1 = time.perf_counter()
+        torchrun(SPATIAL_WORLD, [os.path.join(tmp, "worker.py"), tmp, cfg, dev, json.dumps(net),
+                                 json.dumps(scales), json.dumps(list(tiers)),
+                                 str(SPATIAL_WORLD)], tmp)
+        ranks_s = time.perf_counter() - t1
+        outs, infos = [], []
+        for r in range(SPATIAL_WORLD):
+            outs.append(dict(np.load(os.path.join(tmp, f"spatial_rank{r}.npz"))))
+            with open(os.path.join(tmp, f"spatial_rank{r}.json")) as f:
+                infos.append(json.load(f))
+
+    # (a) the forwards
+    res, failed = {"forward": {}}, []
+    for tier in tiers:
+        for scale in scales:
+            key = f"{tier} {scale[0]}x{scale[1]}"
+            strict_key = f"strict {scale[0]}x{scale[1]}"
+            err = float(np.abs(outs[0][key] - one[key]).max())
+            to_strict = (float(np.abs(one[key] - one[strict_key]).max())
+                         if strict_key in one and tier != "strict" else None)
+            bound = SPATIAL_TOL[tier]
+            recs = [i["forward"][key] for i in infos]
+            ran = all(all(rec["launches"][k] > 0 for k in SPATIAL_KERNELS[tier])
+                      and not any(rec["plain_cuda"].values()) for rec in recs) \
+                or device.type != "cuda"
+            geo = recs[0]["geometry"]
+            log(f"[spatial] {key} {hw[0]}x{hw[1]}, {SPATIAL_WORLD} ranks: max abs "
+                f"{err:.3e} from one process"
+                f"{' (bit-equal)' if err == 0 else ''}, bound {bound:.3e}"
+                + ("" if to_strict is None else f" (the tier's distance from strict "
+                                                 f"{to_strict:.3e})")
+                + f"; per rank: LR band rows {geo['lr']}, HR rows {geo['hr']}, STAU LR windows "
+                f"{geo['windows']}; exchanges / bytes sent "
+                f"{[(rec['exchanges'], rec['bytes']) for rec in recs]}; launches "
+                f"{[{k: rec['launches'][k] for k in SPATIAL_KERNELS[tier]} for rec in recs]}; "
+                f"host ms {[round(rec['host_ms'], 1) for rec in recs]}")
+            res["forward"][key] = {"max_abs": err, "bound": bound, "to_strict": to_strict,
+                                   "exchanges": [rec["exchanges"] for rec in recs],
+                                   "bytes": [rec["bytes"] for rec in recs],
+                                   "launches": [rec["launches"] for rec in recs]}
+            if not err <= bound or not ran or len(outs[1]):
+                failed.append((key, err, bound, ran))
+        if device.type == "cuda":
+            key = f"{tier} {scales[0][0]}x{scales[0][1]}"
+            busy = [i["forward"][key]["device_busy_ms"] for i in infos]
+            copies = [i["forward"][key]["memcpy_ms"] for i in infos]
+            res["forward"][key].update(device_busy_ms=busy, memcpy_ms=copies,
+                                       one_process_busy_ms=busy_one[tier])
+            log(f"[spatial] {key}: device busy a rank {[round(b, 2) for b in busy]} ms (of it "
+                f"host-device copies, gloo's staging of the exchanges, "
+                f"{[round(c, 2) for c in copies]} ms), one process {busy_one[tier]:.2f} ms "
+                f"({smi}; two ranks share the card: not a scaling figure)")
+
+    # (b) the eval
+    got = [{n: (i["eval"]["results"][n]["psnr_y"], i["eval"]["results"][n]["ssim_y"])
+            for n in names} for i in infos]
+    want = {n: (eval_results[n]["psnr_y"], eval_results[n]["ssim_y"]) for n in names}
+    d_eval = max(abs(g[n][k] - want[n][k]) for g in got for n in names for k in (0, 1))
+    frames = [i["eval"]["frames"] for i in infos]
+    eval_ran = device.type != "cuda" or all(
+        all(i["eval"]["launches"][k] > 0 for k in SERVING_KERNELS)
+        and not any(i["eval"]["plain_cuda"].values()) for i in infos)
+    log(f"[spatial] eval, {SPATIAL_WORLD} ranks over gloo on {dev} (mesh spatial "
+        f"{SPATIAL_WORLD}): {names} strict, psnr_y / ssim_y "
+        f"{ {n: (round(v[0], 4), round(v[1], 6)) for n, v in got[0].items()} } (phase 9: "
+        f"{ {n: (round(v[0], 4), round(v[1], 6)) for n, v in want.items()} }; max |d| "
+        f"{d_eval:.2e}{', bit-equal' if d_eval == 0 else ''}); frames scored a rank {frames}; "
+        f"launches a rank {[{k: i['eval']['launches'][k] for k in SERVING_KERNELS} for i in infos]}"
+        f"; {[round(i['eval']['seconds'], 1) for i in infos]} s a rank")
+    res["eval"] = {"max_diff": d_eval, "frames": frames,
+                   "launches": [i["eval"]["launches"] for i in infos]}
+    if not d_eval <= 1e-4 or frames != [len(names) * EVAL_FRAMES, 0] or not eval_ran:
+        failed.append(("eval", d_eval, frames, eval_ran))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[spatial] phase 13: {res['seconds']:.1f} s (the two ranks' run {ranks_s:.1f} s with "
+        "start-up)")
+    if failed:
+        raise AssertionError(f"spatial: {failed}")
+    return res
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them, each
+    distinct line once (the CPU's rehearsal: "cpu")."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    return "; ".join(dict.fromkeys(line.strip() for line in lines))
+
+
 def tensor_core_count(lib_path: str):
     """(HMMA, HGMMA) instructions in a library's SASS — mma.sync and wgmma
     — or None without cuobjdump."""
@@ -2476,9 +2737,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     device = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_name()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
         f"(nvidia-smi: {smi}), torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -2508,6 +2767,8 @@ def main(argv=None) -> int:
     fast = phase_fast(sd, device, evaluation["results"], split["parity"], serving["launches"])
     torch.cuda.empty_cache()
     dist = phase_dist(sd, device, evaluation["results"])
+    torch.cuda.empty_cache()
+    spatial = phase_spatial(sd, device, evaluation["results"])
     rows = rows + split["rows"] + fast["rows"]
 
     def entry(name, dtype, source, replaces, launches):
@@ -2548,7 +2809,7 @@ def main(argv=None) -> int:
                        "training": training, "eval": evaluation,
                        "split": {k: v for k, v in split.items() if k != "rows"},
                        "fast": {k: v for k, v in fast.items() if k != "rows"},
-                       "dist": dist, "kernels": kernels}, f, indent=1)
+                       "dist": dist, "spatial": spatial, "kernels": kernels}, f, indent=1)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,12 +19,18 @@ whose ``state_dict`` keys and shapes equal the reference's
   of archs/train_engine.py, whose OSConv engine is the pair of kernels of
   ops/osconv.py; it returns ``(sr, stats_updates)``.
 
+The serving forward also runs spatially sharded (``band``, a
+``parallel.spatial.BandGroup``): every rank of the group holds the whole
+LR window and computes its band of the output's rows (``_forward`` and
+``_upsample_band``), with the same kernels on taller or shorter frames.
+
 The small heads that the JAX package leaves to XLA (ScaleAttention MLPs,
 the OSAdapt mask head, the STAU coordinate head) run as plain PyTorch ops.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -38,6 +44,7 @@ from ..ops.sta import sta_conv_fused, sta_conv_fused_fast
 from ..ops.stau import (plan_geometry, stau_upsample_fused, stau_upsample_fused_fast,
                         stau_window_plan)
 from ..ops.tail import tail_fused, tail_fused_fast
+from ..parallel import spatial
 from .arch_util import (
     _bilinear_matrix,
     avg_pool2,
@@ -347,6 +354,35 @@ def tail_operands(h0: int, w0: int, H: int, W: int, device) -> Dict[str, torch.T
             for k, v in (("tail_j0", j0), ("tail_wy", wy), ("tail_c0", c0), ("tail_cw", cw))}
 
 
+def band_statics(statics: Dict[str, torch.Tensor], lq_hw, count: int, index: int,
+                 dtype=torch.float32, fast: bool = False) -> Dict:
+    """The band-local operands of band ``index`` of ``count`` (over the
+    padded LR height) from a frame's ``stau_statics``: the bands of the
+    padded and the cropped LR frame, each band's HR rows, and for this
+    band's HR rows [Y0 - 1, Y1 + 1) (clipped; the tail's 3x3 reads one row
+    beyond the band): the LR window [L0, L1) of the cropped frame that their
+    samplers reach (every band's, as each band sends the others their rows
+    of it), the sampler planes of those rows with the fy planes shifted by
+    L0 (exact in f32: L0 is an integer no greater than any fy it moves),
+    their window plan, and the tail's row operands of those rows."""
+    h, w = int(lq_hw[0]), int(lq_hw[1])
+    pix = statics["pix"]
+    H = pix.shape[1]
+    lr = spatial.band_rows(h + h % 2, count)
+    hr = spatial.hr_band_rows(lr, h, H)
+    ext = [(max(y0 - 1, 0), min(y1 + 1, H)) for y0, y1 in hr]
+    windows = spatial.stau_reach(pix, ext, h)
+    (e0, e1), (l0, l1) = ext[index], windows[index]
+    pix_b = pix[:, e0:e1].clone()
+    pix_b[[0, 2]] -= l0
+    return {"lr": lr, "lr_cropped": spatial.crop_rows(lr, h), "hr": hr, "hr_ext": ext[index],
+            "windows": windows, "pix": pix_b,
+            "stau_plan": stau_window_plan(pix_b, l1 - l0, w, *plan_geometry(dtype, fast=fast)),
+            "tail_j0": statics["tail_j0"][e0:e1].contiguous(),
+            "tail_wy": statics["tail_wy"][e0:e1].contiguous(),
+            "tail_c0": statics["tail_c0"], "tail_cw": statics["tail_cw"]}
+
+
 def stau_apply(m: STAUpsample, x: torch.Tensor, scale: Scale, st_feat: torch.Tensor,
                statics: Optional[Dict[str, torch.Tensor]] = None,
                fast: bool = False) -> torch.Tensor:
@@ -365,6 +401,28 @@ def stau_apply(m: STAUpsample, x: torch.Tensor, scale: Scale, st_feat: torch.Ten
     return (stau_upsample_fused_fast if fast else stau_upsample_fused)(
         x, sta, pix, m.weight_compress, m.weight_expand, m.fusion.weight, m.fusion.bias,
         plan=None if statics is None else statics["stau_plan"])
+
+
+def stau_apply_band(m: STAUpsample, x: torch.Tensor, st_feat: torch.Tensor, bs: Dict,
+                    band, fast: bool = False) -> torch.Tensor:
+    """STA and the STAU sampler on a band: x and st_feat [B, C, n, w] are
+    the band's rows of the cropped frame (``bs['lr_cropped']``). STA runs
+    on the band and the ``STA_REACH`` rows beyond it from the neighbours
+    (at a frame edge the kernel's replicate padding is the frame's); the
+    sampler on the rows ``bs['hr_ext']`` of the output, over the LR window
+    of x and STA that they reach, fetched from the bands that hold it ->
+    [B, C, rows, W]."""
+    x_ext, top = spatial.extend_rows(x, band, spatial.STA_REACH)
+    # st beyond the band only makes rows of the output that are cut
+    st_ext = torch.nn.functional.pad(st_feat, (0, 0, top, x_ext.shape[2] - top - x.shape[2]))
+    kc = m.kernel_conv[0]
+    sta = (sta_conv_fused_fast if fast else sta_conv_fused)(
+        x_ext.contiguous(), st_ext.contiguous(), kc.weight, kc.bias)[:, :, top:top + x.shape[2]]
+    c = x.shape[1]
+    win = spatial.fetch_rows(torch.cat([x, sta], 1), band, bs["lr_cropped"], bs["windows"])
+    return (stau_upsample_fused_fast if fast else stau_upsample_fused)(
+        win[:, :c].contiguous(), win[:, c:].contiguous(), bs["pix"], m.weight_compress,
+        m.weight_expand, m.fusion.weight, m.fusion.bias, plan=bs["stau_plan"])
 
 
 def tail_fused_apply(tail: nn.Conv2d, sr: torch.Tensor, x_center: torch.Tensor,
@@ -586,12 +644,13 @@ class SAVSR(nn.Module):
         return float32_precision(fast or self.cfg.matmul_precision == "float32")
 
     @torch.no_grad()
-    def stau_statics(self, lq_hw, scale, dtype=torch.float32, device=None):
+    def stau_statics(self, lq_hw, scale, dtype=torch.float32, device=None, band=None):
         """Frame-invariant operands for (LR shape, scale): the STAU
         coordinate-head outputs, the sampler planes, the window plan of the
         STAU kernel that the tier of ``dtype`` runs (``serving_tier``; the
         fast tier's: the bf16 kernel's tile at its fast mode's capacity) and
-        the tail's resize rows/columns.
+        the tail's resize rows/columns; with ``band`` (a band group) also
+        ``statics['band']``, the band's (``band_statics``).
         ``dtype`` must be the forward's feature dtype for the result to equal
         the inline path exactly (and for the plan to fit its kernel)."""
         h, w = int(lq_hw[0]), int(lq_hw[1])
@@ -605,21 +664,30 @@ class SAVSR(nn.Module):
             st["stau_plan"] = stau_window_plan(st["pix"], h, w,
                                                *plan_geometry(dtype, fast=tier == "fast"))
         st.update(tail_operands(h, w, H, W, device))
+        if band is not None:
+            st["band"] = band_statics(st, (h, w), band.count, band.index, dtype,
+                                      fast=tier == "fast")
         return st
 
     def forward(self, x: torch.Tensor, scale, stau_statics=None, train: bool = False,
-                bn_group=None):
+                bn_group=None, band=None):
         """Serving forward (no gradients, the kernels of the serving path),
         or with ``train=True`` (or ``cfg.engines == "train"``) the training
         engine: differentiable, BatchNorm on batch statistics when ``train``
         (with ``bn_group``, a process group, those of the global batch of
         which ``x`` is this rank's part). Training returns ``(sr,
         stats_updates)``, the updates keyed like the state_dict
-        ("adapt.0.mask.1.running_mean", ...)."""
+        ("adapt.0.mask.1.running_mean", ...). ``band`` (a
+        ``parallel.spatial.BandGroup``; serving only): x is the whole
+        window on every rank of the group, and the result this band's rows
+        ``stau_statics['band']['hr'][band.index]`` of the output."""
         scale = normalize_scale(scale)
         train_engines = train if self.cfg.engines == "auto" else self.cfg.engines == "train"
         if train and not train_engines:
             raise ValueError("train=True needs the training engine (engines: auto | train)")
+        if train_engines and band is not None:
+            raise NotImplementedError("spatially sharded training (mesh: spatial > 1) is not "
+                                      "ported yet (ROADMAP A.5)")
         if train_engines:
             from .train_engine import savsr_train_forward
 
@@ -630,9 +698,9 @@ class SAVSR(nn.Module):
             return (sr, updates) if train else sr
         tier = self.serving_tier()
         with self._precision(tier), torch.no_grad():
-            return self._forward(x, scale, stau_statics, tier)
+            return self._forward(x, scale, stau_statics, tier, band)
 
-    def _forward(self, x, scale: Scale, statics, tier: str) -> torch.Tensor:
+    def _forward(self, x, scale: Scale, statics, tier: str, band=None) -> torch.Tensor:
         from .chw_engine import trunk_apply_chw, window_l1_apply_chw, window_l2_apply_chw
 
         cfg = self.cfg
@@ -649,6 +717,14 @@ class SAVSR(nn.Module):
         x_center = x[:, cfg.center]
         x = pad_spatial(x)
         hp, wp = x.shape[3:]
+        rows = hp  # the features' height: a band's and its halo rows when sharded
+        if band is not None:
+            if statics is None or "band" not in statics:
+                statics = self.stau_statics((h_in, w_in), scale, x.dtype, x.device, band)
+            band = dataclasses.replace(band, rows=tuple(statics["band"]["lr"]))
+            a, b_ = band.rows[band.index]
+            x = self._band_input(x, a, b_)
+            rows = x.shape[3]
         fwd_idx, bwd_idx = frame_sample_indices(t, cfg.interval)
         x_forward = x[:, fwd_idx] if cfg.interval else x
         x_backward = x[:, bwd_idx] if cfg.interval else x
@@ -656,28 +732,58 @@ class SAVSR(nn.Module):
         n_iter = cfg.iter_win - cfg.slid_win + 1
         half = cfg.slid_win // 2
         if split:  # hidden states start as zero pairs
-            zero = x.new_zeros((b, cfg.num_feat, hp, wp), dtype=torch.bfloat16)
+            zero = x.new_zeros((b, cfg.num_feat, rows, wp), dtype=torch.bfloat16)
             hf = hpf = Pair(zero, zero)
+            zeros = [zero]
         else:
-            hf = x.new_zeros((b, cfg.num_feat, hp, wp))
-            hpf = x.new_zeros((b, cfg.num_feat, hp, wp))
+            hf = x.new_zeros((b, cfg.num_feat, rows, wp))
+            hpf = x.new_zeros((b, cfg.num_feat, rows, wp))
+            zeros = [hf, hpf]
+        if band is not None:
+            spatial.mark_fresh(*zeros)
         hf_seq, hp_seq = [], []
         # sequential bidirectional propagation (reference savsr_arch.py:708-719)
         for idx in range(n_iter):
             it_b = x_backward[:, cfg.iter_win - 1 - 2 * half - idx: cfg.iter_win - idx]
             it_f = x_forward[:, idx: idx + cfg.slid_win]
-            hf = window_l1_apply_chw(self.f2p_win, it_b, hf, scale, hp, wp, fast)
-            hpf = window_l1_apply_chw(self.p2f_win, it_f, hpf, scale, hp, wp, fast)
+            hf = window_l1_apply_chw(self.f2p_win, it_b, hf, scale, hp, wp, fast, band)
+            hpf = window_l1_apply_chw(self.p2f_win, it_f, hpf, scale, hp, wp, fast, band)
             hf_seq.append(hf)
             hp_seq.append(hpf)
         # f2p outputs were produced from the future end backwards; each hidden
         # pair stays two channel parts (no concat copy)
         h_feat = [[hf_seq[n_iter - 1 - i], hp_seq[i]] for i in range(n_iter)]
         for unit in self.h_win:
-            h_feat = window_l2_apply_chw(unit, h_feat, scale, hp, wp, fast)
-        h_feat, align_feat = trunk_apply_chw(self, h_feat[0], scale, hp, wp, fast)
+            h_feat = window_l2_apply_chw(unit, h_feat, scale, hp, wp, fast, band)
+        h_feat, align_feat = trunk_apply_chw(self, h_feat[0], scale, hp, wp, fast, band)
 
         # arbitrary-scale upsampling on the un-padded region
+        if band is not None:
+            return self._upsample_band(h_feat, align_feat, x_center, w_in, statics["band"],
+                                       band, fast)
         sr = stau_apply(self.upsample, h_feat[:, :, :h_in, :w_in], scale,
                         align_feat[:, :, :h_in, :w_in], statics, fast)
         return tail_fused_apply(self.tail, sr, x_center, statics, fast)
+
+    @staticmethod
+    def _band_input(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+        """Rows [a - HALO, b + HALO) of the padded frames [B, T, C, hp, wp],
+        zeros outside the frame (the convs' padding)."""
+        hp = x.shape[3]
+        lo, hi = max(a - spatial.HALO, 0), min(b + spatial.HALO, hp)
+        pad = (0, 0, lo - (a - spatial.HALO), b + spatial.HALO - hi)
+        return torch.nn.functional.pad(x[:, :, :, lo:hi], pad)
+
+    def _upsample_band(self, h_feat, align_feat, x_center, w_in: int, bs: Dict, band,
+                       fast: bool) -> torch.Tensor:
+        """STA, STAU and the tail of a band: its rows of the cropped trunk
+        and alignment features (halo rows dropped), its HR rows with one row
+        beyond on each side (clipped), the tail on those, cut to the band's
+        HR rows ``bs['hr'][band.index]``."""
+        lo, hi = bs["lr_cropped"][band.index]
+        rows = slice(spatial.HALO, spatial.HALO + hi - lo)
+        sr = stau_apply_band(self.upsample, h_feat[:, :, rows, :w_in],
+                             align_feat[:, :, rows, :w_in], bs, band, fast)
+        y = tail_fused_apply(self.tail, sr, x_center, bs, fast)
+        (y0, y1), e0 = bs["hr"][band.index], bs["hr_ext"][0]
+        return y[:, :, y0 - e0:y1 - e0]

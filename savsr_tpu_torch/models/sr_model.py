@@ -27,8 +27,14 @@ averaged over the ranks, and every rank applies the same update.
 The eval forward takes f32 ``lq`` and the f32 weights whatever the
 training dtype, as the JAX package's does, at the tier the network's
 settings name (``SAVSR.serving_tier``: strict at ``matmul_precision:
-float32``, fast at ``default``, split with ``conv_precision: split``). Not ported yet (each raises
-NotImplementedError): ``train: bucket_train``, ``train: degrade_on_device``,
+float32``, fast at ``default``, split with ``conv_precision: split``).
+
+With ``mesh: {spatial: S}`` the S ranks of a band group share each eval
+frame: each runs the forward on its band of rows (``SAVSR.forward(...,
+band=)``, the band's statics cached with the frame's) and band 0 gathers the
+output (``parallel.spatial.gather_rows``); the other bands' ``output`` is
+None. Not ported yet (each raises NotImplementedError): spatially sharded
+training, ``train: bucket_train``, ``train: degrade_on_device``,
 perceptual/GAN losses, ``val: bucket_eval`` / ``bucket_auto``.
 """
 
@@ -49,6 +55,7 @@ from ..data.resize import resize_np
 from ..losses import build_loss
 from ..metrics import calculate_metric
 from ..parallel import all_reduce_sum, reduce_gradients, replicate
+from ..parallel.spatial import gather_rows
 from ..utils.dist_util import barrier
 from ..utils.img_util import array2img, imwrite
 from ..utils.logger import get_root_logger
@@ -105,6 +112,11 @@ class SRModel(BaseModel):
     def init_training_settings(self) -> None:
         train_opt = self.opt["train"]
         logger = get_root_logger()
+        if self.mesh.spatial > 1:
+            raise NotImplementedError(
+                f"mesh: spatial: {self.mesh.spatial}: spatially sharded training (a "
+                "differentiable halo exchange, the OSConv weight gradient over bands) is not "
+                "ported yet (ROADMAP A.5); the eval forward runs on bands")
         for key in ("bucket_train", "degrade_on_device"):
             if train_opt.get(key, False):
                 raise NotImplementedError(f"train: {key} is not ported yet")
@@ -258,14 +270,16 @@ class SRModel(BaseModel):
 
     def _stau_statics_cached(self, net, lq_hw, scale, dtype):
         """One-entry cache of the frame-invariant STAU and tail operands
-        (``SAVSR.stau_statics``): eval walks a clip's frames at one (shape,
-        scale), so each computes them once. Keyed on the network, its
-        weights' version, the shape, the scale and the dtype."""
-        key = (id(net), self.weights_version, lq_hw, scale, dtype)
+        (``SAVSR.stau_statics``, with the band's under ``mesh: spatial``):
+        eval walks a clip's frames at one (shape, scale), so each computes
+        them once. Keyed on the network, its weights' version, the shape,
+        the scale, the dtype and the band."""
+        key = (id(net), self.weights_version, lq_hw, scale, dtype, self.mesh.band)
         if self._stau_statics is None or self._stau_statics[0] != key:
             self._stau_statics = None  # free the old operands first
             t0 = self._eval_clock()
-            statics = net.stau_statics(lq_hw, scale, dtype=dtype, device=self.device)
+            statics = net.stau_statics(lq_hw, scale, dtype=dtype, device=self.device,
+                                       band=self.mesh.bands)
             self._statics_s += self._eval_clock() - t0
             self._stau_statics = (key, statics)
         return self._stau_statics[1]
@@ -277,12 +291,16 @@ class SRModel(BaseModel):
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def _forward_eval(self, net, lq: torch.Tensor, scale) -> torch.Tensor:
+    def _forward_eval(self, net, lq: torch.Tensor, scale):
+        """The eval forward; under ``mesh: spatial`` this band's, gathered
+        on band 0 (None on the other bands)."""
         scale = normalize_scale(scale)
         lq = lq.float()
         statics = self._stau_statics_cached(net, (int(lq.shape[-2]), int(lq.shape[-1])), scale,
                                             lq.dtype)
-        return net(lq, scale, stau_statics=statics)
+        bands = self.mesh.bands
+        out = net(lq, scale, stau_statics=statics, band=bands)
+        return out if bands is None else gather_rows(out, bands, statics["band"]["hr"])
 
     def test(self) -> None:
         self.output = self._forward_eval(self._eval_net(), self.lq, self.scale)
@@ -290,7 +308,8 @@ class SRModel(BaseModel):
     def test_selfensemble(self) -> None:
         """x8 geometric self-ensemble (reference sr_model.py:141-187): the
         forward on every flip/transpose of the window, each output mapped
-        back, averaged. A transpose swaps the scale's axes."""
+        back, averaged. A transpose swaps the scale's axes (and under ``mesh:
+        spatial`` the bands split the transposed height)."""
         net = self._eval_net()
         sh, sw = normalize_scale(self.scale)
         outputs = []
@@ -304,6 +323,8 @@ class SRModel(BaseModel):
                 if transposed:
                     x = x.transpose(-2, -1)
                 out = self._forward_eval(net, x.contiguous(), (sw, sh) if transposed else (sh, sw))
+                if out is None:  # another band's frame
+                    continue
                 if transposed:
                     out = out.transpose(-2, -1)
                 if "v" in tf:
@@ -311,7 +332,7 @@ class SRModel(BaseModel):
                 if "h" in tf:
                     out = out.flip(-1)
                 outputs.append(out)
-        self.output = torch.stack(outputs).mean(dim=0)
+        self.output = torch.stack(outputs).mean(dim=0) if outputs else None
 
     def get_current_visuals(self) -> "OrderedDict":
         """lq / result / gt as channel-last host numpy (the JAX package's
@@ -352,6 +373,8 @@ class SRModel(BaseModel):
             img_name = osp.splitext(osp.basename(val_data["lq_path"][0]))[0]
             self.feed_data(val_data)
             self.test()
+            if self.output is None:  # another band's frame
+                continue
             visuals = self.get_current_visuals()
             sr_img = array2img(visuals["result"][0])
             metric_data = {"img": sr_img}
@@ -370,7 +393,7 @@ class SRModel(BaseModel):
                 for name, opt_ in self.opt["val"]["metrics"].items():
                     self.metric_results[name] += calculate_metric(metric_data, opt_)
             cnt += 1
-        if with_metrics:
+        if with_metrics and cnt:
             for metric in self.metric_results.keys():
                 self.metric_results[metric] /= cnt
                 self._update_best_metric_result(dataset_name, metric,

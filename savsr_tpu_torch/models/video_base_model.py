@@ -1,12 +1,14 @@
 """VideoBaseModel: windowed-VSR validation with per-folder, per-frame metrics.
 
 Counterpart of ``savsr_tpu/models/video_base_model.py`` (lbasicsr/models/
-video_base_model.py): the items of the dataset strided over the ranks
-(``range(rank, N, world)``; every item in order on one process), each
+video_base_model.py): the items of the dataset strided over the data axis
+(``range(data_index, N, D)``; every item in order on one process), each
 frame's metrics into its folder's row, the rows summed over the ranks (each
 slot filled by exactly one rank, so a world's metrics equal one process's to
 the bit), then per-folder means, their mean over the folders, the
-best-value records and ``last_metric_results``.
+best-value records and ``last_metric_results``. Under ``mesh: spatial``
+every rank of a band group runs each of its group's items on its band, and
+band 0 alone, which holds the gathered output, scores it and writes it.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ class VideoBaseModel(SRModel):
                     (num_frame, len(self.opt["val"]["metrics"])), dtype=np.float64)
             self._initialize_best_metric_results(dataset_name)
 
-        for idx in range(self.mesh.rank, len(dataset), self.mesh.size):
+        for idx in range(self.mesh.data_index, len(dataset), self.mesh.size):
             t0 = time.perf_counter()
             val_data = dict(dataset[idx])
             val_data["lq"] = val_data["lq"][None]
@@ -76,6 +78,8 @@ class VideoBaseModel(SRModel):
             self._statics_s = 0.0
             self.feed_data(val_data)
             self.test()
+            if self.output is None:  # another band's frame: band 0 scores it
+                continue
             visuals = self.get_current_visuals()  # ends in the output's copy to the host
             t2 = time.perf_counter()
             result_img = array2img(visuals["result"][0])

@@ -1,5 +1,5 @@
-"""Data parallelism over a process group: the port's counterpart of
-``savsr_tpu/parallel/mesh.py``.
+"""Data and spatial parallelism over a process group: the port's
+counterpart of ``savsr_tpu/parallel/mesh.py``.
 
 The JAX package runs one program over a mesh of devices and lets XLA insert
 the collectives. Here each of the W ranks is its own process on its own
@@ -13,8 +13,12 @@ ranks in a few flat buckets (``reduce_gradients``). No
 ``torch.func.functional_call``, which a DDP wrapper would not see, and the
 BatchNorm running statistics are written outside autograd.
 
-Only the ``data`` axis is ported. ``mesh: {spatial: n}`` with n > 1 (frames
-split by height over n devices, a halo exchange around every conv) raises.
+The ``spatial`` axis (``mesh: {data: D, spatial: S}``, D x S ranks): rank r
+sits in data group r // S at band r % S (the JAX mesh's row-major
+(data, spatial) order); the S ranks of a data group share each frame of the
+eval forward, each computing its band of rows (``parallel/spatial.py``),
+and the data groups stride the eval's items. Spatially sharded training is
+not ported: the trainer raises.
 """
 
 from __future__ import annotations
@@ -27,30 +31,49 @@ import torch
 import torch.distributed as dist
 
 from ..utils.dist_util import get_dist_info
+from .spatial import BandGroup
 
 BUCKET_BYTES = 32 << 20
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The world as a 1-D ``data`` mesh: its size and this process's rank;
-    ``group`` is the process group of the collectives (None in a world of
-    one, where nothing is communicated)."""
+    """The world as a ``{data: D, spatial: S}`` mesh: its shape and this
+    process's global rank; ``group`` is the world's process group (None in
+    a world of one, where nothing is communicated), ``data_group`` that of
+    the D ranks of this rank's band index (the world when S is 1), and
+    ``bands`` this rank's band group (None when S is 1)."""
 
-    shape: Dict[str, int] = field(default_factory=lambda: {"data": 1})
+    shape: Dict[str, int] = field(default_factory=lambda: {"data": 1, "spatial": 1})
     rank: int = 0
     group: Optional[Any] = None
+    data_group: Optional[Any] = None
+    bands: Optional[BandGroup] = None
 
     @property
     def size(self) -> int:
+        """The data axis: the number of data groups."""
         return self.shape["data"]
+
+    @property
+    def spatial(self) -> int:
+        return self.shape["spatial"]
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def band(self) -> int:
+        return self.rank % self.spatial
 
 
 def get_mesh_from_opt(opt: Optional[dict]) -> Mesh:
     """The mesh of ``opt['mesh']`` ({axis: size}, -1 fills with the rest of
-    the world; default ``{data: -1}``) over the process group when
-    ``opt['dist']`` (a launcher joined one), else over this process alone.
-    The ``data`` axis must equal the world size (one process per GPU)."""
+    the world; default ``{data: -1, spatial: 1}``) over the process group
+    when ``opt['dist']`` (a launcher joined one), else over this process
+    alone. data x spatial must equal the world size (one process per GPU).
+    Every rank makes every group, in one order."""
     opt = opt or {}
     spec = {k: int(v) for k, v in (opt.get("mesh") or {}).items()}
     unknown = set(spec) - {"data", "spatial"}
@@ -64,14 +87,25 @@ def get_mesh_from_opt(opt: Optional[dict]) -> Mesh:
         raise ValueError(f"mesh: {spec} has more than one axis of size -1")
     if fill:
         spec[fill[0]] = max(1, world // int(np.prod([v for v in spec.values() if v != -1])))
-    if spec["spatial"] > 1:
-        raise NotImplementedError(
-            f"mesh: spatial: {spec['spatial']} (spatial sharding, a halo exchange around "
-            "every conv) is not ported yet (ROADMAP A.5); use the data axis alone")
-    if spec["data"] != world:
-        raise ValueError(f"mesh: data: {spec['data']} must equal the world size {world} (one "
-                         "process per GPU)")
-    return Mesh({"data": world}, rank, dist.group.WORLD if world > 1 else None)
+    d, s = spec["data"], spec["spatial"]
+    if d * s != world:
+        raise ValueError(f"mesh: data: {d} x spatial: {s} must equal the world size {world} "
+                         "(one process per GPU)")
+    if world == 1:
+        return Mesh({"data": 1, "spatial": 1})
+    if s == 1:
+        return Mesh({"data": d, "spatial": 1}, rank, dist.group.WORLD, dist.group.WORLD)
+    bands = data_group = None
+    for g in range(d):  # the band groups: S consecutive ranks each
+        ranks = tuple(range(g * s, (g + 1) * s))
+        group = dist.new_group(list(ranks))
+        if rank in ranks:
+            bands = BandGroup(rank % s, s, ranks, group, dist.get_backend(group))
+    for b in range(s):  # the data groups: the ranks of one band index
+        group = dist.new_group(list(range(b, world, s)))
+        if rank % s == b:
+            data_group = group
+    return Mesh({"data": d, "spatial": s}, rank, dist.group.WORLD, data_group, bands)
 
 
 def rank_rows(n: int, world: int, rank: int, accum: int = 1) -> List[int]:
@@ -89,14 +123,14 @@ def rank_rows(n: int, world: int, rank: int, accum: int = 1) -> List[int]:
 
 
 def shard_or_replicate_batch(tree: Dict[str, Any], mesh: Mesh, accum: int = 1) -> Dict[str, Any]:
-    """This rank's share (``rank_rows``) of a global batch: every leaf with
-    a leading batch axis of the global size is cut, the rest (the scale,
-    keys of another length) is kept whole."""
+    """This rank's share (``rank_rows`` at its data index) of a global
+    batch: every leaf with a leading batch axis of the global size is cut,
+    the rest (the scale, keys of another length) is kept whole."""
     sizes = {len(v) for v in tree.values() if isinstance(v, (np.ndarray, torch.Tensor))}
     if len(sizes) != 1:
         raise ValueError(f"batch leaves of different lengths {sorted(sizes)}")
     n = sizes.pop()
-    rows = rank_rows(n, mesh.size, mesh.rank, accum)
+    rows = rank_rows(n, mesh.size, mesh.data_index, accum)
     out = {}
     for k, v in tree.items():
         if isinstance(v, (np.ndarray, torch.Tensor)) and len(v) == n:
@@ -159,10 +193,10 @@ def replicate(obj, mesh: Mesh, device) -> Any:
 
 
 def reduce_gradients(params: Iterable[torch.nn.Parameter], mesh: Mesh) -> None:
-    """Each parameter's gradient becomes the mean of the ranks' gradients
-    (so the step's gradient is that of the mean loss over the global
-    batch), summed in a few flat buckets."""
-    if mesh.group is None:
+    """Each parameter's gradient becomes the mean of the data axis's
+    gradients (so the step's gradient is that of the mean loss over the
+    global batch), summed in a few flat buckets."""
+    if mesh.data_group is None:
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
@@ -170,7 +204,7 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter], mesh: Mesh) -> None:
     inv = 1.0 / mesh.size
 
     def op(flat):
-        dist.all_reduce(flat, group=mesh.group)
+        dist.all_reduce(flat, group=mesh.data_group)
         flat.mul_(inv)
 
     _flat_collective(grads, grads[0].device, op)

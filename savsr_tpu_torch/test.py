@@ -20,13 +20,18 @@ and models.
 
 With ``--launcher pytorch`` under torchrun (one process per GPU) each
 dataset's items are strided over the ranks and the per-frame metrics summed
-(models/video_base_model.py): the results equal one process's.
+(models/video_base_model.py): the results equal one process's. With
+``mesh: {spatial: S}`` in the config (``{data: D, spatial: S}`` on D x S
+ranks) each frame is split by height over S ranks, which exchange halo rows
+around every conv (parallel/spatial.py); band 0 of each group gathers the
+output, scores it and writes it.
 
 Usage:
   python -m savsr_tpu_torch.test -opt options/test/SAVSR/test_SAVSR_Vid4_asBI.yml
   python -m savsr_tpu_torch.test -opt tiny.yml --device cpu
   python -m torch.distributed.run --nproc_per_node N -m savsr_tpu_torch.test \
       -opt options/test/SAVSR/test_SAVSR_Vid4_asBI.yml --launcher pytorch
+  (the same with mesh: {spatial: N} in the config: each frame over N GPUs)
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ N; models/sr_model.py):
 Not ported yet, each raising NotImplementedError with the option's name:
 ``train: bucket_train``, ``train: degrade_on_device``, perceptual/GAN
 losses, ``val: bucket_eval``, the recurrent model family, REDS, lmdb,
-``mesh: spatial``.
+spatially sharded training (``mesh: spatial`` > 1; the eval runs on bands).
 """
 
 from __future__ import annotations

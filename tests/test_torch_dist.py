@@ -472,21 +472,43 @@ def test_ranks_crop_apart_and_share_the_scale(tmp_path):
     assert not np.array_equal(r0[0]["gt"], r1[0]["gt"])
 
 
-def test_spatial_mesh_and_a_bare_launcher_raise(tmp_path, monkeypatch):
-    """``mesh: {spatial: 2}`` raises by name (ROADMAP A.5); ``--launcher
-    pytorch`` outside torchrun raises naming its environment (it never runs
-    as a world of one); ``num_gpu: 2`` without a launcher names the torchrun
-    command; a data axis other than the world size raises."""
+def test_spatial_mesh_axes_and_what_raises(tmp_path, monkeypatch):
+    """``mesh: {data: 1, spatial: 2}`` on a world of 2 builds a mesh of
+    those axes (rank 1: data index 0, band 1 of a band group of ranks 0 and
+    1); spatially sharded training raises by name (ROADMAP A.5);
+    ``--launcher pytorch`` outside torchrun raises naming its environment
+    (it never runs as a world of one); ``num_gpu: 2`` without a launcher
+    names the torchrun command; a mesh other than the world size raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from savsr_tpu_torch.models import build_model
     from savsr_tpu_torch.parallel import get_mesh_from_opt
     from savsr_tpu_torch.utils.options import parse_options
 
-    with pytest.raises(NotImplementedError, match="spatial.*ROADMAP A.5"):
-        get_mesh_from_opt({"mesh": {"data": 1, "spatial": 2}})
+    torch.save({"params": {k: torch.from_numpy(v) for k, v in _state().items()}},
+               tmp_path / "small.pth")
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(_train_yml(tmp_path, 1) + "mesh:\n  data: 1\n  spatial: 2\n")
+    # rank 1 of a world of 2 (a process group that communicates nothing)
+    dist.init_process_group("fake", rank=1, world_size=2, store=FakeStore())
+    try:
+        mesh = get_mesh_from_opt({"dist": True, "mesh": {"data": 1, "spatial": 2}})
+        assert mesh.shape == {"data": 1, "spatial": 2} and mesh.size == 1
+        assert (mesh.rank, mesh.data_index, mesh.band) == (1, 0, 1)
+        assert (mesh.bands.index, mesh.bands.count, mesh.bands.ranks) == (1, 2, (0, 1))
+        filled = get_mesh_from_opt({"dist": True, "mesh": {"data": 1, "spatial": -1}})
+        assert filled.shape == mesh.shape
+        opt, _ = parse_options(str(tmp_path), True, ["-opt", str(cfg), "--launcher", "pytorch",
+                                                     "--device", "cpu"])
+        with pytest.raises(NotImplementedError, match="spatially sharded training.*ROADMAP A.5"):
+            build_model(opt)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="world size"):
         get_mesh_from_opt({"mesh": {"data": 2}})
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
-    cfg = tmp_path / "cfg.yml"
     cfg.write_text(_train_yml(tmp_path, 1))
     with pytest.raises(RuntimeError, match="RANK.*torch.distributed.run"):
         parse_options(str(tmp_path), True, ["-opt", str(cfg), "--launcher", "pytorch",
