@@ -180,6 +180,23 @@ Phases (each prints its lines; any failure exits non-zero):
             Vid4 config's first three datasets with mesh {spatial: 2},
             strict: psnr_y and ssim_y within 1e-4 of phase 9's, band 0
             scoring every frame.
+14. spatial-train  spatially sharded training (mesh: {spatial: 2} with a
+            train: block: a differentiable halo exchange around every conv,
+            the GAPs' and BatchNorms' sums over the bands, each band's share
+            of the loss, the gradients summed over the bands), two ranks over
+            gloo on cuda:0 under torch.distributed.run: (a) the flagship
+            (golden weights) in strict f32 on phase 12's four seeded 60x60
+            septuplets at x4 (bands of 30 LR and 120 HR rows), at accum 1
+            and 2, against the one-process step on the card (phase 12's):
+            loss within 1e-5, BatchNorm statistics within 1e-6, every
+            gradient within 2e-3 of its own max + 1e-7, both ranks'
+            gradients identical; each rank's launches of rows 6-7 by kernel
+            (counts zeroed just before the step, read just after), no plain
+            version; the exchanges and bytes sent a rank-step; a rank-step's
+            time beside one process's; (b) the training CLI with mesh
+            {spatial: 2} on phase 7's copy of the shipped bf16 recipe: 2
+            iterations, one checkpoint and the final (sharded) validation,
+            written by rank 0 alone, then --auto_resume to 4.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}};
@@ -291,6 +308,7 @@ CUDA_KERNELS = {
     ("osconv_agg", "bf16"): "conv_wgmma_kernel<3>",
     ("osconv_agg", "f32"): "conv_f32_kernel<3, 1> + conv_f32_reduce_kernel",
     ("osconv_dagg", "bf16"): "osconv_dagg_wgmma_kernel<3> + dagg_reduce_kernel",
+    ("osconv_dagg", "f32"): "osconv_dagg_kernel + dagg_reduce_kernel",
     ("conv3x3_fast", "fast"): "conv_fast_kernel<3, true>",
     ("conv1x1_fast", "fast"): "conv_fast_kernel<1, false>",
     ("sta_fast", "fast"): "sta_fast_kernel<64>",
@@ -2045,6 +2063,8 @@ for accum in (1, 2):
     share = shard_or_replicate_batch(dict(batch), model.mesh, accum)
     model.feed_data(dict(share, scale=(4.0, 4.0)))
     sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
+    bands = model.mesh.bands
+    before = dict(bands.stats) if bands is not None else {}
     sync()
     ops.reset_counts()
     t0 = time.perf_counter()
@@ -2052,7 +2072,8 @@ for accum in (1, 2):
     sync()
     info[accum] = {"ms": 1e3 * (time.perf_counter() - t0), "launches": dict(ops.launches),
                    "plain_cuda": dict(ops.plain_cuda_calls), "world": opt["world_size"],
-                   "rows": int(model.lq.shape[0])}
+                   "rows": int(model.lq.shape[0]),
+                   **{k: bands.stats[k] - v for k, v in before.items()}}
     out[f"{accum}/loss"] = np.float64(model.log_dict["l_pix"])
     out.update({f"{accum}/g/{k}": p.grad.cpu().numpy() for k, p in model.net_g.named_parameters()})
     out.update({f"{accum}/b/{k}": b.cpu().numpy() for k, b in model.net_g.named_buffers()})
@@ -2166,12 +2187,12 @@ dist_params:
 """
 
 
-def dist_batch(rows: int, hw) -> dict:
-    """A seeded global batch: ``rows`` septuplets of smooth texture + noise
-    shifted from frame to frame, LR ``hw`` and GT x4."""
+def dist_batch(rows: int, hw, seed: int = 12) -> dict:
+    """A global batch from ``seed``: ``rows`` septuplets of smooth texture +
+    noise shifted from frame to frame, LR ``hw`` and GT x4."""
     import cv2
 
-    rng = np.random.default_rng(12)
+    rng = np.random.default_rng(seed)
     h, w = hw
     lq = np.empty((rows, 7, h, w, 3), np.float32)
     gt = np.empty((rows, 4 * h, 4 * w, 3), np.float32)
@@ -2185,6 +2206,49 @@ def dist_batch(rows: int, hw) -> dict:
     return {"lq": lq, "gt": gt}
 
 
+def one_process_step(tmp: str, accum: int, batch: dict, device) -> tuple:
+    """The one-process step of ``step{accum}.yml`` in ``tmp`` on the whole
+    ``batch`` at x4: (loss, gradients, BatchNorm buffers, host ms, the
+    network's config)."""
+    from savsr_tpu_torch.models import build_model
+    from savsr_tpu_torch.utils.options import parse_options
+
+    opt, _ = parse_options(tmp, True, ["-opt", os.path.join(tmp, f"step{accum}.yml"),
+                                       "--device", str(device)])
+    model = build_model(opt)
+    model.feed_data(dict(batch, scale=(4.0, 4.0)))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.optimize_parameters(1)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    return (float(model.log_dict["l_pix"]),
+            {k: p.grad.cpu().numpy() for k, p in model.net_g.named_parameters()},
+            {k: b.cpu().numpy() for k, b in model.net_g.named_buffers()}, one_ms,
+            model.net_g.cfg)
+
+
+def step_distance(out: dict, accum: int, ref, ref_b) -> tuple:
+    """A saved step's (``out``: "<accum>/g/<name>" gradients, "<accum>/b/"
+    buffers) distance from a one-process step's gradients ``ref`` and
+    buffers ``ref_b``: (its gradients, BatchNorm max |d|, (worst gradient's
+    error over its max, name), the gradients outside 2e-3 of their max +
+    1e-7 (phase 6's bound))."""
+    grads = {k: out[f"{accum}/g/{k}"] for k in ref}
+    d_bn = max(float(np.abs(out[f"{accum}/b/{k}"].astype(np.float64) - v).max())
+               for k, v in ref_b.items())
+    worst, failed = (0.0, ""), []
+    for k, v in ref.items():
+        err, ref_max = float(np.abs(grads[k] - v).max()), float(np.abs(v).max())
+        if ref_max > 1e-5:
+            worst = max(worst, (err / ref_max, k))
+        if not err <= 2e-3 * ref_max + 1e-7:
+            failed.append((k, err, ref_max))
+    return grads, d_bn, worst, failed
+
+
 def dist_parity(sd, device, net=None, rows: int = DIST_ROWS, hw=DIST_HW) -> dict:
     """(a) Two ranks on ``device`` over gloo take the flagship's strict-f32
     step at accum 1 and 2 on their shares of one global batch; each is held
@@ -2193,9 +2257,6 @@ def dist_parity(sd, device, net=None, rows: int = DIST_ROWS, hw=DIST_HW) -> dict
     gradient within 2e-3 of its own max + 1e-7 (phase 6's bounds); both
     ranks hold the same gradients; each rank's step launched the OSConv
     kernels as the architecture gives them."""
-    from savsr_tpu_torch.models import build_model
-    from savsr_tpu_torch.utils.options import parse_options
-
     net = net or flagship_net_kwargs()
     dev = "cuda:0" if device.type == "cuda" else "cpu"
     res = {}
@@ -2221,34 +2282,10 @@ def dist_parity(sd, device, net=None, rows: int = DIST_ROWS, hw=DIST_HW) -> dict
             if not np.array_equal(outs[0][k], outs[1][k]):
                 raise AssertionError(f"dist parity: the ranks hold different {k}")
         for accum in (1, 2):
-            opt, _ = parse_options(tmp, True, ["-opt", os.path.join(tmp, f"step{accum}.yml"),
-                                               "--device", str(device)])
-            model = build_model(opt)
-            model.feed_data(dict(batch, scale=(4.0, 4.0)))
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.optimize_parameters(1)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            one_ms = 1e3 * (time.perf_counter() - t0)
-            ref = {k: p.grad.cpu().numpy() for k, p in model.net_g.named_parameters()}
-            ref_b = {k: b.cpu().numpy() for k, b in model.net_g.named_buffers()}
-            ref_loss = float(model.log_dict["l_pix"])
-            cfg = model.net_g.cfg
-            del model
+            ref_loss, ref, ref_b, one_ms, cfg = one_process_step(tmp, accum, batch, device)
             out, info = outs[0], infos[0][str(accum)]
-            grads = {k: out[f"{accum}/g/{k}"] for k in ref}
             d_loss = abs(float(out[f"{accum}/loss"]) - ref_loss)
-            d_bn = max(float(np.abs(out[f"{accum}/b/{k}"].astype(np.float64) - v).max())
-                       for k, v in ref_b.items())
-            worst, failed = (0.0, ""), []
-            for k, v in ref.items():
-                err, ref_max = float(np.abs(grads[k] - v).max()), float(np.abs(v).max())
-                if ref_max > 1e-5:
-                    worst = max(worst, (err / ref_max, k))
-                if not err <= 2e-3 * ref_max + 1e-7:
-                    failed.append((k, err, ref_max))
+            grads, d_bn, worst, failed = step_distance(out, accum, ref, ref_b)
             expect = expected_osconv_launches(cfg, accum)
             counts = [infos[r][str(accum)]["launches"] for r in range(DIST_WORLD)]
             res[accum] = {"loss": ref_loss, "loss_diff": d_loss, "bn_diff": d_bn,
@@ -2678,6 +2715,253 @@ def phase_spatial(sd, device, eval_results: dict, net=None, hw=LR_HW,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: spatially sharded training (mesh {spatial: 2} with a train: block)
+# ---------------------------------------------------------------------------
+
+# the CLI run's iterations (one checkpoint) and the resumed run's end; its
+# validation clip (a quarter of phase 9's frame: the sharded eval is phase
+# 13's, and the phase keeps within ~120 s)
+SPATIAL_TRAIN_ITERS, SPATIAL_TRAIN_RESUME = 2, 4
+SPATIAL_TRAIN_VAL_HW = (288, 360)
+# the parity step's batch seed (phase 12's batch, seed 12, has a ReLU kink
+# in adapt.0's mask head that crosses the bound): one where a relative 1e-6
+# move of the input moves no gradient by more than its bound, in the whole
+# batch and in either micro-batch (kink_check, run by the phase); of seeds
+# 13-20 (scripts/gradient_kink_probe.py) 13 keeps the largest jump lowest
+SPATIAL_TRAIN_SEED = 13
+
+
+def strict_gradients(model, lq: np.ndarray, gt: np.ndarray, device) -> dict:
+    """One process's strict f32 gradient of the mean Charbonnier loss of
+    ``model`` at x4 on channel-last ``lq`` [B, T, h, w, C], ``gt``."""
+    model.zero_grad(set_to_none=True)
+    x = torch.from_numpy(lq).permute(0, 1, 4, 2, 3).contiguous().to(device)
+    y = torch.from_numpy(gt).permute(0, 3, 1, 2).to(device)
+    out, _ = model(x, (4.0, 4.0), train=True)
+    with float32_precision():
+        torch.sqrt((out - y) ** 2 + 1e-12).mean().backward()
+    return {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+
+
+def kink_check(model, batch: dict, device, draws: int = 3) -> dict:
+    """Whether ``batch`` sits near a ReLU kink that the parity bound would
+    see: for the whole batch and each half (accum 2's micro-batches), the
+    largest move of any gradient when the input moves by a relative 1e-6
+    (``draws`` draws), over that gradient's parity bound (2e-3 of its max +
+    1e-7): {part: (move over bound, gradient, move, its max)}. A ReLU input
+    within rounding distance of 0 flips under such a move, as it may under
+    another sum order (one process, two bands); the phase needs every jump
+    within the bound, so that no flip crosses it on its own (none of nine
+    seeds probed kept every jump within half of it: the mask heads' ReLUs
+    on batch statistics of 2-4 samples). (The CPU tests' premise, 1e-4 of the max, is
+    1e-9-5e-9 for a mask-head gradient, whose max is 1e-5-5e-5: below the
+    card's own run-to-run spread of the gradient, 7.5e-9-1.5e-8.)"""
+    n, worst = batch["lq"].shape[0], {}
+    for part, rows in (("whole", slice(0, n)), ("micro 0", slice(0, n // 2)),
+                       ("micro 1", slice(n // 2, n))):
+        lq, gt = batch["lq"][rows], batch["gt"][rows]
+        ref = strict_gradients(model, lq, gt, device)
+        noise = np.random.default_rng(5)
+        worst[part] = (0.0, "", 0.0, 0.0)
+        for _ in range(draws):
+            moved = strict_gradients(model, (lq * (1 + 1e-6 * noise.standard_normal(lq.shape)))
+                                     .astype(np.float32), gt, device)
+            for k, v in ref.items():
+                d, top = float(np.abs(moved[k] - v).max()), float(np.abs(v).max())
+                worst[part] = max(worst[part], (d / (2e-3 * top + 1e-7), k, d, top))
+    return worst
+
+
+def spatial_train_parity(sd, device, net=None, rows: int = DIST_ROWS, hw=DIST_HW,
+                         seed: int = SPATIAL_TRAIN_SEED) -> dict:
+    """(a) Two ranks on ``device`` over gloo, mesh {spatial: 2}, take the
+    flagship's strict-f32 step at accum 1 and 2, each on its band of rows of
+    every sample of a global batch like phase 12's, from ``seed`` (bands of
+    30 LR and 120 HR rows at 60x60, x4), whose ReLU kinks must each jump
+    by less than the bound (``kink_check``: the premise of the bounds,
+    checked here); each is
+    held against the one-process step on the whole batch on the same
+    device at phase 12's bounds: loss within 1e-5, BatchNorm statistics within 1e-6,
+    every gradient within 2e-3 of its own max + 1e-7; both ranks hold the
+    same gradients; each rank's step launched rows 6-7 on their CUDA kernels
+    as the architecture gives them (counts zeroed just before the step, read
+    just after), no plain version. Prints each rank's exchanges and bytes
+    sent a step and its step time beside one process's."""
+    net = net or flagship_net_kwargs()
+    dev = "cuda:0" if device.type == "cuda" else "cpu"
+    smi = card_name()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "weights.pth")
+        torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+        batch = dist_batch(rows, hw, seed)
+        np.savez(os.path.join(tmp, "batch.npz"), **batch)
+        for accum in (1, 2):
+            with open(os.path.join(tmp, f"step{accum}.yml"), "w") as f:
+                f.write(dist_yml(f"spatial_train_{accum}", accum, pth, net)
+                        + f"mesh:\n  spatial: {SPATIAL_WORLD}\n")
+        with open(os.path.join(tmp, "worker.py"), "w") as f:
+            f.write(DIST_STEP_WORKER)
+        t0 = time.perf_counter()
+        torchrun(SPATIAL_WORLD, [os.path.join(tmp, "worker.py"), tmp, dev], tmp)
+        ranks_s = time.perf_counter() - t0
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(SPATIAL_WORLD)]
+        infos = []
+        for r in range(SPATIAL_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                infos.append(json.load(f))
+        same = all(np.array_equal(outs[0][k], outs[1][k]) for k in outs[0])
+        for accum in (1, 2):
+            # the same configs without the mesh: the one-process step
+            with open(os.path.join(tmp, f"step{accum}.yml"), "w") as f:
+                f.write(dist_yml(f"spatial_train_one_{accum}", accum, pth, net))
+            ref_loss, ref, ref_b, one_ms, cfg = one_process_step(tmp, accum, batch, device)
+            out = outs[0]
+            recs = [infos[r][str(accum)] for r in range(SPATIAL_WORLD)]
+            loss = float(out[f"{accum}/loss"])
+            d_loss = abs(loss - ref_loss)
+            grads, d_bn, worst, failed = step_distance(out, accum, ref, ref_b)
+            expect = expected_osconv_launches(cfg, accum)
+            counts = [{f"{k} ({CUDA_KERNELS[k, 'f32']})": rec["launches"][k]
+                       for k in TRAINING_KERNELS} for rec in recs]
+            res[accum] = {"loss": loss, "loss_diff": d_loss, "bn_diff": d_bn,
+                          "worst_rel": worst[0], "worst_at": worst[1],
+                          "rel_l2": rel_l2(grads, ref), "ranks_equal": same,
+                          "rank_ms": [rec["ms"] for rec in recs], "one_ms": one_ms,
+                          "exchanges": [rec["exchanges"] for rec in recs],
+                          "bytes": [rec["bytes"] for rec in recs], "launches": counts}
+            log(f"[spatial-train] parity accum {accum}: {recs[0]['rows']} samples of "
+                f"{hw[0]}x{hw[1]} (batch seed {seed}) at x4 on {SPATIAL_WORLD} bands (world "
+                f"{recs[0]['world']}, mesh spatial {SPATIAL_WORLD}, gloo on {dev}), strict f32, "
+                f"num_feat {net['num_feat']}: loss {loss:.8f} vs one process {ref_loss:.8f} (|d| "
+                f"{d_loss:.2e}, bound 1e-5); BatchNorm statistics |d| {d_bn:.2e} (bound 1e-6); "
+                f"worst gradient {worst[0]:.3e} of its max at {worst[1]} (bound 2e-3 + 1e-7); "
+                f"whole gradient {res[accum]['rel_l2']:.3e} relative L2; ranks' gradients and "
+                f"statistics {'identical' if same else 'DIFFERENT'}; rows 6-7 launches a rank "
+                f"{counts}; exchanges / bytes sent a rank-step "
+                f"{list(zip(res[accum]['exchanges'], res[accum]['bytes']))}; step ms rank 0 / 1 "
+                f"{recs[0]['ms']:.1f} / {recs[1]['ms']:.1f} (two ranks sharing one card: not a "
+                f"scaling figure), one process {one_ms:.1f} ({smi})")
+            bad_counts = (device.type == "cuda" and any(
+                any(rec["launches"][k] != v for k, v in expect.items()) for rec in recs)) or any(
+                any(rec["plain_cuda"].values()) for rec in recs)
+            if not d_loss < 1e-5 or not d_bn <= 1e-6 or failed or bad_counts or not same:
+                raise AssertionError(f"spatial-train parity accum {accum}: loss {d_loss}, "
+                                     f"BatchNorm {d_bn}, gradients off {failed[:5]}, ranks equal "
+                                     f"{same}, launches {[r['launches'] for r in recs]} "
+                                     f"(expected {expect})")
+    log(f"[spatial-train] parity: two ranks' run {ranks_s:.1f} s (start-up included)")
+    t0 = time.perf_counter()
+    model = SAVSR(**dict(net, remat_train=False))
+    load_into(model, {k: torch.from_numpy(v) for k, v in sd.items()})
+    worst = kink_check(model.to(device), batch, device)
+    res["kink"] = worst
+    log(f"[spatial-train] premise: batch seed {seed}, the largest gradient move under a "
+        f"relative 1e-6 input move (3 draws) over its bound (2e-3 of its max + 1e-7; at "
+        f"most 1), "
+        f"by part (over bound, gradient, move, its max): "
+        f"{({k: (round(v[0], 4), v[1], f'{v[2]:.3e}', f'{v[3]:.3e}') for k, v in worst.items()})} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(v[0] <= 1.0 for v in worst.values()):
+        raise AssertionError(f"spatial-train: batch seed {seed} sits near a ReLU kink: {worst}")
+    return res
+
+
+def spatial_train_cli(device, n_seq: int = 32, yml: str = TRAIN_YML) -> dict:
+    """(b) The training CLI under torch.distributed.run with mesh {spatial:
+    2}: the shipped recipe (phase 7's copy, seeded septuplets; 60-row LR
+    crops, bands of 30) on two ranks over gloo on one card for
+    SPATIAL_TRAIN_ITERS iterations with one checkpoint and the final
+    validation (the sharded eval, on a SPATIAL_TRAIN_VAL_HW clip), written
+    by rank 0 alone; then both ranks resume from it (--auto_resume) to
+    SPATIAL_TRAIN_RESUME."""
+    from savsr_tpu_torch.utils.options import yaml_load
+
+    dev = "cuda:0" if device.type == "cuda" else "cpu"
+    yml = (yml.replace("name: smoke_SAVSR_Vimeo90K_asBI", "name: spatial_train")
+           + f"mesh:\n  spatial: {SPATIAL_WORLD}\ndist_params:\n  backend: gloo\n")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_septuplets(tmp, n_seq)
+        write_clip(os.path.join(tmp, "Vid4", "GT"), EVAL_FRAMES, SPATIAL_TRAIN_VAL_HW,
+                   name="calendar")
+        cfg = os.path.join(tmp, "spatial_train.yml")
+        with open(cfg, "w") as f:
+            f.write(yml.format(root=tmp, iters=SPATIAL_TRAIN_ITERS))
+        train = ["-m", "savsr_tpu_torch.train", "-opt", cfg, "--launcher", "pytorch",
+                 "--device", dev]
+        exp = os.path.join(tmp, "experiments", "spatial_train")
+        t0 = time.perf_counter()
+        torchrun(SPATIAL_WORLD, train, tmp, log_dir=os.path.join(tmp, "logs1"))
+        res["seconds"] = time.perf_counter() - t0
+        models, states = sorted(os.listdir(os.path.join(exp, "models"))), sorted(
+            os.listdir(os.path.join(exp, "training_states")))
+        logs = train_log_lines(exp)
+        want = ([f"net_g_{SPATIAL_TRAIN_ITERS}.npz", "net_g_latest.npz"],
+                [f"{SPATIAL_TRAIN_ITERS}.state"])
+        if (models, states) != want or len(logs) != 1:
+            raise AssertionError(f"spatial-train cli: models {models}, states {states} (want "
+                                 f"{want}), logs {logs}")
+        recs = iter_records(logs[0])
+        with open(logs[0]) as f:
+            val = [ln for ln in f if "# psnr_y" in ln]
+        if [r[0] for r in recs] != list(range(1, SPATIAL_TRAIN_ITERS + 1)) or not val or not all(
+                np.isfinite(r[2]) for r in recs):
+            raise AssertionError(f"spatial-train cli: iterations {recs}, validation {val}")
+        res["iterations"] = recs
+        train_opt = yaml_load(cfg)
+        b = train_opt["datasets"]["train"]["batch_size_per_gpu"]
+        lq = train_opt["datasets"]["train"]["lq_size"]
+        log(f"[spatial-train] cli, {SPATIAL_WORLD} ranks over gloo on {dev} with mesh spatial "
+            f"{SPATIAL_WORLD} (sharing one card; not a scaling figure), the shipped recipe (B={b} "
+            f"a data group = {train_opt['train']['accum_steps']} micro-batches, each sample's "
+            f"{lq}-row LR crop in bands of {lq // SPATIAL_WORLD}, bf16 "
+            f"{train_opt['train']['bf16']}), "
+            f"{SPATIAL_TRAIN_ITERS} iterations in {res['seconds']:.1f} s (start-up and the "
+            f"final validation included): per iteration (time s, l_pix) "
+            f"{[(r[0], r[1], round(r[2], 5)) for r in recs]}; rank 0 wrote {models} + {states} "
+            f"and one log; final validation: {val[-1].strip()[:60]}")
+
+        t0 = time.perf_counter()
+        torchrun(SPATIAL_WORLD, train + ["--auto_resume", "--force_yml",
+                                         f"train:total_iter={SPATIAL_TRAIN_RESUME}"],
+                 tmp, log_dir=os.path.join(tmp, "logs2"))
+        res["resume_seconds"] = time.perf_counter() - t0
+        outs = rank_logs(os.path.join(tmp, "logs2"))
+        ckpt = f"net_g_{SPATIAL_TRAIN_ITERS}.npz"
+        resumed = {r: ckpt in out and "Set pretrain_network_g" in out for r, out in outs.items()}
+        recs = iter_records(train_log_lines(exp)[-1])
+        models = sorted(os.listdir(os.path.join(exp, "models")))
+        if (sorted(resumed) != list(range(SPATIAL_WORLD)) or not all(resumed.values())
+                or [r[0] for r in recs] != list(range(SPATIAL_TRAIN_ITERS + 1,
+                                                      SPATIAL_TRAIN_RESUME + 1))
+                or not all(np.isfinite(r[2]) for r in recs)
+                or f"net_g_{SPATIAL_TRAIN_RESUME}.npz" not in models):
+            raise AssertionError(f"spatial-train cli resume: ranks resumed {resumed}, "
+                                 f"iterations {recs}, models {models}")
+        res["resumed"] = recs
+        log(f"[spatial-train] cli resume (--auto_resume, total_iter {SPATIAL_TRAIN_RESUME}): "
+            f"both ranks loaded {ckpt} ({resumed}); iterations "
+            f"{[(r[0], r[1], round(r[2], 5)) for r in recs]} in {res['resume_seconds']:.1f} s; "
+            f"rank 0 wrote {models}")
+    return res
+
+
+def phase_spatial_train(sd, device) -> dict:
+    """Phase 14: spatially sharded training, two ranks over gloo on one card
+    (mesh {spatial: 2}): (a) the flagship's strict step against one
+    process's, (b) the training CLI and its resume."""
+    t0 = time.perf_counter()
+    res = {"parity": spatial_train_parity(sd, device)}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res["cli"] = spatial_train_cli(device)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[spatial-train] phase 14: {res['seconds']:.1f} s")
+    return res
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them, each
     distinct line once (the CPU's rehearsal: "cpu")."""
@@ -2769,6 +3053,8 @@ def main(argv=None) -> int:
     dist = phase_dist(sd, device, evaluation["results"])
     torch.cuda.empty_cache()
     spatial = phase_spatial(sd, device, evaluation["results"])
+    torch.cuda.empty_cache()
+    spatial_train = phase_spatial_train(sd, device)
     rows = rows + split["rows"] + fast["rows"]
 
     def entry(name, dtype, source, replaces, launches):
@@ -2809,7 +3095,8 @@ def main(argv=None) -> int:
                        "training": training, "eval": evaluation,
                        "split": {k: v for k, v in split.items() if k != "rows"},
                        "fast": {k: v for k, v in fast.items() if k != "rows"},
-                       "dist": dist, "spatial": spatial, "kernels": kernels}, f, indent=1)
+                       "dist": dist, "spatial": spatial, "spatial_train": spatial_train,
+                       "kernels": kernels}, f, indent=1)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

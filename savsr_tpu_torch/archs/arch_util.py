@@ -118,6 +118,14 @@ class TrainCtx:
     # the process group whose ranks' rows make up the global batch: the
     # BatchNorm statistics are taken over all of them (None: this batch)
     group: Optional[object] = None
+    # spatially sharded (a parallel.spatial.BandGroup, its rows the padded
+    # frame's bands): every feature is this rank's band of rows
+    band: Optional[object] = None
+    # sharded: the halo extensions made in this segment of the forward
+    # (train_engine._halo), id of a feature -> (the feature, its
+    # extension); each checkpointed segment, and each recomputation of one,
+    # starts an empty one
+    halo: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(default_factory=dict)
 
 
 class _WorldSum(torch.autograd.Function):
@@ -145,7 +153,8 @@ def _global_mean(t: torch.Tensor, dims, n: int, group) -> torch.Tensor:
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, ctx: Optional[TrainCtx] = None,
-               eps: float = 1e-5, momentum: float = 0.1) -> torch.Tensor:
+               eps: float = 1e-5, momentum: float = 0.1, group=None,
+               count: Optional[int] = None) -> torch.Tensor:
     """BatchNorm over every dim but 1, in the JAX package's form
     (x - mean) * rsqrt(var + eps) * gamma + beta, all in x's dtype.
 
@@ -153,24 +162,26 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, ctx: Optional[TrainCtx] = No
     the batch statistics normalise (biased variance); the running-stat
     update (unbiased variance, momentum 0.1, num_batches_tracked + 1) is
     recorded in ``ctx.stats`` and never written into the module here. With
-    ``ctx.group``, the batch is the global one, every rank holding an equal
-    part: the mean, then the variance, are taken over the world's rows
+    ``group`` (the caller's choice: ``ctx.group`` for a batch spread over
+    the world), x is this rank's part of a batch spread over the group's
+    ranks: the mean, then the variance, are taken over their rows
     (differentiably, so each rank's backward carries the other ranks'
     dependence on its rows), and ``n`` is the global count, as the JAX
-    package's mean over a batch sharded across devices is."""
+    package's mean over a batch sharded across devices is: ``count``, else
+    this rank's count times the group's size (equal parts)."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
     dt = x.dtype
     if ctx is not None and ctx.train:
         dims = [d for d in range(x.dim()) if d != 1]
         n = x.numel() // x.shape[1]
-        if ctx.group is None:
+        if group is None:
             mean = x.mean(dim=dims)
             var = ((x - mean.view(shape)) ** 2).mean(dim=dims)
         else:
-            n *= torch.distributed.get_world_size(ctx.group)
-            mean = _global_mean(x, dims, n, ctx.group).to(dt)
+            n = count if count is not None else n * torch.distributed.get_world_size(group)
+            mean = _global_mean(x, dims, n, group).to(dt)
             d = x - mean.view(shape)
-            var = _global_mean(d * d, dims, n, ctx.group).to(dt)
+            var = _global_mean(d * d, dims, n, group).to(dt)
         prev = ctx.stats.get(bn, {})
         rm = prev.get("running_mean", bn.running_mean)
         rv = prev.get("running_var", bn.running_var)
@@ -242,11 +253,19 @@ def _resize_matrix(in_size: int, out_size: int, align_corners: bool, dtype,
 
 
 def interpolate_bilinear(x: torch.Tensor, size: Tuple[int, int],
-                         align_corners: bool = False) -> torch.Tensor:
+                         align_corners: bool = False, rows=None, src=None) -> torch.Tensor:
     """NCHW bilinear resize matching ``F.interpolate(mode='bilinear')``, as
-    two dense-matrix products (the JAX package's formulation)."""
+    two dense-matrix products (the JAX package's formulation); ``rows``
+    (y0, y1): only those rows of the output; ``src`` (r0, h): x holds rows
+    [r0, r0 + its height) of an ``h``-row input (all the rows those output
+    rows read)."""
     h, w = x.shape[2:]
+    r0, h = (0, h) if src is None else src
     mh = _resize_matrix(h, size[0], align_corners, x.dtype, x.device)
+    if rows is not None:
+        mh = mh[rows[0]:rows[1]]
+    if src is not None:
+        mh = mh[:, r0:r0 + x.shape[2]]
     mw = _resize_matrix(w, size[1], align_corners, x.dtype, x.device)
     y = torch.einsum("Hh,bchw->bcHw", mh, x)
     return torch.einsum("Ww,bchw->bchW", mw, y)
@@ -260,15 +279,20 @@ def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
 
-def sta_conv(feat: torch.Tensor, kernel: torch.Tensor, st_ksize: int = 5) -> torch.Tensor:
+def sta_conv(feat: torch.Tensor, kernel: torch.Tensor, st_ksize: int = 5,
+             rows=(0, 0)) -> torch.Tensor:
     """Per-pixel spatio-temporal filtering, unfused (the training engine's
     form): ``feat`` [B, C, h, w] filtered by the per-pixel k*k kernels packed
     channel-major (c*k*k + dy*k + dx) in ``kernel`` [B, C*k*k, h, w], over
-    the replicate-padded feature, as k*k shifted multiply-accumulates."""
-    b, c, h, w = feat.shape
-    fp = replicate_pad_hw(feat, (st_ksize - 1) // 2)
+    the replicate-padded feature, as k*k shifted multiply-accumulates.
+    ``rows`` (above, below): rows of ``feat`` beyond the kernel's on each
+    side (a band's neighbours' rows, (k-1)/2 or none); a side without them
+    is replicate-padded."""
+    b, c, h, w = kernel.shape[0], feat.shape[1], kernel.shape[2], kernel.shape[3]
+    p = (st_ksize - 1) // 2
+    fp = F.pad(feat, (p, p, p - rows[0], p - rows[1]), mode="replicate")
     k5 = kernel.reshape(b, c, st_ksize * st_ksize, h, w)
-    out = torch.zeros_like(feat)
+    out = feat.new_zeros((b, c, h, w))
     for dy in range(st_ksize):
         for dx in range(st_ksize):
             out = out + fp[:, :, dy:dy + h, dx:dx + w] * k5[:, :, dy * st_ksize + dx]

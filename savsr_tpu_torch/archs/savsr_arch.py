@@ -19,10 +19,11 @@ whose ``state_dict`` keys and shapes equal the reference's
   of archs/train_engine.py, whose OSConv engine is the pair of kernels of
   ops/osconv.py; it returns ``(sr, stats_updates)``.
 
-The serving forward also runs spatially sharded (``band``, a
+Both forwards also run spatially sharded (``band``, a
 ``parallel.spatial.BandGroup``): every rank of the group holds the whole
-LR window and computes its band of the output's rows (``_forward`` and
-``_upsample_band``), with the same kernels on taller or shorter frames.
+LR window and computes its band of the output's rows (serving:
+``_forward`` and ``_upsample_band``; training: archs/train_engine.py), with
+the same kernels on taller or shorter frames.
 
 The small heads that the JAX package leaves to XLA (ScaleAttention MLPs,
 the OSAdapt mask head, the STAU coordinate head) run as plain PyTorch ops.
@@ -203,7 +204,11 @@ def scale_attention_apply(att: ScaleAttention, v: torch.Tensor, temperature: flo
     batch statistics in training; ``fast`` rounds the products' operands to
     bf16 (the fast tier, ``arch_util.dot_operand``), as ``fast`` does in
     every head below."""
-    v = torch.relu(batch_norm(fc1x1(v, att.fc, fast), att.bn, ctx))
+    # statistics over the batch's group; on bands, which compute this
+    # vector alike, over the band's data group (each sample once)
+    group = None if ctx is None else (
+        ctx.band.data_group if ctx.band is not None else ctx.group)
+    v = torch.relu(batch_norm(fc1x1(v, att.fc, fast), att.bn, ctx, group=group))
     ca = sigmoid(fc1x1(v, att.channel_fc, fast) / temperature)
     fa = (None if att.filter_fc is None
           else sigmoid(fc1x1(v, att.filter_fc, fast) / temperature))
@@ -235,13 +240,13 @@ def osadapt_mask(m: OSAdapt, x: torch.Tensor, ctx=None, fast: bool = False) -> t
     """The downsample/upsample mask head of OSAdapt (reference
     savsr_arch.py:190-205) -> [B, 1, H, W]. The bilinear resize stays f32
     in the fast tier, as the JAX package pins it to highest precision."""
-    s = m.mask
-    y = torch.relu(batch_norm(conv2d(x, s[0], 1, fast), s[1], ctx))
+    s, g = m.mask, None if ctx is None else ctx.group
+    y = torch.relu(batch_norm(conv2d(x, s[0], 1, fast), s[1], ctx, group=g))
     y = avg_pool2(y)
-    y = torch.relu(batch_norm(conv2d(y, s[4], 1, fast), s[5], ctx))
-    y = torch.relu(batch_norm(conv2d(y, s[7], 1, fast), s[8], ctx))
+    y = torch.relu(batch_norm(conv2d(y, s[4], 1, fast), s[5], ctx, group=g))
+    y = torch.relu(batch_norm(conv2d(y, s[7], 1, fast), s[8], ctx, group=g))
     y = upsample_bilinear_2x(y)
-    return sigmoid(batch_norm(conv2d(y, s[11], 1, fast), s[12], ctx))
+    return sigmoid(batch_norm(conv2d(y, s[11], 1, fast), s[12], ctx, group=g))
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +375,7 @@ def band_statics(statics: Dict[str, torch.Tensor], lq_hw, count: int, index: int
     H = pix.shape[1]
     lr = spatial.band_rows(h + h % 2, count)
     hr = spatial.hr_band_rows(lr, h, H)
-    ext = [(max(y0 - 1, 0), min(y1 + 1, H)) for y0, y1 in hr]
+    ext = spatial.sampler_rows(hr, H)
     windows = spatial.stau_reach(pix, ext, h)
     (e0, e1), (l0, l1) = ext[index], windows[index]
     pix_b = pix[:, e0:e1].clone()
@@ -381,6 +386,15 @@ def band_statics(statics: Dict[str, torch.Tensor], lq_hw, count: int, index: int
             "tail_j0": statics["tail_j0"][e0:e1].contiguous(),
             "tail_wy": statics["tail_wy"][e0:e1].contiguous(),
             "tail_c0": statics["tail_c0"], "tail_cw": statics["tail_cw"]}
+
+
+def band_input(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Rows [a - HALO, b + HALO) of the padded frames [B, T, C, hp, wp],
+    zeros outside the frame (the convs' padding)."""
+    hp = x.shape[3]
+    lo, hi = max(a - spatial.HALO, 0), min(b + spatial.HALO, hp)
+    pad = (0, 0, lo - (a - spatial.HALO), b + spatial.HALO - hi)
+    return torch.nn.functional.pad(x[:, :, :, lo:hi], pad)
 
 
 def stau_apply(m: STAUpsample, x: torch.Tensor, scale: Scale, st_feat: torch.Tensor,
@@ -678,23 +692,22 @@ class SAVSR(nn.Module):
         which ``x`` is this rank's part). Training returns ``(sr,
         stats_updates)``, the updates keyed like the state_dict
         ("adapt.0.mask.1.running_mean", ...). ``band`` (a
-        ``parallel.spatial.BandGroup``; serving only): x is the whole
-        window on every rank of the group, and the result this band's rows
-        ``stau_statics['band']['hr'][band.index]`` of the output."""
+        ``parallel.spatial.BandGroup``): x is the whole window on every rank
+        of the group, and the result this band's rows of the output
+        (serving: ``stau_statics['band']['hr'][band.index]``; training:
+        ``spatial.hr_band_rows`` of the padded LR frame's bands, the same
+        rows; ``bn_group`` is then the world)."""
         scale = normalize_scale(scale)
         train_engines = train if self.cfg.engines == "auto" else self.cfg.engines == "train"
         if train and not train_engines:
             raise ValueError("train=True needs the training engine (engines: auto | train)")
-        if train_engines and band is not None:
-            raise NotImplementedError("spatially sharded training (mesh: spatial > 1) is not "
-                                      "ported yet (ROADMAP A.5)")
         if train_engines:
             from .train_engine import savsr_train_forward
 
             # f32 at default: every product one bf16 pass, forward and backward
             fast = self.cfg.matmul_precision == "default" and x.dtype == torch.float32
             with self.train_precision(x.dtype):
-                sr, updates = savsr_train_forward(self, x, scale, train, fast, bn_group)
+                sr, updates = savsr_train_forward(self, x, scale, train, fast, bn_group, band)
             return (sr, updates) if train else sr
         tier = self.serving_tier()
         with self._precision(tier), torch.no_grad():
@@ -723,7 +736,7 @@ class SAVSR(nn.Module):
                 statics = self.stau_statics((h_in, w_in), scale, x.dtype, x.device, band)
             band = dataclasses.replace(band, rows=tuple(statics["band"]["lr"]))
             a, b_ = band.rows[band.index]
-            x = self._band_input(x, a, b_)
+            x = band_input(x, a, b_)
             rows = x.shape[3]
         fwd_idx, bwd_idx = frame_sample_indices(t, cfg.interval)
         x_forward = x[:, fwd_idx] if cfg.interval else x
@@ -764,15 +777,6 @@ class SAVSR(nn.Module):
         sr = stau_apply(self.upsample, h_feat[:, :, :h_in, :w_in], scale,
                         align_feat[:, :, :h_in, :w_in], statics, fast)
         return tail_fused_apply(self.tail, sr, x_center, statics, fast)
-
-    @staticmethod
-    def _band_input(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
-        """Rows [a - HALO, b + HALO) of the padded frames [B, T, C, hp, wp],
-        zeros outside the frame (the convs' padding)."""
-        hp = x.shape[3]
-        lo, hi = max(a - spatial.HALO, 0), min(b + spatial.HALO, hp)
-        pad = (0, 0, lo - (a - spatial.HALO), b + spatial.HALO - hi)
-        return torch.nn.functional.pad(x[:, :, :, lo:hi], pad)
 
     def _upsample_band(self, h_feat, align_feat, x_center, w_in: int, bs: Dict, band,
                        fast: bool) -> torch.Tensor:

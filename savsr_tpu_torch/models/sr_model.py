@@ -29,13 +29,22 @@ training dtype, as the JAX package's does, at the tier the network's
 settings name (``SAVSR.serving_tier``: strict at ``matmul_precision:
 float32``, fast at ``default``, split with ``conv_precision: split``).
 
-With ``mesh: {spatial: S}`` the S ranks of a band group share each eval
-frame: each runs the forward on its band of rows (``SAVSR.forward(...,
-band=)``, the band's statics cached with the frame's) and band 0 gathers the
-output (``parallel.spatial.gather_rows``); the other bands' ``output`` is
-None. Not ported yet (each raises NotImplementedError): spatially sharded
-training, ``train: bucket_train``, ``train: degrade_on_device``,
-perceptual/GAN losses, ``val: bucket_eval`` / ``bucket_auto``.
+With ``mesh: {data: D, spatial: S}`` the S ranks of a band group share
+each frame. In training they hold the same samples (the sampler and the
+augmentation draws are keyed by the data index, and each step takes band
+0's batch on every band: ``parallel.spatial.share_batch``), each runs the
+training forward on its band of rows (``SAVSR.forward(..., train=True,
+band=)``) and its loss is its share of the frame's: the loss of the
+band's HR rows of ``gt``, times their share of the frame's rows with
+``reduction: mean`` (as is with ``sum``), so that the bands' shares add
+up to the frame's loss; the gradients are summed over the world and divided by D
+(``parallel.reduce_gradients``), the logged losses too. In the eval each
+runs the serving forward on its band (the band's statics cached with the
+frame's) and band 0 gathers the output (``parallel.spatial.gather_rows``);
+the other bands' ``output`` is None. Not ported yet (each raises
+NotImplementedError): ``train: bucket_train``, ``train:
+degrade_on_device``, perceptual/GAN losses, ``val: bucket_eval`` /
+``bucket_auto``.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ from ..data.resize import resize_np
 from ..losses import build_loss
 from ..metrics import calculate_metric
 from ..parallel import all_reduce_sum, reduce_gradients, replicate
-from ..parallel.spatial import gather_rows
+from ..parallel.spatial import frame_hr_rows, gather_rows, share_batch
 from ..utils.dist_util import barrier
 from ..utils.img_util import array2img, imwrite
 from ..utils.logger import get_root_logger
@@ -112,11 +121,6 @@ class SRModel(BaseModel):
     def init_training_settings(self) -> None:
         train_opt = self.opt["train"]
         logger = get_root_logger()
-        if self.mesh.spatial > 1:
-            raise NotImplementedError(
-                f"mesh: spatial: {self.mesh.spatial}: spatially sharded training (a "
-                "differentiable halo exchange, the OSConv weight gradient over bands) is not "
-                "ported yet (ROADMAP A.5); the eval forward runs on bands")
         for key in ("bucket_train", "degrade_on_device"):
             if train_opt.get(key, False):
                 raise NotImplementedError(f"train: {key} is not ported yet")
@@ -190,18 +194,35 @@ class SRModel(BaseModel):
             self.scale = ((float(s[0]), float(s[1])) if isinstance(s, (tuple, list))
                           else (float(s), float(s)))
 
+    def share_group_batch(self) -> None:
+        """Under ``mesh: spatial``, band 0's batch on every band of its data
+        group (``share_batch``): with worker threads a band's loader may have
+        built its items' crops and flips apart from band 0's."""
+        if self.mesh.bands is not None:
+            s = self.scale if isinstance(self.scale, (tuple, list)) else (self.scale, self.scale)
+            self.lq, self.gt, self.scale = share_batch(self.lq, self.gt, s, self.mesh.bands)
+
     def _loss(self, lq: torch.Tensor, gt: torch.Tensor, scale):
         """Forward + pixel loss of one (micro-)batch: (total, losses,
-        BatchNorm running-stat updates)."""
-        net, group = self.net_g, self.mesh.group
+        BatchNorm running-stat updates); under ``mesh: spatial``, this
+        band's share of the loss (module docstring)."""
+        net, group, band = self.net_g, self.mesh.group, self.mesh.bands
+        kwargs = {"train": True, "bn_group": group, "band": band}
         if self.opt["train"].get("bf16", False):
             cast = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
                     for k, v in chain(net.named_parameters(), net.named_buffers())}
             output, updates = torch.func.functional_call(
-                net, cast, (lq.to(torch.bfloat16), scale), {"train": True, "bn_group": group})
+                net, cast, (lq.to(torch.bfloat16), scale), kwargs)
         else:
-            output, updates = net(lq, scale, train=True, bn_group=group)
-        l_pix = self.cri_pix(output.float(), gt)
+            output, updates = net(lq, scale, **kwargs)
+        if band is None:
+            l_pix = self.cri_pix(output.float(), gt)
+        else:
+            h, H = lq.shape[-2], gt.shape[-2]
+            y0, y1 = frame_hr_rows(h, H, band.count)[band.index]
+            l_pix = self.cri_pix(output.float(), gt[:, :, y0:y1])
+            if self.cri_pix.reduction == "mean":
+                l_pix = l_pix * ((y1 - y0) / H)
         return l_pix, {"l_pix": l_pix.detach(), "l_total": l_pix.detach()}, updates
 
     @torch.no_grad()
@@ -221,6 +242,7 @@ class SRModel(BaseModel):
         several ranks the micro-batches are global and the gradients and
         losses are averaged over the ranks (module docstring)."""
         accum = int(self.opt["train"].get("accum_steps", 1))
+        self.share_group_batch()
         if self.lq.shape[0] % accum != 0:
             raise ValueError(
                 f"train: accum_steps={accum} requires the batch dimension "

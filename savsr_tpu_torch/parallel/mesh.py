@@ -15,16 +15,19 @@ BatchNorm running statistics are written outside autograd.
 
 The ``spatial`` axis (``mesh: {data: D, spatial: S}``, D x S ranks): rank r
 sits in data group r // S at band r % S (the JAX mesh's row-major
-(data, spatial) order); the S ranks of a data group share each frame of the
-eval forward, each computing its band of rows (``parallel/spatial.py``),
-and the data groups stride the eval's items. Spatially sharded training is
-not ported: the trainer raises.
+(data, spatial) order); the S ranks of a data group hold the same samples
+and share each frame, each computing its band of rows
+(``parallel/spatial.py``), in the eval forward and in the training step;
+the data groups stride the eval's items and split the global batch. In
+training each band's loss is its share of the frame's, so the gradient is
+the sum over the bands and the mean over the data groups: one all-reduce
+over the world, times 1 / D (``reduce_gradients``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Optional
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +45,8 @@ class Mesh:
     process's global rank; ``group`` is the world's process group (None in
     a world of one, where nothing is communicated), ``data_group`` that of
     the D ranks of this rank's band index (the world when S is 1), and
-    ``bands`` this rank's band group (None when S is 1)."""
+    ``bands`` this rank's band group (None when S is 1; it carries the
+    data group and D)."""
 
     shape: Dict[str, int] = field(default_factory=lambda: {"data": 1, "spatial": 1})
     rank: int = 0
@@ -68,20 +72,16 @@ class Mesh:
         return self.rank % self.spatial
 
 
-def get_mesh_from_opt(opt: Optional[dict]) -> Mesh:
-    """The mesh of ``opt['mesh']`` ({axis: size}, -1 fills with the rest of
-    the world; default ``{data: -1, spatial: 1}``) over the process group
-    when ``opt['dist']`` (a launcher joined one), else over this process
-    alone. data x spatial must equal the world size (one process per GPU).
-    Every rank makes every group, in one order."""
-    opt = opt or {}
-    spec = {k: int(v) for k, v in (opt.get("mesh") or {}).items()}
+def mesh_axes(opt: Optional[dict], world: int) -> Tuple[int, int]:
+    """(D, S): the data and spatial axes of ``opt['mesh']`` ({axis: size},
+    -1 fills with the rest of the world; default ``{data: -1, spatial:
+    1}``) over a world of ``world`` ranks, whose size D x S must be."""
+    spec = {k: int(v) for k, v in ((opt or {}).get("mesh") or {}).items()}
     unknown = set(spec) - {"data", "spatial"}
     if unknown:
         raise ValueError(f"mesh: unknown axes {sorted(unknown)} (data | spatial)")
     spec.setdefault("data", -1)
     spec.setdefault("spatial", 1)
-    rank, world = get_dist_info() if opt.get("dist") else (0, 1)
     fill = [k for k, v in spec.items() if v == -1]
     if len(fill) > 1:
         raise ValueError(f"mesh: {spec} has more than one axis of size -1")
@@ -91,6 +91,17 @@ def get_mesh_from_opt(opt: Optional[dict]) -> Mesh:
     if d * s != world:
         raise ValueError(f"mesh: data: {d} x spatial: {s} must equal the world size {world} "
                          "(one process per GPU)")
+    return d, s
+
+
+def get_mesh_from_opt(opt: Optional[dict]) -> Mesh:
+    """The mesh of ``opt['mesh']`` (``mesh_axes``) over the process group
+    when ``opt['dist']`` (a launcher joined one), else over this process
+    alone. data x spatial must equal the world size (one process per GPU).
+    Every rank makes every group, in one order."""
+    opt = opt or {}
+    rank, world = get_dist_info() if opt.get("dist") else (0, 1)
+    d, s = mesh_axes(opt, world)
     if world == 1:
         return Mesh({"data": 1, "spatial": 1})
     if s == 1:
@@ -105,6 +116,7 @@ def get_mesh_from_opt(opt: Optional[dict]) -> Mesh:
         group = dist.new_group(list(range(b, world, s)))
         if rank % s == b:
             data_group = group
+    bands = replace(bands, data=d, data_group=data_group if d > 1 else None)
     return Mesh({"data": d, "spatial": s}, rank, dist.group.WORLD, data_group, bands)
 
 
@@ -193,10 +205,12 @@ def replicate(obj, mesh: Mesh, device) -> Any:
 
 
 def reduce_gradients(params: Iterable[torch.nn.Parameter], mesh: Mesh) -> None:
-    """Each parameter's gradient becomes the mean of the data axis's
-    gradients (so the step's gradient is that of the mean loss over the
-    global batch), summed in a few flat buckets."""
-    if mesh.data_group is None:
+    """Each parameter's gradient becomes the sum of the world's over the
+    data axis's size D (so the step's gradient is that of the mean loss
+    over the global batch: each band's gradient is that of its share of
+    its group's loss, and a group's bands' shares add up to it), summed in
+    a few flat buckets."""
+    if mesh.group is None:
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
@@ -204,7 +218,7 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter], mesh: Mesh) -> None:
     inv = 1.0 / mesh.size
 
     def op(flat):
-        dist.all_reduce(flat, group=mesh.data_group)
+        dist.all_reduce(flat, group=mesh.group)
         flat.mul_(inv)
 
     _flat_collective(grads, grads[0].device, op)

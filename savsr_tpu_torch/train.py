@@ -15,10 +15,16 @@ N; models/sr_model.py):
   python -m torch.distributed.run --nproc_per_node N -m savsr_tpu_torch.train \
       -opt options/train/SAVSR/train_SAVSR_Vimeo90K_asBI.yml --launcher pytorch
 
+With ``mesh: {data: D, spatial: S}`` in the config (D x S = N) each frame
+is split by height over the S ranks of a data group, which train on one
+batch: their sampler and datasets' draws are keyed by the data index, and
+each step takes band 0's batch on every band (worker threads may order the
+per-item crops and flips apart; ``SRModel.share_group_batch``). The global
+batch is ``batch_size_per_gpu`` x D.
+
 Not ported yet, each raising NotImplementedError with the option's name:
 ``train: bucket_train``, ``train: degrade_on_device``, perceptual/GAN
-losses, ``val: bucket_eval``, the recurrent model family, REDS, lmdb,
-spatially sharded training (``mesh: spatial`` > 1; the eval runs on bands).
+losses, ``val: bucket_eval``, the recurrent model family, REDS, lmdb.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from .data import EnlargedSampler, build_dataloader, build_dataset
 from .data.loader import CPUPrefetcher, DevicePrefetcher
 from .models import build_model
+from .parallel import mesh_axes
 from .utils.dist_util import barrier, destroy_dist
 from .utils.logger import (AvgTimer, MessageLogger, get_env_info, get_root_logger,
                            init_tb_logger)
@@ -66,14 +73,17 @@ def create_train_val_dataloader(opt, logger):
         if phase != "train":
             raise ValueError(f"Dataset phase {phase} is not recognized.")
         enlarge = dataset_opt.get("dataset_enlarge_ratio", 1)
-        train_set = build_dataset(dataset_opt, seed=opt["manual_seed"], rank=opt["rank"])
-        train_sampler = EnlargedSampler(len(train_set), opt["world_size"], opt["rank"], enlarge,
+        # the data groups split the global batch; the bands of a group share it
+        data, spatial = mesh_axes(opt, opt["world_size"])
+        data_index = opt["rank"] // spatial
+        train_set = build_dataset(dataset_opt, seed=opt["manual_seed"], rank=data_index)
+        train_sampler = EnlargedSampler(len(train_set), data, data_index, enlarge,
                                         batch_size=dataset_opt["batch_size_per_gpu"],
                                         accum_steps=int(opt["train"].get("accum_steps", 1)))
         train_loader = build_dataloader(train_set, dataset_opt, sampler=train_sampler,
                                         seed=opt["manual_seed"])
         num_iter_per_epoch = math.ceil(
-            len(train_set) * enlarge / (dataset_opt["batch_size_per_gpu"] * opt["world_size"]))
+            len(train_set) * enlarge / (dataset_opt["batch_size_per_gpu"] * data))
         total_iters = int(opt["train"]["total_iter"])
         total_epochs = math.ceil(total_iters / num_iter_per_epoch)
         logger.info(
@@ -81,7 +91,8 @@ def create_train_val_dataloader(opt, logger):
             f"\n\tNumber of train images: {len(train_set)}"
             f"\n\tDataset enlarge ratio: {enlarge}"
             f"\n\tBatch size per device: {dataset_opt['batch_size_per_gpu']}"
-            f"\n\tWorld size (process count): {opt['world_size']}"
+            f"\n\tWorld size (process count): {opt['world_size']} (mesh data {data} x "
+            f"spatial {spatial})"
             f"\n\tRequire iter number per epoch: {num_iter_per_epoch}"
             f"\n\tTotal epochs: {total_epochs}; iters: {total_iters}.")
     return train_loader, val_loaders, total_epochs, total_iters

@@ -475,7 +475,8 @@ def test_ranks_crop_apart_and_share_the_scale(tmp_path):
 def test_spatial_mesh_axes_and_what_raises(tmp_path, monkeypatch):
     """``mesh: {data: 1, spatial: 2}`` on a world of 2 builds a mesh of
     those axes (rank 1: data index 0, band 1 of a band group of ranks 0 and
-    1); spatially sharded training raises by name (ROADMAP A.5);
+    1); a trainer on that mesh builds, its mesh holding the band group
+    and the data group;
     ``--launcher pytorch`` outside torchrun raises naming its environment
     (it never runs as a world of one); ``num_gpu: 2`` without a launcher
     names the torchrun command; a mesh other than the world size raises."""
@@ -501,8 +502,10 @@ def test_spatial_mesh_axes_and_what_raises(tmp_path, monkeypatch):
         assert filled.shape == mesh.shape
         opt, _ = parse_options(str(tmp_path), True, ["-opt", str(cfg), "--launcher", "pytorch",
                                                      "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="spatially sharded training.*ROADMAP A.5"):
-            build_model(opt)
+        model = build_model(opt)
+        assert model.is_train and model.mesh.shape == {"data": 1, "spatial": 2}
+        assert model.mesh.bands.group is not None and model.mesh.data_group is not None
+        assert (model.mesh.bands.index, model.mesh.bands.data) == (1, 1)
     finally:
         dist.destroy_process_group()
     with pytest.raises(ValueError, match="world size"):
